@@ -6,16 +6,24 @@
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
-1. build   -- compile the CUDA kernels from ``ibamr_tpu_torch/csrc``.
-2. kernels -- at the flagship shapes (a real pack of the 316x316 shell on
-   the 256^3 grid) each kernel against its plain PyTorch version on the
-   card, two kernel runs bitwise equal, and the times of the kernel, the
-   plain version and one ``torch.bmm`` yardstick beside the kernel's bound.
+1. build   -- compile the four CUDA kernels from ``ibamr_tpu_torch/csrc``.
+2. kernels -- at the flagship shapes (a real pack and a real per-tile
+   bucketing of the 316x316 shell on the 256^3 grid) each kernel against
+   its plain PyTorch version on the card, two kernel runs bitwise equal,
+   and the times of the kernel, the plain version and one ``torch.bmm``
+   yardstick beside the kernel's bound.
 3. parity  -- 3 midpoint steps of the 32^3 shell (16x16) on the GPU (the
-   kernels) and on the CPU (the plain versions) from the same state.
+   kernels) and on the CPU (the plain versions) from the same state, on
+   the ``pallas_packed`` and the ``pallas`` engine; a buffered and an
+   exceeded overflow through each engine against the CPU scatter oracle.
 4. path    -- the flagship step, ``build_shell_example(n_cells=256,
    n_lat=316, n_lon=316, use_fast_interaction="pallas_packed")``, warmed
    up and timed; the kernel launch counts of exactly this run.
+5. driver  -- the ex4 driver, ``ibamr_tpu_torch.examples.ib_explicit_ex4
+   .run``, on the committed ``input3d.northstar`` (256^3, 316x316 shell)
+   with ``IBMethod.transfer_engine = "pallas"``: steps/s, the metrics log,
+   the kernel launches of exactly this run, the checkpoint it wrote
+   restored bitwise, and a restart from its mid-run checkpoint.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -30,12 +38,14 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and f32
 # FLOP/s outside the tensor cores (the kernels use f32 FMA, no TF32).
@@ -51,7 +61,20 @@ TOL_PARITY_U = 1e-4      # GPU vs CPU step, relative to max|u|
 FLAGSHIP = dict(n_cells=256, n_lat=316, n_lon=316)
 DT_FLAGSHIP = 5e-5       # bench.py's flagship timestep
 WARMUP, STEPS = 3, 20    # flagship steps before and inside the timing
+DRIVER_INPUT = "examples/IB/explicit/ex4/input3d.northstar"
+DRIVER_STEPS = 20        # driver phase: steps, viz every 10, restart every 10
 DEVICE = "cuda"
+# the TPU kernel each CUDA kernel replaces, and its source
+KERNELS = {
+    "packed_spread": ("ibamr_tpu_torch/csrc/packed_spread.cu",
+                      "ibamr_tpu/ops/pallas_interaction.py:250"),
+    "packed_interp": ("ibamr_tpu_torch/csrc/packed_interp.cu",
+                      "ibamr_tpu/ops/pallas_interaction.py:314"),
+    "tile_spread": ("ibamr_tpu_torch/csrc/tile_spread.cu",
+                    "ibamr_tpu/ops/pallas_interaction.py:94"),
+    "tile_interp": ("ibamr_tpu_torch/csrc/tile_interp.cu",
+                    "ibamr_tpu/ops/pallas_interaction.py:195"),
+}
 
 
 def log(msg: str) -> None:
@@ -93,6 +116,50 @@ def phase_build() -> None:
             log(f"[build] {name}: {line.strip()}")
 
 
+def _check_kernel(name: str, kernel, plain, library, nbytes: int,
+                  ops: float, live=None, note: str = "") -> dict:
+    """One kernel against its plain version on the same inputs: max
+    abs error (on live slots where ``live`` is given: the engine weights
+    the rest by 0), run-to-run bitwise equality, and the times of the
+    kernel, the plain version and the ``torch.bmm`` yardstick beside the
+    bound of ``nbytes`` moved and ``ops`` operations."""
+    k1, k2, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    diff, mag = (k1 - ref).abs(), ref.abs()
+    if live is not None:
+        diff, mag = diff * live, mag * live
+    err, scale = float(diff.max()), float(mag.max())
+    bitwise = bool(torch.equal(k1, k2))
+    del k1, k2, ref, diff, mag
+    ms = time_ms(kernel, 50)
+    plain_ms = time_ms(plain, 5)
+    library_ms = time_ms(library, 10)
+    bms, by = bound(nbytes, ops)
+    log(f"[kernels] {name}: max|kernel-plain|"
+        f"{' on live slots' if live is not None else ''}={err:.3e} "
+        f"(tol {TOL_KERNEL:g}*max|plain| = {TOL_KERNEL * scale:.3e}) "
+        f"bitwise run-to-run={bitwise} kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms(bmm, {note})="
+        f"{library_ms:.4f} bound_ms={bms:.4f} ({by}, {nbytes} B)")
+    if not (err <= TOL_KERNEL * scale and bitwise):
+        raise AssertionError(f"{name} disagrees with its plain version or "
+                             "is not run-to-run bitwise")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=library_ms)
+
+
+def _touched_entries(wx, wy, wz, live, tid, B, P, nz) -> int:
+    """Distinct tile entries (t, p, z) under the live slots' supports:
+    the bytes of T an interp of this data must read."""
+    lw = live[:, None, :].to(wz.dtype)
+    touched = torch.einsum("qam,qbm,qzm->qabz", (wx != 0) * lw,
+                           (wy != 0).to(wz.dtype), (wz != 0).to(wz.dtype))
+    per_tile = torch.zeros((B, P, nz), dtype=wz.dtype, device=wz.device)
+    per_tile.index_add_(0, tid.to(torch.int64),
+                        touched.reshape(tid.shape[0], P, nz))
+    return int((per_tile != 0).sum())
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version at the flagship shapes."""
     from ibamr_tpu_torch.grid import StaggeredGrid
@@ -108,9 +175,16 @@ def phase_kernels() -> dict:
     grid = StaggeredGrid(n=(n,) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
     shell = make_spherical_shell(FLAGSHIP["n_lat"], FLAGSHIP["n_lon"], 0.25,
                                  (0.5, 0.5, 0.5), 1.0, 0.75, 1.2)
+    X = torch.tensor(shell.vertices, dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    offs = _centering_offsets(grid, 0)
+    F = torch.randn(X.shape[0], generator=gen).to(dev)
+    f = torch.randn(grid.n, generator=gen).to(dev)
+    rows = {}
+
+    # -- packed kernels, on a real pack ----------------------------------
     eng = construct_transfer_engine("pallas_packed", grid, shell.vertices,
                                     "IB_4", device=dev)
-    X = torch.tensor(shell.vertices, dtype=torch.float32, device=dev)
     b = eng.buckets(X)
     geom = eng.geom
     Q, c = b.wb.shape
@@ -124,137 +198,137 @@ def phase_kernels() -> dict:
         f"nz={n} live slots={n_live} occupied tiles="
         f"{int((per_tile > 0).sum())} max chunks per tile="
         f"{int(per_tile.max())} overflow={b.any_overflow}")
-
-    gen = torch.Generator().manual_seed(0)
-    offs = _centering_offsets(grid, 0)
-    F = torch.randn(X.shape[0], generator=gen).to(dev)
     coef = (bucketed_channel(b, F) * b.wb / grid.cell_volume).contiguous()
-    f = torch.randn(grid.n, generator=gen).to(dev)
     T_in = _extract_tiles(geom, grid, f).contiguous()
     tid, Xb = b.tile_of_chunk, b.Xb
     wx, wy, wz = ci.tile_weights(geom, grid, offs, tid, Xb)
-    rows = {}
-
-    # -- spread ---------------------------------------------------------
-    k1 = ci.packed_spread(geom, grid, offs, tid, Xb, coef)
-    k2 = ci.packed_spread(geom, grid, offs, tid, Xb, coef)
-    ref = ci.packed_spread_plain(geom, grid, offs, tid, Xb, coef)
-    torch.cuda.synchronize()
-    err = float((k1 - ref).abs().max())
-    scale = float(ref.abs().max())
-    bitwise = bool(torch.equal(k1, k2))
     A = (wx[:, :, None, :] * wy[:, None, :, :]).reshape(Q, P, c)
     Wzc = (wz * coef[:, None, :]).transpose(1, 2).contiguous()
-    ms = time_ms(lambda: ci.packed_spread(geom, grid, offs, tid, Xb, coef),
-                 50)
-    plain_ms = time_ms(lambda: ci.packed_spread_plain(geom, grid, offs, tid,
-                                                      Xb, coef), 5)
-    library_ms = time_ms(lambda: torch.bmm(A, Wzc), 10)
-    nbytes = 4 * (tid.numel() + Xb.numel() + coef.numel() + k1.numel())
-    bms, by = bound(nbytes, n_live * OPS_PER_MARKER)
-    log(f"[kernels] packed_spread: max|kernel-plain|={err:.3e} "
-        f"(tol {TOL_KERNEL:g}*max|plain| = {TOL_KERNEL * scale:.3e}) "
-        f"bitwise run-to-run={bitwise} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms(bmm, product only)="
-        f"{library_ms:.4f} bound_ms={bms:.4f} ({by}, {nbytes} B)")
-    if not (err <= TOL_KERNEL * scale and bitwise):
-        raise AssertionError("packed_spread disagrees with its plain "
-                             "version or is not run-to-run bitwise")
-    rows["packed_spread"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bms, bound_by=by,
-                                 library_ms=library_ms)
-    del k1, k2, ref, A, Wzc
-
-    # -- interp ---------------------------------------------------------
-    k1 = ci.packed_interp(geom, grid, offs, tid, Xb, T_in)
-    k2 = ci.packed_interp(geom, grid, offs, tid, Xb, T_in)
-    ref = ci.packed_interp_plain(geom, grid, offs, tid, Xb, T_in)
-    torch.cuda.synchronize()
-    # compare on live slots: the engine multiplies the rest by wb = 0
-    err = float(((k1 - ref) * live).abs().max())
-    scale = float((ref * live).abs().max())
-    bitwise = bool(torch.equal(k1, k2))
+    # a spread reads every coef but the X of live slots (coef != 0) only
+    rows["packed_spread"] = _check_kernel(
+        "packed_spread",
+        lambda: ci.packed_spread(geom, grid, offs, tid, Xb, coef),
+        lambda: ci.packed_spread_plain(geom, grid, offs, tid, Xb, coef),
+        lambda: torch.bmm(A, Wzc),
+        4 * (tid.numel() + coef.numel() + 3 * n_live + B * P * n),
+        n_live * OPS_PER_MARKER, note="product only")
+    del A, Wzc
+    n_touched = _touched_entries(wx, wy, wz, live, tid, B, P, n)
     Tq = T_in[tid.to(torch.int64)].contiguous()
-    ms = time_ms(lambda: ci.packed_interp(geom, grid, offs, tid, Xb, T_in),
-                 50)
-    plain_ms = time_ms(lambda: ci.packed_interp_plain(geom, grid, offs, tid,
-                                                      Xb, T_in), 5)
-    library_ms = time_ms(lambda: torch.bmm(Tq, wz), 10)
-    # bytes this run's data needs: the distinct tile entries under the
-    # live markers' supports, read once, plus the marker inputs and output
-    lw = live[:, None, :].to(wz.dtype)
-    touched = torch.einsum("qam,qbm,qzm->qabz", (wx != 0) * lw,
-                           (wy != 0).to(wz.dtype), (wz != 0).to(wz.dtype))
-    per_tile = torch.zeros((B, P, n), dtype=wz.dtype, device=dev)
-    per_tile.index_add_(0, tid.to(torch.int64), touched.reshape(Q, P, n))
-    n_touched = int((per_tile != 0).sum())
-    nbytes = 4 * (tid.numel() + Xb.numel() + n_touched + k1.numel())
-    bms, by = bound(nbytes, n_live * OPS_PER_MARKER)
-    log(f"[kernels] packed_interp: max|kernel-plain| on live slots="
-        f"{err:.3e} (tol {TOL_KERNEL:g}*max|plain| = "
-        f"{TOL_KERNEL * scale:.3e}) bitwise run-to-run={bitwise} "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms(bmm, z-contraction only)={library_ms:.4f} "
-        f"bound_ms={bms:.4f} ({by}, {nbytes} B, {n_touched} tile "
-        f"entries touched)")
-    if not (err <= TOL_KERNEL * scale and bitwise):
-        raise AssertionError("packed_interp disagrees with its plain "
-                             "version or is not run-to-run bitwise")
-    rows["packed_interp"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bms, bound_by=by,
-                                 library_ms=library_ms)
+    rows["packed_interp"] = _check_kernel(
+        "packed_interp",
+        lambda: ci.packed_interp(geom, grid, offs, tid, Xb, T_in),
+        lambda: ci.packed_interp_plain(geom, grid, offs, tid, Xb, T_in),
+        lambda: torch.bmm(Tq, wz),
+        4 * (tid.numel() + Xb.numel() + n_touched + Q * c),
+        n_live * OPS_PER_MARKER, live=live,
+        note=f"z-contraction only; {n_touched} tile entries touched")
+    del Tq, wx, wy, wz
+
+    # -- tile kernels, on the pallas engine's real per-tile bucketing ------
+    eng = construct_transfer_engine("pallas", grid, shell.vertices, "IB_4",
+                                    device=dev)
+    b = eng.buckets(X)
+    geom = eng.geom
+    cap = geom.cap
+    live = b.wb != 0
+    n_live = int(live.sum())
+    n_over = int((b.slot_of_marker >= B * cap).sum())
+    log(f"[kernels] flagship per-tile bucketing: N={X.shape[0]} B={B} "
+        f"cap={cap} P={P} nz={n} live slots={n_live} (slot utilization "
+        f"{n_live / (B * cap):.3f}) occupied tiles="
+        f"{int(live.any(1).sum())} hottest tile "
+        f"{int(live.sum(1).max())} overflow markers={n_over} "
+        f"(buffer {b.o_idx.numel()}, exceeded={b.exceeded})")
+    if B != 1024 or cap != 1024:
+        raise AssertionError(f"expected B = cap = 1024, got {B}, {cap}")
+    coef = (bucketed_channel(b, F) * b.wb / grid.cell_volume).contiguous()
+    Xb = b.Xb
+    tid = torch.arange(B, dtype=torch.int32, device=dev)
+    wx, wy, wz = ci.tile_weights(geom, grid, offs, tid, Xb)
+    A = (wx[:, :, None, :] * wy[:, None, :, :]).reshape(B, P, cap)
+    Wzc = (wz * coef[:, None, :]).transpose(1, 2).contiguous()
+    rows["tile_spread"] = _check_kernel(
+        "tile_spread",
+        lambda: ci.tile_spread(geom, grid, offs, Xb, coef),
+        lambda: ci.tile_spread_plain(geom, grid, offs, Xb, coef),
+        lambda: torch.bmm(A, Wzc),
+        4 * (coef.numel() + 3 * n_live + B * P * n),
+        n_live * OPS_PER_MARKER, note="product only")
+    del A, Wzc
+    n_touched = _touched_entries(wx, wy, wz, live, tid, B, P, n)
+    rows["tile_interp"] = _check_kernel(
+        "tile_interp",
+        lambda: ci.tile_interp(geom, grid, offs, Xb, T_in),
+        lambda: ci.tile_interp_plain(geom, grid, offs, Xb, T_in),
+        lambda: torch.bmm(T_in, wz),
+        4 * (Xb.numel() + n_touched + B * cap),
+        n_live * OPS_PER_MARKER, live=live,
+        note=f"z-contraction only; {n_touched} tile entries touched")
     return rows
 
 
-def phase_parity() -> None:
-    """3 midpoint steps of the 32^3 shell: GPU (kernels) vs CPU (plain)."""
+def _to(s, dev):
+    """An IBState's tensors on ``dev``."""
     from ibamr_tpu_torch.integrators.ib import IBState
     from ibamr_tpu_torch.integrators.ins import INSState
+
+    return IBState(ins=INSState(*(tuple(x.to(dev) for x in v)
+                                  if isinstance(v, tuple) else v.to(dev)
+                                  for v in s.ins)),
+                   X=s.X.to(dev), U=s.U.to(dev), mask=s.mask.to(dev))
+
+
+# the kernels each engine launches
+ENGINE_KERNELS = {"pallas_packed": ("packed_spread", "packed_interp"),
+                  "pallas": ("tile_spread", "tile_interp")}
+
+
+def phase_parity() -> None:
+    """3 midpoint steps of the 32^3 shell: GPU (kernels) vs CPU (plain),
+    on each engine, then the overflow fallbacks on the card."""
     from ibamr_tpu_torch.models.shell3d import build_shell_example
     from ibamr_tpu_torch.ops import cuda_interaction as ci
 
-    kw = dict(n_cells=32, n_lat=16, n_lon=16,
-              use_fast_interaction="pallas_packed", dtype=torch.float32)
-    gpu, _ = build_shell_example(device=DEVICE, **kw)
-    cpu, cs = build_shell_example(device="cpu", **kw)
-
-    def to(s, dev):
-        return IBState(ins=INSState(*(tuple(x.to(dev) for x in v)
-                                      if isinstance(v, tuple) else v.to(dev)
-                                      for v in s.ins)),
-                       X=s.X.to(dev), U=s.U.to(dev), mask=s.mask.to(dev))
-
-    gs = to(cs, DEVICE)
-    before = dict(ci.LAUNCHES)
-    for _ in range(3):
-        gs, _ = gpu.step_with_stats(gs, 1e-3)
-        cs, _ = cpu.step_with_stats(cs, 1e-3)
-    torch.cuda.synchronize()
-    ran = {k: ci.LAUNCHES[k] - before[k] for k in before}
-    gX, cX = gs.X.cpu(), cs.X
-    ex = float((gX - cX).abs().max() / cX.abs().max())
-    eu = max(float((a.cpu() - b).abs().max() / b.abs().max())
-             for a, b in zip(gs.ins.u, cs.ins.u))
-    finite = all(bool(torch.isfinite(t).all())
-                 for t in (gs.X, *gs.ins.u, gs.ins.p))
-    log(f"[parity] 32^3 shell 16x16, 3 midpoint steps dt=1e-3, f32: "
-        f"max|X_gpu-X_cpu|/max|X|={ex:.3e} (tol {TOL_PARITY_X:g}) "
-        f"max_d |u_gpu-u_cpu|/max|u|={eu:.3e} (tol {TOL_PARITY_U:g}) "
-        f"finite={finite} kernel launches={ran}")
-    if not (ex <= TOL_PARITY_X and eu <= TOL_PARITY_U and finite):
-        raise AssertionError("GPU and CPU steps disagree")
-    if min(ran.values()) == 0:
-        raise AssertionError("the GPU step did not launch the kernels")
+    for engine, kernels in ENGINE_KERNELS.items():
+        kw = dict(n_cells=32, n_lat=16, n_lon=16,
+                  use_fast_interaction=engine, dtype=torch.float32)
+        gpu, _ = build_shell_example(device=DEVICE, **kw)
+        cpu, cs = build_shell_example(device="cpu", **kw)
+        gs = _to(cs, DEVICE)
+        before = dict(ci.LAUNCHES)
+        for _ in range(3):
+            gs, _ = gpu.step_with_stats(gs, 1e-3)
+            cs, _ = cpu.step_with_stats(cs, 1e-3)
+        torch.cuda.synchronize()
+        ran = {k: ci.LAUNCHES[k] - before[k] for k in before}
+        gX, cX = gs.X.cpu(), cs.X
+        ex = float((gX - cX).abs().max() / cX.abs().max())
+        eu = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                 for a, b in zip(gs.ins.u, cs.ins.u))
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (gs.X, *gs.ins.u, gs.ins.p))
+        log(f"[parity] {engine}: 32^3 shell 16x16, 3 midpoint steps "
+            f"dt=1e-3, f32: max|X_gpu-X_cpu|/max|X|={ex:.3e} (tol "
+            f"{TOL_PARITY_X:g}) max_d |u_gpu-u_cpu|/max|u|={eu:.3e} (tol "
+            f"{TOL_PARITY_U:g}) finite={finite} kernel launches={ran}")
+        if not (ex <= TOL_PARITY_X and eu <= TOL_PARITY_U and finite):
+            raise AssertionError(f"GPU and CPU steps disagree on {engine}")
+        if min(ran[k] for k in kernels) == 0:
+            raise AssertionError(f"the GPU step on {engine} did not launch "
+                                 f"its kernels {kernels}")
     check_overflow()
 
 
 def check_overflow() -> None:
-    """Markers beyond the chunk capacity take the scatter fallback on the
-    GPU (deterministic accumulation): a buffered and an exceeded overflow,
-    each twice (bitwise equal) and against the CPU scatter oracle."""
+    """Markers beyond the layout's capacity take the scatter fallback on
+    the GPU (deterministic accumulation): for each engine a buffered and
+    an exceeded overflow, each twice (bitwise equal) and against the CPU
+    scatter oracle."""
     from ibamr_tpu_torch.grid import StaggeredGrid
     from ibamr_tpu_torch.ops import interaction
-    from ibamr_tpu_torch.ops.cuda_interaction import PackedKernelInteraction
+    from ibamr_tpu_torch.ops.cuda_interaction import (PackedKernelInteraction,
+                                                      TileKernelInteraction)
 
     grid = StaggeredGrid(n=(32,) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
     rng = np.random.default_rng(1)
@@ -265,25 +339,31 @@ def check_overflow() -> None:
     f_ref = interaction.spread_vel(F, grid, X)
     U_ref = interaction.interpolate_vel(u, grid, X)
     Xd, Fd, ud = X.to(DEVICE), F.to(DEVICE), tuple(c.to(DEVICE) for c in u)
-    for ocap in (None, 64):
-        eng = PackedKernelInteraction(grid, chunk=128, nchunks=4,
-                                      overflow_cap=ocap, device=DEVICE)
-        b = eng.buckets(Xd)
-        f1, f2 = (eng.spread_vel(Fd, Xd, b=b) for _ in range(2))
-        U1, U2 = (eng.interpolate_vel(ud, Xd, b=b) for _ in range(2))
-        bitwise = (all(torch.equal(p, q) for p, q in zip(f1, f2))
-                   and torch.equal(U1, U2))
-        ef = max(float((a.cpu() - r).abs().max() / r.abs().max())
-                 for a, r in zip(f1, f_ref))
-        eU = float((U1.cpu() - U_ref).abs().max() / U_ref.abs().max())
-        log(f"[parity] overflow (cap {b.o_idx.numel()}, exceeded="
-            f"{b.exceeded}): spread vs CPU oracle {ef:.3e}, interp "
-            f"{eU:.3e} (tol {TOL_KERNEL:g}), bitwise run-to-run={bitwise}")
-        if not (b.any_overflow and b.exceeded == (ocap is not None)):
-            raise AssertionError("the overflow case did not overflow")
-        if not (bitwise and ef <= TOL_KERNEL and eU <= TOL_KERNEL):
-            raise AssertionError("the GPU overflow fallback is wrong or "
-                                 "not run-to-run deterministic")
+    engines = {
+        "pallas_packed": lambda ocap: PackedKernelInteraction(
+            grid, chunk=128, nchunks=4, overflow_cap=ocap, device=DEVICE),
+        "pallas": lambda ocap: TileKernelInteraction(
+            grid, cap=32, overflow_cap=ocap, device=DEVICE)}
+    for engine, make in engines.items():
+        for ocap in (None, 64):
+            eng = make(ocap)
+            b = eng.buckets(Xd)
+            f1, f2 = (eng.spread_vel(Fd, Xd, b=b) for _ in range(2))
+            U1, U2 = (eng.interpolate_vel(ud, Xd, b=b) for _ in range(2))
+            bitwise = (all(torch.equal(p, q) for p, q in zip(f1, f2))
+                       and torch.equal(U1, U2))
+            ef = max(float((a.cpu() - r).abs().max() / r.abs().max())
+                     for a, r in zip(f1, f_ref))
+            eU = float((U1.cpu() - U_ref).abs().max() / U_ref.abs().max())
+            log(f"[parity] {engine} overflow (cap {b.o_idx.numel()}, "
+                f"exceeded={b.exceeded}): spread vs CPU oracle {ef:.3e}, "
+                f"interp {eU:.3e} (tol {TOL_KERNEL:g}), bitwise "
+                f"run-to-run={bitwise}")
+            if not (b.any_overflow and b.exceeded == (ocap is not None)):
+                raise AssertionError("the overflow case did not overflow")
+            if not (bitwise and ef <= TOL_KERNEL and eU <= TOL_KERNEL):
+                raise AssertionError("the GPU overflow fallback is wrong "
+                                     "or not run-to-run deterministic")
 
 
 def phase_path(warmup: int, steps: int):
@@ -336,7 +416,8 @@ def phase_path(warmup: int, steps: int):
         raise AssertionError("flagship state is not finite")
     if rel_div > 1e-4:
         raise AssertionError("flagship velocity is not divergence-free")
-    if launches != {"packed_spread": 3 * total, "packed_interp": 6 * total}:
+    if launches != {**dict.fromkeys(KERNELS, 0), "packed_spread": 3 * total,
+                    "packed_interp": 6 * total}:
         raise AssertionError(f"unexpected kernel launch counts {launches}")
     return launches, 1e3 * wall / steps, integ, state
 
@@ -377,23 +458,127 @@ def _host_ms(fn, reps: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def phase_breakdown(integ, state, step_ms: float) -> None:
+def phase_driver(steps: int):
+    """The ex4 driver on the committed north-star input, on the ``pallas``
+    engine; returns the kernel launch counts of exactly the driven run,
+    ms per step of the warm restarted leg, the input database it ran and
+    the state it reached."""
+    from ibamr_tpu_torch.examples import ib_explicit_ex4
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.ops import stencils
+    from ibamr_tpu_torch.utils.checkpoint import restore_checkpoint
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+    from ibamr_tpu_torch.utils.tree import flatten_with_path
+
+    db = parse_input_file(os.path.join(ROOT, DRIVER_INPUT))
+    with tempfile.TemporaryDirectory() as tmp:
+        main = db.get_database("Main")
+        for key, val in (("log_file", os.path.join(tmp, "metrics.jsonl")),
+                         ("viz_dirname", os.path.join(tmp, "viz")),
+                         ("restart_dirname", os.path.join(tmp, "restart")),
+                         ("viz_dump_interval", steps // 2),
+                         ("restart_interval", steps // 2)):
+            main.put(key, val)
+        db.get_database("INSStaggeredHierarchyIntegrator").put("num_steps",
+                                                               steps)
+        db.get_database("IBMethod").put("transfer_engine", "pallas")
+        geo = db.get_database("CartesianGeometry")
+        shell = db.get_database("Shell")
+        log(f"[driver] {DRIVER_INPUT}: grid {geo.get_int_array('n_cells')}, "
+            f"shell {shell.get_int('n_lat')}x{shell.get_int('n_lon')}, "
+            f"engine pallas, {steps} steps, viz and restart every "
+            f"{steps // 2}")
+        timer = TimerManager.instance()
+        timer.reset()
+        ci.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = ib_explicit_ex4.run(db, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ci.LAUNCHES)
+        adv = timer.get("IB::advanceHierarchy")
+        run_s, chunks = adv.total, adv.count
+        with open(main.get_string("log_file")) as fh:
+            lines = fh.read().splitlines()
+        for ln in lines:
+            log(f"[driver] metrics {ln}")
+        viz = sorted(os.listdir(main.get_string("viz_dirname")))
+        rst = main.get_string("restart_dirname")
+        ckpts = sorted(os.listdir(rst))
+        saved, k, _ = restore_checkpoint(rst, state, step=steps)
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            flatten_with_path(saved), flatten_with_path(state)))
+        # a restart from the mid-run checkpoint reaches the same state
+        again = ib_explicit_ex4.run(db, device=DEVICE,
+                                    restart=(rst, steps // 2))
+        torch.cuda.synchronize()
+        err_X = float((again.X - state.X).abs().max() / state.X.abs().max())
+        restart_bitwise = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            flatten_with_path(again), flatten_with_path(state)))
+        # the restarted leg runs on a warm process (the first chunk of the
+        # run pays the phase's one-time CUDA/cuFFT set-up)
+        step_ms = 1e3 * (adv.total - run_s) / (steps - steps // 2)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (state.X, *state.ins.u, state.ins.p))
+    dx = tuple((hi - lo) / n for lo, hi, n in zip(
+        geo.get_float_array("x_lo"), geo.get_float_array("x_up"),
+        geo.get_int_array("n_cells")))
+    umax = max(float(c.abs().max()) for c in state.ins.u)
+    div = float(stencils.divergence(state.ins.u, dx).abs().max())
+    rel_div = div * dx[0] / max(umax, 1e-30)
+    log(f"[driver] {torch.cuda.get_device_name(0)}: run of {steps} steps in "
+        f"{chunks} chunks: {steps / run_s:.3f} steps/s, "
+        f"{1e3 * run_s / steps:.3f} ms/step with the first chunk's set-up; "
+        f"restarted leg of {steps - steps // 2} steps: "
+        f"{1e3 / step_ms:.3f} steps/s, {step_ms:.3f} ms/step (host clock "
+        f"around each chunk and its synchronizing finite check); whole "
+        f"run {wall:.2f} s with build, metrics, viz and checkpoints")
+    log(f"[driver] metrics lines {len(lines)}, viz files {viz}, restart "
+        f"files {ckpts}; checkpoint of step {k} restored bitwise={same}; "
+        f"restart from step {steps // 2}: max|X-X_run|/max|X|={err_X:.3e} "
+        f"bitwise={restart_bitwise}")
+    log(f"[driver] final state finite={finite}, max|div u|*dx/max|u|="
+        f"{rel_div:.3e} (max|u|={umax:.3e}); kernel launches {launches} "
+        f"(per step: tile_spread 3, tile_interp 6)")
+    if not finite:
+        raise AssertionError("driver state is not finite")
+    if rel_div > 1e-4:
+        raise AssertionError("driver velocity is not divergence-free")
+    if launches != {**dict.fromkeys(KERNELS, 0), "tile_spread": 3 * steps,
+                    "tile_interp": 6 * steps}:
+        raise AssertionError(f"unexpected kernel launch counts {launches}")
+    if len(lines) != chunks or not same:
+        raise AssertionError("the driver's metrics log or checkpoint is "
+                             "wrong")
+    if not restart_bitwise:
+        raise AssertionError("the restarted run does not reach the state "
+                             "of the uninterrupted run bitwise")
+    return launches, step_ms, db, state
+
+
+def phase_breakdown(integ, state, step_ms: float, label: str) -> None:
     """Where a flagship step's time goes: each stage of
-    ``step_with_stats`` alone on the state the path phase reached (host
+    ``step_with_stats`` alone on the state a timed phase reached (host
     clock around a synchronize, and the profiler's device busy time),
-    then the top kernels of whole steps and the device's idle share."""
+    then the top kernels of whole steps and the device's idle share. An
+    engine without a refresh buckets twice per step."""
     ib, grid, dt, s = integ.ib, integ.ins.grid, DT_FLAGSHIP, state
     ctx = ib.prepare(s.X, s.mask)
     U = ib.interpolate_velocity(s.ins.u, grid, s.X, s.mask, ctx=ctx)
     Xh = s.X + 0.5 * dt * U
-    ctx_h, _ = ib.refresh(ctx, Xh, s.mask)
+    refresh = hasattr(ib.fast, "refresh")
+    ctx_h = ib.refresh(ctx, Xh, s.mask)[0] if refresh else \
+        ib.prepare(Xh, s.mask)
     F = ib.compute_force(Xh, U, s.ins.t)
     f = ib.spread_force(F, grid, Xh, s.mask, ctx=ctx_h)
-    stages = [
-        ("pack", 1, lambda: ib.prepare(s.X, s.mask)),
+    stages = [("pack", 1, lambda: ib.prepare(s.X, s.mask)),
+              ("refresh", 1, lambda: ib.refresh(ctx, Xh, s.mask))] \
+        if refresh else [("bucket", 2, lambda: ib.prepare(s.X, s.mask))]
+    stages += [
         ("interp", 2, lambda: ib.interpolate_velocity(
             s.ins.u, grid, s.X, s.mask, ctx=ctx)),
-        ("refresh", 1, lambda: ib.refresh(ctx, Xh, s.mask)),
         ("force", 1, lambda: ib.compute_force(Xh, U, s.ins.t)),
         ("spread", 1, lambda: ib.spread_force(F, grid, Xh, s.mask,
                                               ctx=ctx_h)),
@@ -402,7 +587,8 @@ def phase_breakdown(integ, state, step_ms: float) -> None:
     for name, per_step, fn in stages:
         host = _host_ms(fn, 10)
         dev, kernels, _ = _device_ms(fn, 3)
-        log(f"[breakdown] {name:8s} x{per_step}/step: host {host:.3f} ms, "
+        log(f"[breakdown] {label} {name:8s} x{per_step}/step: host "
+            f"{host:.3f} ms, "
             f"device busy {dev:.3f} ms in {kernels:.0f} kernels per call")
 
     def steps3():
@@ -412,24 +598,24 @@ def phase_breakdown(integ, state, step_ms: float) -> None:
 
     dev, kernels, prof = _device_ms(steps3, 1)
     dev, kernels = dev / 3, kernels / 3
-    log(f"[breakdown] whole step: device busy {dev:.3f} ms in "
-        f"{kernels:.0f} kernels, of {step_ms:.3f} ms/step (path phase): "
+    log(f"[breakdown] {label} whole step: device busy {dev:.3f} ms in "
+        f"{kernels:.0f} kernels, of {step_ms:.3f} ms/step (timed phase): "
         f"idle share {1 - dev / step_ms:.3f}")
     rows = sorted(prof.key_averages(), key=_self_device_us, reverse=True)
     for e in rows[:15]:
         us = _self_device_us(e)
         if us <= 0:
             break
-        log(f"[breakdown] kernel {e.key[:70]:70s} calls/step "
+        log(f"[breakdown] {label} kernel {e.key[:70]:70s} calls/step "
             f"{e.count / 3:6.1f} device {us / 3e3:.3f} ms/step")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,parity,path",
-                    help="comma-separated subset of kernels,parity,path"
-                    " (add 'breakdown' after path for a profile of the "
-                    "flagship step)")
+    ap.add_argument("--phases", default="kernels,parity,path,driver",
+                    help="comma-separated subset of kernels,parity,path,"
+                    "driver (add 'breakdown' for a profile of the step of "
+                    "each of path and driver that runs)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -448,18 +634,26 @@ def main(argv=None) -> int:
     rows = phase_kernels() if "kernels" in phases else {}
     if "parity" in phases:
         phase_parity()
-    launches = {}
+    launches = dict.fromkeys(KERNELS, 0)
     if "path" in phases:
-        launches, step_ms, integ, state = phase_path(WARMUP, STEPS)
+        ran, step_ms, integ, state = phase_path(WARMUP, STEPS)
+        launches = {k: launches[k] + ran[k] for k in launches}
         if "breakdown" in phases:
-            phase_breakdown(integ, state, step_ms)
+            phase_breakdown(integ, state, step_ms, "pallas_packed")
+        del integ, state
+    if "driver" in phases:
+        ran, step_ms, db, state = phase_driver(DRIVER_STEPS)
+        launches = {k: launches[k] + ran[k] for k in launches}
+        if "breakdown" in phases:
+            from ibamr_tpu_torch.models.shell3d import build_shell_example
 
-    src = {"packed_spread": ("ibamr_tpu_torch/csrc/packed_spread.cu",
-                             "ibamr_tpu/ops/pallas_interaction.py:250"),
-           "packed_interp": ("ibamr_tpu_torch/csrc/packed_interp.cu",
-                             "ibamr_tpu/ops/pallas_interaction.py:314")}
-    table = [dict(name=k, route="cuda", source=src[k][0],
-                  replaces=src[k][1], launches=launches.get(k, 0), **v)
+            # built as ib_explicit_ex4.run builds it, from the same database
+            integ, _ = build_shell_example(input_db=db, dtype=torch.float32,
+                                           device=DEVICE)
+            phase_breakdown(integ, state, step_ms, "pallas")
+
+    table = [dict(name=k, route="cuda", source=KERNELS[k][0],
+                  replaces=KERNELS[k][1], launches=launches[k], **v)
              for k, v in rows.items()]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ import torch
 from ibamr_tpu_torch.integrators.ib import IBState
 from ibamr_tpu_torch.integrators.ins import INSState
 from ibamr_tpu_torch.ops import forces
+from ibamr_tpu_torch.ops.interaction_fast import Buckets
 from ibamr_tpu_torch.ops.interaction_packed import PackedBuckets
 
 
@@ -59,16 +60,23 @@ def force_specs(specs, num_markers: int, device="cpu") -> forces.ForceSpecs:
     return forces.make_force_specs(springs, beams, num_markers=num_markers)
 
 
-def packed_buckets(b, device="cpu") -> PackedBuckets:
-    """A ``PackedBuckets`` layout; integer fields keep int32 and the two
-    overflow flags become host bools."""
+def buckets(b, device="cpu") -> Buckets:
+    """A per-tile ``Buckets`` layout; integer fields keep int32 and the
+    two overflow flags become host bools."""
     i32 = dict(dtype=torch.int32, device=device)
-    return PackedBuckets(
+    return Buckets(
         Xb=tensor(b.Xb, device), wb=tensor(b.wb, device),
         slot_of_marker=tensor(b.slot_of_marker, **i32),
         w_overflow=tensor(b.w_overflow, device),
         o_idx=tensor(b.o_idx, **i32), o_w=tensor(b.o_w, device),
         any_overflow=bool(np.asarray(b.any_overflow)),
         exceeded=bool(np.asarray(b.exceeded)),
-        x0=tuple(tensor(x, **i32) for x in b.x0),
-        tile_of_chunk=tensor(b.tile_of_chunk, **i32))
+        x0=tuple(tensor(x, **i32) for x in b.x0))
+
+
+def packed_buckets(b, device="cpu") -> PackedBuckets:
+    """A ``PackedBuckets`` layout, converted as :func:`buckets` plus its
+    chunk-to-tile map."""
+    return PackedBuckets(**buckets(b, device)._asdict(),
+                         tile_of_chunk=tensor(b.tile_of_chunk, device,
+                                              torch.int32))

@@ -9,9 +9,10 @@
   U^{n+1/2} = J(X^{n+1/2}) (u^n + u^{n+1})/2
   X^{n+1}   = X^n + dt U^{n+1/2}
 
-The step is eager PyTorch. With a packed transfer engine it reads two
+The step is eager PyTorch. With the packed transfer engine it reads two
 host values per step: the overflow flags of the pack and the hit of the
-half-step refresh.
+half-step refresh. An engine without a refresh (the tile engine) buckets
+twice per step instead and reads the overflow flags of each bucketing.
 """
 
 from __future__ import annotations
@@ -60,10 +61,14 @@ class IBMethod:
 
     def refresh(self, ctx, X: torch.Tensor, mask: torch.Tensor):
         """Slot-preserving context refresh at a drifted position; returns
-        ``(ctx, hit)``, or ``(None, None)`` without a packed engine."""
+        ``(ctx, hit)``, or ``(None, None)`` when the engine has no refresh
+        path and the caller must re-prepare."""
         if ctx is None or self.fast is None:
             return None, None
-        return self.fast.refresh(ctx, X, weights=mask)
+        r = getattr(self.fast, "refresh", None)
+        if r is None:
+            return None, None
+        return r(ctx, X, weights=mask)
 
     def _check_grid(self, grid: StaggeredGrid) -> None:
         eg = self.fast.grid
@@ -114,8 +119,8 @@ class IBExplicitIntegrator:
     def step_with_stats(self, state: IBState, dt: float):
         """``step`` plus ``{"refresh_hit": bool or None}``: True when the
         half-step context came from the slot-preserving refresh, False
-        when the drift bound forced a full re-pack, None without a
-        packed engine."""
+        when the drift bound forced a full re-pack, None when the engine
+        has no refresh (the half-step context is bucketed anew)."""
         grid = self.ins.grid
         ib = self.ib
         u_n, X_n = state.ins.u, state.X

@@ -16,6 +16,7 @@ solvers are not ported yet and raise.
 
 from __future__ import annotations
 
+import math
 from functools import partial
 from typing import NamedTuple, Optional, Tuple
 
@@ -104,6 +105,18 @@ class INSStaggeredIntegrator:
             pinc_coeffs=(rho / dt, -0.5 * mu))
         return INSState(u=u_new, p=p + p_inc, n_prev=n_curr,
                         t=state.t + dt, k=state.k + 1)
+
+    def cfl_dt(self, state: INSState, cfl: float = 0.5) -> float:
+        """Largest stable dt by the advective CFL condition (a host
+        read; the analog of the reference's global-min dt reduction)."""
+        umax = max(float(torch.max(torch.abs(c))) for c in state.u)
+        if umax == 0.0:
+            return math.inf
+        return cfl * min(self.grid.dx) / umax
+
+    def kinetic_energy(self, state: INSState) -> torch.Tensor:
+        ke = sum(torch.sum(torch.square(c)) for c in state.u)
+        return 0.5 * self.rho * ke * self.grid.cell_volume
 
     def max_divergence(self, state: INSState) -> torch.Tensor:
         return torch.max(torch.abs(stencils.divergence(state.u,

@@ -5,12 +5,13 @@ A latitude-longitude lattice of ``n_lat`` rings of ``n_lon`` markers
 (poles excluded) with ring and meridian springs and optional meridian
 beams, in a periodic unit box of incompressible fluid, IB_4 delta.
 
-Transfer engines: ``"pallas_packed"`` (the packed chunk layout driven by
-the CUDA spread/interp kernels, ``ops/cuda_interaction.py``) and
+Transfer engines (``ops/cuda_interaction.py``): ``"pallas_packed"`` (the
+packed chunk layout driven by the packed CUDA spread/interp kernels),
+``"pallas"`` (the per-tile layout driven by the tile kernels) and
 ``"scatter"`` (the scatter/gather oracle). The other engines of the
-reference registry, its engine resolver, its build-failure fallback
-chain and its ``input_db`` parsing are not ported yet; the port raises
-where the reference would degrade or resolve.
+reference registry, its engine resolver and its build-failure fallback
+chain are not ported yet: the port raises where the reference would
+resolve ``"auto"`` or degrade to another engine.
 """
 
 from __future__ import annotations
@@ -77,25 +78,66 @@ def make_spherical_shell(n_lat: int, n_lon: int, radius: float,
     return data
 
 
+def shell_volume(X: torch.Tensor, center: Tuple[float, float, float]):
+    """Approximate enclosed volume of the marker cloud treated as radial
+    samples: V ~ mean(r^3) * 4 pi / 3 (a diagnostic)."""
+    c = torch.tensor(center, dtype=X.dtype, device=X.device)
+    r = torch.sqrt(torch.sum((X - c) ** 2, dim=-1))
+    return (4.0 / 3.0) * math.pi * torch.mean(r ** 3)
+
+
+# the reference registry's engine names; the port builds PORTED_ENGINES
+KNOWN_ENGINES = ("scatter", "mxu", "packed", "pallas", "pallas_packed",
+                 "mxu_bf16", "packed_bf16", "packed3", "packed3_bf16",
+                 "hybrid_packed", "hybrid_packed_bf16", "hybrid_bf16")
+PORTED_ENGINES = ("scatter", "pallas", "pallas_packed")
+
+
+def normalize_engine_name(name) -> str:
+    """Map the ``use_fast_interaction`` vocabulary (True/False/str) to a
+    registry name, as the reference does."""
+    if name is True:
+        return "mxu"
+    if name is False or name is None or name == "scatter":
+        return "scatter"
+    return str(name).lower()
+
+
 def construct_transfer_engine(name, grid: StaggeredGrid, vertices,
                               kernel: str, device="cuda"):
-    """Build the named transfer engine for markers at ``vertices``:
-    ``"pallas_packed"`` or ``"scatter"``/``False`` (None: the scatter
-    path). Any other name raises: it is not ported yet."""
-    if name is False or name == "scatter":
+    """Build the named transfer engine for markers at ``vertices`` with
+    the reference's sizing: ``"pallas"`` (tile capacity 1.2 x the fullest
+    tile, at most 1024), ``"pallas_packed"`` (1.3 x the chunk demand) or
+    ``"scatter"`` (None: the scatter path). Another registry name raises
+    ``NotImplementedError``; a name outside the registry ``ValueError``."""
+    name = normalize_engine_name(name)
+    if name == "scatter":
         return None
-    if name != "pallas_packed":
+    if name not in KNOWN_ENGINES:
+        raise ValueError(f"unknown transfer engine {name!r}")
+    if name not in PORTED_ENGINES:
         raise NotImplementedError(
-            f"transfer engine {name!r} is not ported yet; use "
-            "'pallas_packed' or 'scatter'")
-    from ibamr_tpu_torch.ops.cuda_interaction import PackedKernelInteraction
+            f"transfer engine {name!r} is not ported yet; use one of "
+            f"{PORTED_ENGINES}")
+    from ibamr_tpu_torch.ops.cuda_interaction import (
+        PackedKernelInteraction, TileKernelInteraction)
+    from ibamr_tpu_torch.ops.interaction_fast import suggest_cap
     from ibamr_tpu_torch.ops.interaction_packed import suggest_chunks
 
+    overflow_cap = max(2048, vertices.shape[0] // 4)
+    if name == "pallas":
+        # pole-clustered tiles overflow into the compact scatter path;
+        # the bound keeps the dense capacity (and its padding) sane
+        cap = min(suggest_cap(grid, vertices, kernel=kernel, tile=8,
+                              slack=1.2), 1024)
+        return TileKernelInteraction(grid, kernel=kernel, tile=8, cap=cap,
+                                     overflow_cap=overflow_cap,
+                                     device=device)
     Q = suggest_chunks(grid, vertices, kernel=kernel, tile=8, chunk=128,
                        slack=1.3)
     return PackedKernelInteraction(
         grid, kernel=kernel, tile=8, chunk=128, nchunks=Q,
-        overflow_cap=max(2048, vertices.shape[0] // 4), device=device)
+        overflow_cap=overflow_cap, device=device)
 
 
 def build_shell_example(
@@ -111,29 +153,77 @@ def build_shell_example(
         mu: float = 0.05,
         kernel: str = "IB_4",
         convective_op_type: str = "centered",
-        use_fast_interaction="pallas_packed",
+        use_fast_interaction=None,
         dtype=torch.float32,
         input_db=None,
         spectral_dtype=None,
         device="cuda") -> Tuple[IBExplicitIntegrator, IBState]:
-    """Assemble the ex4-equivalent simulation (3D periodic unit box) on
-    ``device`` (the GPU unless ``device="cpu"``)."""
+    """Assemble the ex4-equivalent simulation (3D periodic box) on
+    ``device`` (the GPU unless ``device="cpu"``).
+
+    ``use_fast_interaction`` names the transfer engine (``"pallas"``,
+    ``"pallas_packed"``, ``"scatter"`` or False). ``input_db`` (an
+    ``InputDatabase``) overrides the keyword arguments as the reference
+    reads it: ``CartesianGeometry``, ``INSStaggeredHierarchyIntegrator``,
+    ``IBMethod`` (``delta_fcn``, ``transfer_engine``) and ``Shell``; the
+    file's ``transfer_engine`` applies when ``use_fast_interaction`` is
+    None. The reference resolves an absent engine ("auto"); the port has
+    no resolver and raises ``NotImplementedError``. The port never
+    degrades to another engine: a failed build raises, and the file's
+    ``IBMethod.engine_fallback`` is ignored.
+    """
+    n = (n_cells,) * 3
+    x_lo, x_up = (0.0,) * 3, (1.0,) * 3
     if input_db is not None:
-        raise NotImplementedError("input_db parsing is not ported yet")
+        geo = input_db.get_database_with_default("CartesianGeometry")
+        n = tuple(int(v) for v in geo.get_int_array("n_cells", list(n)))
+        x_lo = tuple(float(v) for v in geo.get_array("x_lo", list(x_lo)))
+        x_up = tuple(float(v) for v in geo.get_array("x_up", list(x_up)))
+        ins_db = input_db.get_database_with_default(
+            "INSStaggeredHierarchyIntegrator")
+        rho = ins_db.get_float("rho", rho)
+        mu = ins_db.get_float("mu", mu)
+        convective_op_type = ins_db.get_string("convective_op_type",
+                                               convective_op_type)
+        spectral_dtype = ins_db.get_string(
+            "spectral_dtype",
+            spectral_dtype if spectral_dtype is not None else "f32")
+        ib_db = input_db.get_database_with_default("IBMethod")
+        kernel = ib_db.get_string("delta_fcn", kernel)
+        if use_fast_interaction is None:
+            knob = ("auto",) + KNOWN_ENGINES
+            eng = ib_db.get_string("transfer_engine", "auto").lower()
+            if eng not in knob:
+                raise ValueError(
+                    f"IBMethod.transfer_engine = {eng!r}: expected one "
+                    f"of {knob}")
+            use_fast_interaction = {"auto": None, "scatter": False,
+                                    "mxu": True}.get(eng, eng)
+        sh = input_db.get_database_with_default("Shell")
+        n_lat = sh.get_int("n_lat", n_lat)
+        n_lon = sh.get_int("n_lon", n_lon)
+        radius = sh.get_float("radius", radius)
+        aspect = sh.get_float("aspect", aspect)
+        stiffness = sh.get_float("stiffness", stiffness)
+        rest_length_factor = sh.get_float("rest_length_factor",
+                                          rest_length_factor)
+        bend_rigidity = sh.get_float("bend_rigidity", bend_rigidity)
     if spectral_dtype not in (None, "f32", "float32"):
         raise NotImplementedError(
             f"spectral_dtype={spectral_dtype!r} is not ported yet")
-    if use_fast_interaction is None:
-        raise NotImplementedError(
-            "the engine resolver is not ported yet; pass "
-            "use_fast_interaction='pallas_packed' or 'scatter'")
-    grid = StaggeredGrid(n=(n_cells,) * 3, x_lo=(0.0,) * 3,
-                         x_up=(1.0,) * 3)
+
+    grid = StaggeredGrid(n=n, x_lo=x_lo, x_up=x_up)
     ins = INSStaggeredIntegrator(grid, rho=rho, mu=mu,
                                  convective_op_type=convective_op_type,
                                  dtype=dtype, device=device)
+    if use_fast_interaction is None:
+        raise NotImplementedError(
+            "the engine resolver is not ported yet: set IBMethod { "
+            "transfer_engine = \"pallas\" } (or \"pallas_packed\", "
+            "\"scatter\") in the input file, or pass use_fast_interaction")
+    center = tuple(0.5 * (lo + hi) for lo, hi in zip(x_lo, x_up))
     structure = make_spherical_shell(
-        n_lat, n_lon, radius, center=(0.5, 0.5, 0.5),
+        n_lat, n_lon, radius, center=center,
         stiffness=stiffness, rest_length_factor=rest_length_factor,
         aspect=aspect, bend_rigidity=bend_rigidity)
     fast = construct_transfer_engine(use_fast_interaction, grid,
@@ -141,6 +231,6 @@ def build_shell_example(
                                      device=ins.device)
     ib = IBMethod(structure.force_specs(dtype=dtype, device=ins.device),
                   kernel=kernel, fast=fast)
-    ib.engine_name = "scatter" if fast is None else "pallas_packed"
+    ib.engine_name = normalize_engine_name(use_fast_interaction)
     integ = IBExplicitIntegrator(ins, ib, scheme="midpoint")
     return integ, integ.initialize(structure.vertices)

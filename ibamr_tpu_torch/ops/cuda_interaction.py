@@ -1,6 +1,7 @@
-"""The ``pallas_packed`` transfer engine on CUDA: occupancy-packed chunks
+"""The ``pallas_packed`` and ``pallas`` transfer engines on CUDA, each
 driven by two hand-written kernels (port of
-``ibamr_tpu/ops/pallas_interaction.py::PallasPackedInteraction``).
+``ibamr_tpu/ops/pallas_interaction.py``: ``PallasPackedInteraction`` and
+``PallasInteraction`` with ``PallasSpread3D``).
 
 Kernels (sources in ``csrc/``, notes on design and bound there):
 
@@ -10,13 +11,19 @@ Kernels (sources in ``csrc/``, notes on design and bound there):
 - ``packed_interp`` (``csrc/packed_interp.cu``) replaces
   ``_packed_interp_kernel_3d``: per-slot interpolants ``(Q, c)`` from the
   tiles' footprints ``(B, P, nz)``.
+- ``tile_spread`` (``csrc/tile_spread.cu``) replaces
+  ``_spread_kernel_3d``: the same partial grids from the unpacked
+  per-tile layout (``Buckets``, B tiles of ``cap`` slots).
+- ``tile_interp`` (``csrc/tile_interp.cu``) replaces
+  ``_interp_kernel_3d``: per-slot interpolants ``(B, cap)``.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain PyTorch version beside it for CPU tensors; nothing falls back
 from the GPU. ``LAUNCHES`` counts the kernel launches. The plain
 versions are the reference's dense weight preamble with a batched
-contraction and, for the spread, an ``index_add_`` over
-``tile_of_chunk``.
+contraction and, for the packed spread, an ``index_add_`` over
+``tile_of_chunk``; the tile versions are the packed ones over the
+identity tile map.
 """
 
 from __future__ import annotations
@@ -34,13 +41,14 @@ from ibamr_tpu_torch.ops.delta import get_kernel
 from ibamr_tpu_torch.ops.interaction import _centering_offsets
 from ibamr_tpu_torch.ops.interaction_fast import (
     BucketGeometry, _extract_tiles, _overlap_add, _phi_safe,
-    bucketed_channel, make_geometry, spread_overflow_fallbacks,
-    unbucket_with_overflow)
+    bucket_markers, bucketed_channel, make_geometry,
+    spread_overflow_fallbacks, unbucket_with_overflow)
 from ibamr_tpu_torch.ops.interaction_packed import (pack_markers,
                                                     refresh_packed)
 
 # kernel launches since the last reset_launch_counts(), by kernel name
-LAUNCHES: Dict[str, int] = {"packed_spread": 0, "packed_interp": 0}
+LAUNCHES: Dict[str, int] = {"packed_spread": 0, "packed_interp": 0,
+                             "tile_spread": 0, "tile_interp": 0}
 
 
 def reset_launch_counts() -> None:
@@ -67,10 +75,10 @@ def _tile_geom(geom: BucketGeometry, grid: StaggeredGrid, offs) -> _Geom:
 
 def tile_weights(geom: BucketGeometry, grid: StaggeredGrid, offs,
                  tid: torch.Tensor, Xb: torch.Tensor):
-    """The weight preamble of both kernels for every chunk: per-axis IB_4
-    weights ``wx (Q, W0, c)``, ``wy (Q, W1, c)``, ``wz (Q, nz, c)`` of the
-    chunk's markers over its tile's footprint, wrapped periodically by
-    rounding half to even."""
+    """The weight preamble of the kernels for every chunk (or tile row)
+    ``q`` of tile ``tid[q]``: per-axis IB_4 weights ``wx (Q, W0, c)``,
+    ``wy (Q, W1, c)``, ``wz (Q, nz, c)`` of its markers over the tile's
+    footprint, wrapped periodically by rounding half to even."""
     support, phi0 = get_kernel("IB_4")
     phi = _phi_safe(phi0, support)
     dtype, dev = Xb.dtype, Xb.device
@@ -92,14 +100,21 @@ def tile_weights(geom: BucketGeometry, grid: StaggeredGrid, offs,
     return tuple(out)
 
 
-def packed_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                        tid: torch.Tensor, Xb: torch.Tensor,
-                        coef: torch.Tensor) -> torch.Tensor:
-    """Plain version of the spread kernel -> (B, P, nz)."""
+def _chunk_partials(geom: BucketGeometry, grid: StaggeredGrid, offs,
+                    tid: torch.Tensor, Xb: torch.Tensor,
+                    coef: torch.Tensor) -> torch.Tensor:
+    """Each chunk's partial grid over its tile's footprint -> (Q, P, nz)."""
     wx, wy, wz = tile_weights(geom, grid, offs, tid, Xb)
     Q, c = coef.shape
     A = (wx[:, :, None, :] * wy[:, None, :, :]).reshape(Q, -1, c)
-    Tq = torch.bmm(A, (wz * coef[:, None, :]).transpose(1, 2))
+    return torch.bmm(A, (wz * coef[:, None, :]).transpose(1, 2))
+
+
+def packed_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
+                        tid: torch.Tensor, Xb: torch.Tensor,
+                        coef: torch.Tensor) -> torch.Tensor:
+    """Plain version of the packed spread kernel -> (B, P, nz)."""
+    Tq = _chunk_partials(geom, grid, offs, tid, Xb, coef)
     B = int(np.prod(geom.nblk))
     T = torch.zeros((B,) + Tq.shape[1:], dtype=Tq.dtype, device=Tq.device)
     return T.index_add_(0, tid.to(torch.int64), Tq)
@@ -108,12 +123,29 @@ def packed_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
 def packed_interp_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
                         tid: torch.Tensor, Xb: torch.Tensor,
                         T: torch.Tensor) -> torch.Tensor:
-    """Plain version of the interp kernel -> (Q, c)."""
+    """Plain version of the packed interp kernel -> (Q, c)."""
     wx, wy, wz = tile_weights(geom, grid, offs, tid, Xb)
     Q, W0, c = wx.shape
     tmp = torch.bmm(T[tid.to(torch.int64)], wz)          # (Q, P, c)
     inner = torch.sum(wy[:, None, :, :] * tmp.reshape(Q, W0, -1, c), dim=2)
     return torch.sum(wx * inner, dim=1)
+
+
+def _tile_ids(Xb: torch.Tensor) -> torch.Tensor:
+    """The identity tile map of the per-tile layout: slot row t is tile t."""
+    return torch.arange(Xb.shape[0], dtype=torch.int32, device=Xb.device)
+
+
+def tile_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
+                      Xb: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """Plain version of the tile spread kernel -> (B, P, nz)."""
+    return _chunk_partials(geom, grid, offs, _tile_ids(Xb), Xb, coef)
+
+
+def tile_interp_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
+                      Xb: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Plain version of the tile interp kernel -> (B, cap)."""
+    return packed_interp_plain(geom, grid, offs, _tile_ids(Xb), Xb, T)
 
 
 # -- kernel wrappers ------------------------------------------------------------
@@ -128,12 +160,17 @@ def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-# argument types of each launcher after its pointers (C prototypes in
-# csrc/*.cu): packed_spread (..., Q, c, B, geom, stream) and
-# packed_interp (..., Q, c, geom, stream)
+# argument types of each launcher (C prototypes in csrc/*.cu):
+# packed_spread (tid, Xb, coef, out, Q, c, B, geom, stream),
+# packed_interp (tid, Xb, T, out, Q, c, geom, stream), and
+# tile_spread / tile_interp (Xb, coef or T, out, B, cap, geom, stream)
 _ARGTYPES = {"packed_spread": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
              + [_Geom, ctypes.c_void_p],
              "packed_interp": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+             + [_Geom, ctypes.c_void_p],
+             "tile_spread": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+             + [_Geom, ctypes.c_void_p],
+             "tile_interp": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
              + [_Geom, ctypes.c_void_p]}
 _bound: Dict[str, tuple] = {}
 
@@ -157,13 +194,21 @@ def _launcher(name: str):
     return _bound[name]
 
 
-def _check_shapes(name, geom, grid, tid, Xb):
-    """Bind the kernel and check what its launch geometry supports."""
+def _check_shapes(name, geom, grid, Xb, tid=None):
+    """Bind the kernel and check what its launch geometry supports. The
+    packed kernels take a chunk-to-tile map ``tid``; the tile kernels take
+    one slot row per tile."""
     if grid.dim != 3:
         raise ValueError(f"{name}: 3D only")
+    if Xb.dim() != 3 or Xb.shape[2] != 3:
+        raise ValueError(f"{name}: Xb must be (rows, slots, 3), got "
+                         f"{tuple(Xb.shape)}")
     Q, c = Xb.shape[0], Xb.shape[1]
-    if Xb.shape != (Q, c, 3) or tid.shape != (Q,):
-        raise ValueError(f"{name}: need tid (Q,), Xb (Q, c, 3); got "
+    if tid is None and Q != math.prod(geom.nblk):
+        raise ValueError(f"{name}: need one slot row per tile "
+                         f"({math.prod(geom.nblk)}), got {Q}")
+    if tid is not None and tid.shape != (Q,):
+        raise ValueError(f"{name}: need tid (Q,) for Xb (Q, c, 3); got "
                          f"{tuple(tid.shape)}, {tuple(Xb.shape)}")
     fn, (max_chunk, max_width, min_nz) = _launcher(name)
     if c > max_chunk or max(geom.width) > max_width or grid.n[2] < min_nz:
@@ -187,7 +232,7 @@ def packed_spread(geom: BucketGeometry, grid: StaggeredGrid, offs,
         return packed_spread_plain(geom, grid, offs, tid, Xb, coef)
     if Xb.device.type != "cuda":
         raise ValueError(f"packed_spread: unsupported device {Xb.device}")
-    fn = _check_shapes("packed_spread", geom, grid, tid, Xb)
+    fn = _check_shapes("packed_spread", geom, grid, Xb, tid)
     Q, c = coef.shape
     _check_cuda("packed_spread", Xb.device, tid=(tid, torch.int32),
                 Xb=(Xb, torch.float32), coef=(coef, torch.float32))
@@ -214,7 +259,7 @@ def packed_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
         return packed_interp_plain(geom, grid, offs, tid, Xb, T)
     if Xb.device.type != "cuda":
         raise ValueError(f"packed_interp: unsupported device {Xb.device}")
-    fn = _check_shapes("packed_interp", geom, grid, tid, Xb)
+    fn = _check_shapes("packed_interp", geom, grid, Xb, tid)
     Q, c = Xb.shape[0], Xb.shape[1]
     _check_cuda("packed_interp", Xb.device, tid=(tid, torch.int32),
                 Xb=(Xb, torch.float32), T=(T, torch.float32))
@@ -231,9 +276,105 @@ def packed_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
     return out
 
 
+def tile_spread(geom: BucketGeometry, grid: StaggeredGrid, offs,
+                Xb: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """Per-tile partial grids (B, P, nz) of the tile spread: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if Xb.device.type == "cpu":
+        return tile_spread_plain(geom, grid, offs, Xb, coef)
+    if Xb.device.type != "cuda":
+        raise ValueError(f"tile_spread: unsupported device {Xb.device}")
+    fn = _check_shapes("tile_spread", geom, grid, Xb)
+    _check_cuda("tile_spread", Xb.device, Xb=(Xb, torch.float32),
+                coef=(coef, torch.float32))
+    if coef.shape != Xb.shape[:2]:
+        raise ValueError("tile_spread: coef must be (B, cap)")
+    B, cap = coef.shape
+    out = torch.empty((B, geom.width[0] * geom.width[1], grid.n[2]),
+                      dtype=torch.float32, device=Xb.device)
+    err = fn(Xb.data_ptr(), coef.data_ptr(), out.data_ptr(), B, cap,
+             _tile_geom(geom, grid, offs),
+             torch.cuda.current_stream(Xb.device).cuda_stream)
+    _raise_on("tile_spread", err)
+    LAUNCHES["tile_spread"] += 1
+    return out
+
+
+def tile_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
+                Xb: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Per-slot interpolants (B, cap) of the tile interp: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if Xb.device.type == "cpu":
+        return tile_interp_plain(geom, grid, offs, Xb, T)
+    if Xb.device.type != "cuda":
+        raise ValueError(f"tile_interp: unsupported device {Xb.device}")
+    fn = _check_shapes("tile_interp", geom, grid, Xb)
+    _check_cuda("tile_interp", Xb.device, Xb=(Xb, torch.float32),
+                T=(T, torch.float32))
+    B, cap = Xb.shape[0], Xb.shape[1]
+    if T.shape != (B, geom.width[0] * geom.width[1], grid.n[2]):
+        raise ValueError(f"tile_interp: T must be (B, P, nz), got "
+                         f"{tuple(T.shape)}")
+    out = torch.empty((B, cap), dtype=torch.float32, device=Xb.device)
+    err = fn(Xb.data_ptr(), T.data_ptr(), out.data_ptr(), B, cap,
+             _tile_geom(geom, grid, offs),
+             torch.cuda.current_stream(Xb.device).cuda_stream)
+    _raise_on("tile_interp", err)
+    LAUNCHES["tile_interp"] += 1
+    return out
+
+
 # -- the engine -------------------------------------------------------------------
 
-class PackedKernelInteraction:
+class _KernelEngine:
+    """Spread and interp of a MAC velocity through one pair of tile
+    kernels: per component one spread launch (then the overlap-add and
+    the overflow scatter) and one interp launch per transfer (after the
+    tile extraction, then the unbucketing and the overflow gather)."""
+
+    def _spread_tiles(self, offs, b, Xb, coef):
+        raise NotImplementedError
+
+    def _interp_tiles(self, offs, b, Xb, T):
+        raise NotImplementedError
+
+    def spread(self, F: torch.Tensor, X: torch.Tensor, centering,
+               b) -> torch.Tensor:
+        grid = self.grid
+        inv_vol = 1.0 / math.prod(grid.dx)
+        offs = _centering_offsets(grid, centering)
+        coef = bucketed_channel(b, F) * b.wb * inv_vol
+        T = self._spread_tiles(offs, b, b.Xb.to(coef.dtype), coef)
+        out = _overlap_add(self.geom, grid, T.to(F.dtype))
+        return spread_overflow_fallbacks(out, b, F, X, grid, centering,
+                                         self.kernel)
+
+    def spread_vel(self, F: torch.Tensor, X: torch.Tensor,
+                   weights: Optional[torch.Tensor] = None, b=None) -> tuple:
+        if b is None:
+            b = self.buckets(X, weights=weights)
+        return tuple(self.spread(F[:, d], X, d, b)
+                     for d in range(self.grid.dim))
+
+    def interpolate(self, f: torch.Tensor, X: torch.Tensor, centering,
+                    b) -> torch.Tensor:
+        grid = self.grid
+        offs = _centering_offsets(grid, centering)
+        T = _extract_tiles(self.geom, grid, f)             # (B, P, nz)
+        Ub = self._interp_tiles(offs, b, b.Xb.to(f.dtype), T) * b.wb
+        return unbucket_with_overflow(Ub, b, f, X, grid, centering,
+                                      self.kernel)
+
+    def interpolate_vel(self, u, X: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None,
+                        b=None) -> torch.Tensor:
+        if b is None:
+            b = self.buckets(X, weights=weights)
+        return torch.stack([self.interpolate(u[d], X, d, b)
+                            for d in range(self.grid.dim)], dim=-1)
+
+
+class PackedKernelInteraction(_KernelEngine):
     """Occupancy-packed chunks (``ops/interaction_packed.py`` layout) with
     the spread and interp of each velocity component done by the packed
     kernels: 3 spread and 3 interp launches per transfer of a MAC
@@ -262,39 +403,41 @@ class PackedKernelInteraction:
         """Slot-preserving half-step refresh; returns ``(buckets, hit)``."""
         return refresh_packed(self.geom, self.grid, b, X, weights)
 
-    def spread(self, F: torch.Tensor, X: torch.Tensor, centering,
-               b) -> torch.Tensor:
-        grid = self.grid
-        inv_vol = 1.0 / math.prod(grid.dx)
-        offs = _centering_offsets(grid, centering)
-        coef = bucketed_channel(b, F) * b.wb * inv_vol
-        T = packed_spread(self.geom, grid, offs, b.tile_of_chunk,
-                          b.Xb.to(coef.dtype), coef)
-        out = _overlap_add(self.geom, grid, T.to(F.dtype))
-        return spread_overflow_fallbacks(out, b, F, X, grid, centering,
-                                         self.kernel)
+    def _spread_tiles(self, offs, b, Xb, coef):
+        return packed_spread(self.geom, self.grid, offs, b.tile_of_chunk,
+                             Xb, coef)
 
-    def spread_vel(self, F: torch.Tensor, X: torch.Tensor,
-                   weights: Optional[torch.Tensor] = None, b=None) -> tuple:
-        if b is None:
-            b = self.buckets(X, weights=weights)
-        return tuple(self.spread(F[:, d], X, d, b)
-                     for d in range(self.grid.dim))
+    def _interp_tiles(self, offs, b, Xb, T):
+        return packed_interp(self.geom, self.grid, offs, b.tile_of_chunk,
+                             Xb, T)
 
-    def interpolate(self, f: torch.Tensor, X: torch.Tensor, centering,
-                    b) -> torch.Tensor:
-        grid = self.grid
-        offs = _centering_offsets(grid, centering)
-        T = _extract_tiles(self.geom, grid, f)             # (B, P, nz)
-        Ub = packed_interp(self.geom, grid, offs, b.tile_of_chunk,
-                           b.Xb.to(f.dtype), T) * b.wb
-        return unbucket_with_overflow(Ub, b, f, X, grid, centering,
-                                      self.kernel)
 
-    def interpolate_vel(self, u, X: torch.Tensor,
-                        weights: Optional[torch.Tensor] = None,
-                        b=None) -> torch.Tensor:
-        if b is None:
-            b = self.buckets(X, weights=weights)
-        return torch.stack([self.interpolate(u[d], X, d, b)
-                            for d in range(self.grid.dim)], dim=-1)
+class TileKernelInteraction(_KernelEngine):
+    """The per-tile layout (``interaction_fast.bucket_markers``: B tiles of
+    ``cap`` slots) with the spread and interp of each velocity component
+    done by the tile kernels: 3 spread and 3 interp launches per transfer
+    of a MAC velocity. Markers beyond a tile's ``cap`` go through the
+    exact scatter fallback. Like the reference engine it has no
+    ``refresh``: the midpoint step buckets the half-step positions anew."""
+
+    def __init__(self, grid: StaggeredGrid, kernel="IB_4", tile: int = 8,
+                 cap: int = 256, overflow_cap: Optional[int] = None,
+                 device="cuda"):
+        if grid.dim != 3:
+            raise ValueError("TileKernelInteraction is 3D-only")
+        resolve_device(device)   # raises for a GPU request without one
+        self.grid = grid
+        self.kernel = kernel
+        self.geom = make_geometry(grid, kernel, tile=tile, cap=cap)
+        self.overflow_cap = overflow_cap
+
+    def buckets(self, X: torch.Tensor,
+                weights: Optional[torch.Tensor] = None):
+        return bucket_markers(self.geom, self.grid, X, weights=weights,
+                              overflow_cap=self.overflow_cap)
+
+    def _spread_tiles(self, offs, b, Xb, coef):
+        return tile_spread(self.geom, self.grid, offs, Xb, coef)
+
+    def _interp_tiles(self, offs, b, Xb, T):
+        return tile_interp(self.geom, self.grid, offs, Xb, T)

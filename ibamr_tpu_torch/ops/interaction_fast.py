@@ -1,6 +1,7 @@
-"""Tile geometry and the shared pieces of the bucketed transfer engines
-(port of the parts of ``ibamr_tpu/ops/interaction_fast.py`` that the
-packed engine reads).
+"""Tile geometry, the per-tile marker layout and the shared pieces of the
+bucketed transfer engines (port of the parts of
+``ibamr_tpu/ops/interaction_fast.py`` that the tile and packed engines
+read).
 
 Markers are bucketed by the (x, y) tile holding their stencil origin.
 Each tile's footprint spans ``width = tile + support + 1`` cells per
@@ -11,12 +12,13 @@ its gather twin. Markers that do not fit the layout ("overflow") go
 through the exact scatter/gather oracle (:mod:`.interaction`).
 
 The reference's ``lax.cond`` overflow branches are Python branches here
-on the two host flags that the layout builder reads once per pack.
+on the two host flags that the layout builder reads once per bucketing.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +70,109 @@ def _block_ids_np(grid, Xn, support, tile):
         b = np.mod(j0, grid.n[d]) // tile
         bid = bid * (grid.n[d] // tile) + b
     return bid
+
+
+def _host_array(X) -> np.ndarray:
+    return X.detach().cpu().numpy() if isinstance(X, torch.Tensor) \
+        else np.asarray(X)
+
+
+def suggest_cap(grid: StaggeredGrid, X, kernel="IB_4", tile: int = 8,
+                slack: float = 1.5) -> int:
+    """Host-side tile capacity from a concrete marker distribution:
+    ``slack`` x the max tile occupancy, rounded up to a multiple of 8."""
+    support, _ = get_kernel(kernel)
+    bids = _block_ids_np(grid, _host_array(X), support, tile)
+    counts = np.bincount(bids, minlength=int(np.prod(
+        [n // tile for n in grid.n[:-1]])))
+    return int(math.ceil(max(1, counts.max()) * slack / 8.0) * 8)
+
+
+def default_overflow_cap(N: int) -> int:
+    """Shared overflow-buffer sizing heuristic."""
+    return min(N, max(2048, 1 << int(math.ceil(
+        math.log2(max(N // 8, 1))))))
+
+
+def _marker_tile_ids(geom: BucketGeometry, grid: StaggeredGrid,
+                     X: torch.Tensor) -> torch.Tensor:
+    """Tile id (int64) of each marker's cell-centered stencil origin."""
+    bid = torch.zeros(X.shape[0], dtype=torch.int64, device=X.device)
+    for d in range(grid.dim - 1):
+        xi = (X[:, d] - grid.x_lo[d]) / grid.dx[d] - 0.5
+        j0 = torch.floor(xi - 0.5 * geom.support).to(torch.int64) + 1
+        b = torch.remainder(j0, grid.n[d]) // geom.tile[d]
+        bid = bid * geom.nblk[d] + b
+    return bid
+
+
+def _tile_origins(geom: BucketGeometry, ids: torch.Tensor):
+    """Per blocked axis, the origin cell of flat tile ids ``ids``."""
+    nblocked = len(geom.nblk)
+    x0 = []
+    for d in range(nblocked):
+        i = ids
+        for a in range(nblocked - 1, d, -1):
+            i = i // geom.nblk[a]
+        x0.append((i % geom.nblk[d]) * geom.tile[d])
+    return tuple(x0)
+
+
+class Buckets(NamedTuple):
+    """Per-tile marker layout: B tiles of ``cap`` slots, tile-major."""
+    Xb: torch.Tensor               # (B, cap, dim), 0 in empty slots
+    wb: torch.Tensor               # (B, cap) marker weights (0 = empty slot)
+    slot_of_marker: torch.Tensor   # (N,) int32 flat slot or B*cap (dropped)
+    w_overflow: torch.Tensor       # (N,) weights of dropped markers
+    o_idx: torch.Tensor            # (ocap,) int32 overflow marker indices
+    o_w: torch.Tensor              # (ocap,) their weights (0 in pad slots)
+    any_overflow: bool             # host flag
+    exceeded: bool                 # host flag: overflow count > ocap
+    x0: Tuple[torch.Tensor, ...]   # per blocked axis: (B,) tile origin cell
+
+
+def bucket_markers(geom: BucketGeometry, grid: StaggeredGrid,
+                   X: torch.Tensor, weights: Optional[torch.Tensor] = None,
+                   overflow_cap: Optional[int] = None) -> Buckets:
+    """Bucket markers by tile into ``geom.cap`` slots per tile, in the
+    order of a stable sort of their tile ids (slot for slot the
+    reference's layout); a tile's markers beyond ``cap`` overflow."""
+    N, dim = X.shape
+    dev = X.device
+    if weights is None:
+        weights = torch.ones(N, dtype=X.dtype, device=dev)
+    if overflow_cap is None:
+        overflow_cap = default_overflow_cap(N)
+    B = int(np.prod(geom.nblk))
+    cap = geom.cap
+    bid = _marker_tile_ids(geom, grid, X)
+    order = torch.argsort(bid, stable=True)
+    bid_s = bid[order]
+    edges = torch.searchsorted(bid_s, torch.arange(B + 1, device=dev))
+    start, counts = edges[:-1], torch.diff(edges)
+    rank = torch.arange(N, device=dev) - start[bid_s]
+    keep = rank < cap
+    slot_sorted = torch.where(keep, bid_s * cap + rank,
+                              torch.full_like(rank, B * cap))
+
+    # slot -> sorted-marker position; empty slots read the zero pad row
+    slot_b = torch.arange(B * cap, device=dev) // cap
+    slot_r = torch.arange(B * cap, device=dev) % cap
+    src = torch.where(slot_r < counts[slot_b], start[slot_b] + slot_r,
+                      torch.full_like(slot_r, N))
+    X_s = torch.cat([X[order], X.new_zeros(1, dim)])
+    w_s = torch.cat([weights[order], weights.new_zeros(1)])
+    Xb = X_s[src].reshape(B, cap, dim)
+    wb = w_s[src].reshape(B, cap)
+
+    (slot_of_marker, w_overflow, o_idx, o_w, n_over,
+     exceeded) = compact_overflow(order, keep, slot_sorted, weights, N,
+                                  overflow_cap)
+    any_overflow, exceeded = torch.stack([n_over > 0, exceeded]).tolist()
+    x0 = _tile_origins(geom, torch.arange(B, dtype=torch.int32, device=dev))
+    return Buckets(Xb=Xb, wb=wb, slot_of_marker=slot_of_marker,
+                   w_overflow=w_overflow, o_idx=o_idx, o_w=o_w,
+                   any_overflow=any_overflow, exceeded=exceeded, x0=x0)
 
 
 def compact_overflow(order: torch.Tensor, keep: torch.Tensor,

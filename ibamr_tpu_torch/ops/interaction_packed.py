@@ -25,9 +25,9 @@ import torch
 
 from ibamr_tpu_torch.grid import StaggeredGrid
 from ibamr_tpu_torch.ops.delta import get_kernel
-from ibamr_tpu_torch.ops.interaction_fast import (BucketGeometry,
-                                                  _block_ids_np,
-                                                  compact_overflow)
+from ibamr_tpu_torch.ops.interaction_fast import (
+    BucketGeometry, _block_ids_np, _host_array, _marker_tile_ids,
+    _tile_origins, compact_overflow, default_overflow_cap)
 
 
 class PackedBuckets(NamedTuple):
@@ -48,10 +48,8 @@ def suggest_chunks(grid: StaggeredGrid, X, kernel="IB_4", tile: int = 8,
                    chunk: int = 128, slack: float = 1.3) -> int:
     """Host-side chunk capacity from a concrete marker distribution:
     slack x the exact chunk demand sum(ceil(count/c))."""
-    Xn = X.detach().cpu().numpy() if isinstance(X, torch.Tensor) \
-        else np.asarray(X)
     support, _ = get_kernel(kernel)
-    bids = _block_ids_np(grid, Xn, support, tile)
+    bids = _block_ids_np(grid, _host_array(X), support, tile)
     B = int(np.prod([n // tile for n in grid.n[:-1]]))
     counts = np.bincount(bids, minlength=B)
     need = int(np.sum(-(-counts // chunk)))
@@ -105,30 +103,13 @@ def chunk_pack_core(bid: torch.Tensor, X: torch.Tensor,
             exceeded, tid.to(torch.int32))
 
 
-def default_overflow_cap(N: int) -> int:
-    """Shared overflow-buffer sizing heuristic."""
-    return min(N, max(2048, 1 << int(math.ceil(
-        math.log2(max(N // 8, 1))))))
-
-
-def _marker_tile_ids(geom: BucketGeometry, grid: StaggeredGrid,
-                     X: torch.Tensor) -> torch.Tensor:
-    bid = torch.zeros(X.shape[0], dtype=torch.int64, device=X.device)
-    for d in range(grid.dim - 1):
-        xi = (X[:, d] - grid.x_lo[d]) / grid.dx[d] - 0.5
-        j0 = torch.floor(xi - 0.5 * geom.support).to(torch.int64) + 1
-        b = torch.remainder(j0, grid.n[d]) // geom.tile[d]
-        bid = bid * geom.nblk[d] + b
-    return bid
-
-
 def pack_markers(geom: BucketGeometry, grid: StaggeredGrid,
                  X: torch.Tensor, weights: Optional[torch.Tensor] = None,
                  nchunks: int = 1024,
                  overflow_cap: Optional[int] = None) -> PackedBuckets:
     """Bucket markers by tile, then pack tiles' markers into ``nchunks``
     chunks of ``geom.cap`` slots, allocated compactly in tile order."""
-    N, dim = X.shape
+    N = X.shape[0]
     if weights is None:
         weights = torch.ones(N, dtype=X.dtype, device=X.device)
     if overflow_cap is None:
@@ -138,17 +119,11 @@ def pack_markers(geom: BucketGeometry, grid: StaggeredGrid,
      exceeded, tid) = chunk_pack_core(_marker_tile_ids(geom, grid, X), X,
                                       weights, int(nchunks), geom.cap, B,
                                       overflow_cap)
-    x0 = []
-    for d in range(dim - 1):
-        ids = tid
-        for a in range(dim - 2, d, -1):
-            ids = ids // geom.nblk[a]
-        x0.append((ids % geom.nblk[d]) * geom.tile[d])
     any_overflow, exceeded = torch.stack([n_over > 0, exceeded]).tolist()
     return PackedBuckets(Xb=Xb, wb=wb, slot_of_marker=slot_of_marker,
                          w_overflow=w_overflow, o_idx=o_idx, o_w=o_w,
                          any_overflow=any_overflow, exceeded=exceeded,
-                         x0=tuple(x0), tile_of_chunk=tid)
+                         x0=_tile_origins(geom, tid), tile_of_chunk=tid)
 
 
 def refresh_packed(geom: BucketGeometry, grid: StaggeredGrid,

@@ -23,7 +23,9 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {"packed_spread": "packed_spread.cu",
-           "packed_interp": "packed_interp.cu"}
+           "packed_interp": "packed_interp.cu",
+           "tile_spread": "tile_spread.cu",
+           "tile_interp": "tile_interp.cu"}
 HEADERS = ("delta_ib4.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -77,17 +77,25 @@ def test_gpu_entry_points_raise_without_a_gpu():
     from ibamr_tpu_torch import resolve_device
     from ibamr_tpu_torch.grid import StaggeredGrid
     from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator
+    from ibamr_tpu_torch.examples import ib_explicit_ex4
     from ibamr_tpu_torch.models.shell3d import build_shell_example
-    from ibamr_tpu_torch.ops.cuda_interaction import PackedKernelInteraction
+    from ibamr_tpu_torch.ops.cuda_interaction import (PackedKernelInteraction,
+                                                      TileKernelInteraction)
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
 
     grid = StaggeredGrid(n=(16,) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
+    db = parse_input_file(str(ROOT / "examples/IB/explicit/ex4/input3d"))
+    db.get_database("IBMethod").put("transfer_engine", "pallas")
     for call in (lambda: resolve_device(),
                  lambda: build_shell_example(n_cells=16, n_lat=8, n_lon=8),
                  lambda: build_shell_example(
                      n_cells=16, n_lat=8, n_lon=8,
                      use_fast_interaction="scatter"),
+                 lambda: build_shell_example(input_db=db),
                  lambda: INSStaggeredIntegrator(grid),
-                 lambda: PackedKernelInteraction(grid)):
+                 lambda: PackedKernelInteraction(grid),
+                 lambda: TileKernelInteraction(grid),
+                 lambda: ib_explicit_ex4.run(db)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     with pytest.raises(ValueError, match="unsupported device"):

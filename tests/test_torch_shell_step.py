@@ -1,8 +1,8 @@
 """Port parity for the slice as a whole: 3 midpoint steps of the 16³
 flagship shell (8x8 markers) in ibamr_tpu_torch against ibamr_tpu at f64
-on the CPU, on the ``pallas_packed`` engine (the reference's Pallas
-programs in interpret mode, the port's plain kernel versions) and on the
-``scatter`` oracle. The reference's initial state is carried over by
+on the CPU, on the ``pallas_packed`` and ``pallas`` engines (the
+reference's Pallas programs in interpret mode, the port's plain kernel
+versions) and on the ``scatter`` oracle. The reference's initial state is carried over by
 ``ibamr_tpu_torch.convert``. FFT backends and transfer sum orders
 differ, so X, its displacement, u and p agree to 1e-10 relative."""
 
@@ -28,7 +28,7 @@ def _rel(ref, got):
                  / max(np.max(np.abs(ref)), 1e-300))
 
 
-@pytest.mark.parametrize("engine", ["pallas_packed", "scatter"])
+@pytest.mark.parametrize("engine", ["pallas_packed", "pallas", "scatter"])
 def test_three_midpoint_steps_match_reference(engine):
     jinteg, js = jbuild(use_fast_interaction=(engine if engine != "scatter"
                                               else False),
@@ -81,7 +81,43 @@ def test_flagship_options_not_ported_raise():
         tbuild(use_fast_interaction=None, device="cpu", **SHELL)
     with pytest.raises(NotImplementedError, match="spectral_dtype"):
         tbuild(spectral_dtype="bf16", device="cpu", **SHELL)
-    with pytest.raises(NotImplementedError, match="input_db"):
-        tbuild(input_db=object(), device="cpu", **SHELL)
+    from ibamr_tpu_torch.utils.input_db import parse_input_string
+    for knob in ("", 'transfer_engine = "auto"'):
+        db = parse_input_string("IBMethod { delta_fcn = \"IB_4\" %s }"
+                                % knob)
+        with pytest.raises(NotImplementedError, match="transfer_engine"):
+            tbuild(input_db=db, device="cpu", **SHELL)
     with pytest.raises(NotImplementedError):
         tbuild(convective_op_type="ppm", device="cpu", **SHELL)
+
+
+class _NoRefresh:
+    """A transfer engine with everything but ``refresh``."""
+
+    def __init__(self, fast):
+        self.grid = fast.grid
+        self.buckets = fast.buckets
+        self.spread_vel = fast.spread_vel
+        self.interpolate_vel = fast.interpolate_vel
+
+
+def test_engine_without_refresh_rebuckets_like_reference():
+    # the half-step context of an engine with no refresh is bucketed anew
+    # (the reference's getattr guard); the step equals the reference's
+    # step on the same engine with its slot-preserving refresh
+    jinteg, js = jbuild(use_fast_interaction="pallas_packed",
+                        dtype=jnp.float64, engine_fallback=False, **SHELL)
+    tinteg, _ = tbuild(use_fast_interaction="pallas_packed",
+                       dtype=torch.float64, device="cpu", **SHELL)
+    tinteg.ib.fast = _NoRefresh(tinteg.ib.fast)
+    ts = convert.ib_state(js)
+    assert tinteg.ib.refresh(tinteg.ib.prepare(ts.X, ts.mask), ts.X,
+                             ts.mask) == (None, None)
+    jstep = jax.jit(jinteg.step_with_stats, static_argnums=1)
+    for _ in range(2):
+        js, jstats = jstep(js, DT)
+        ts, tstats = tinteg.step_with_stats(ts, DT)
+        assert bool(jstats["refresh_hit"]) and tstats["refresh_hit"] is None
+    assert _rel(js.X, ts.X) < RTOL
+    for a, b in zip(js.ins.u, ts.ins.u):
+        assert _rel(a, b) < RTOL
