@@ -11,7 +11,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bucketing of the 316x316 shell on the 256^3 grid) each kernel against
    its plain PyTorch version on the card, two kernel runs bitwise equal,
    and the times of the kernel, the plain version and one ``torch.bmm``
-   yardstick beside the kernel's bound.
+   yardstick beside the kernel's bound; the tile kernels write and read
+   the grid themselves, and the overlap-add and tile extraction they
+   fold in are timed alone beside them.
 3. parity  -- 3 midpoint steps of the 32^3 shell (16x16) on the GPU (the
    kernels) and on the CPU (the plain versions) from the same state, on
    the ``pallas_packed`` and the ``pallas`` engine; a buffered and an
@@ -148,16 +150,15 @@ def _check_kernel(name: str, kernel, plain, library, nbytes: int,
                 bound_by=by, library_ms=library_ms)
 
 
-def _touched_entries(wx, wy, wz, live, tid, B, P, nz) -> int:
-    """Distinct tile entries (t, p, z) under the live slots' supports:
-    the bytes of T an interp of this data must read."""
+def _touched_tiles(wx, wy, wz, live, tid, B, P, nz) -> torch.Tensor:
+    """(B, P, nz) count of live slots whose support covers each tile
+    entry (t, p, z)."""
     lw = live[:, None, :].to(wz.dtype)
     touched = torch.einsum("qam,qbm,qzm->qabz", (wx != 0) * lw,
                            (wy != 0).to(wz.dtype), (wz != 0).to(wz.dtype))
     per_tile = torch.zeros((B, P, nz), dtype=wz.dtype, device=wz.device)
-    per_tile.index_add_(0, tid.to(torch.int64),
-                        touched.reshape(tid.shape[0], P, nz))
-    return int((per_tile != 0).sum())
+    return per_tile.index_add_(0, tid.to(torch.int64),
+                               touched.reshape(tid.shape[0], P, nz))
 
 
 def phase_kernels() -> dict:
@@ -168,6 +169,7 @@ def phase_kernels() -> dict:
     from ibamr_tpu_torch.ops import cuda_interaction as ci
     from ibamr_tpu_torch.ops.interaction import _centering_offsets
     from ibamr_tpu_torch.ops.interaction_fast import (_extract_tiles,
+                                                      _overlap_add,
                                                       bucketed_channel)
 
     dev = torch.device(DEVICE)
@@ -213,7 +215,8 @@ def phase_kernels() -> dict:
         4 * (tid.numel() + coef.numel() + 3 * n_live + B * P * n),
         n_live * OPS_PER_MARKER, note="product only")
     del A, Wzc
-    n_touched = _touched_entries(wx, wy, wz, live, tid, B, P, n)
+    n_touched = int((_touched_tiles(wx, wy, wz, live, tid, B, P, n) != 0)
+                    .sum())
     Tq = T_in[tid.to(torch.int64)].contiguous()
     rows["packed_interp"] = _check_kernel(
         "packed_interp",
@@ -243,28 +246,42 @@ def phase_kernels() -> dict:
     if B != 1024 or cap != 1024:
         raise AssertionError(f"expected B = cap = 1024, got {B}, {cap}")
     coef = (bucketed_channel(b, F) * b.wb / grid.cell_volume).contiguous()
-    Xb = b.Xb
+    Xb, counts = b.Xb, b.counts
     tid = torch.arange(B, dtype=torch.int32, device=dev)
     wx, wy, wz = ci.tile_weights(geom, grid, offs, tid, Xb)
     A = (wx[:, :, None, :] * wy[:, None, :, :]).reshape(B, P, cap)
     Wzc = (wz * coef[:, None, :]).transpose(1, 2).contiguous()
+    # the kernel stores the grid once and reads the X and coef of the
+    # filled slots (here all live) and the counts
     rows["tile_spread"] = _check_kernel(
         "tile_spread",
-        lambda: ci.tile_spread(geom, grid, offs, Xb, coef),
-        lambda: ci.tile_spread_plain(geom, grid, offs, Xb, coef),
+        lambda: ci.tile_spread(geom, grid, offs, Xb, coef, counts),
+        lambda: ci.tile_spread_plain(geom, grid, offs, Xb, coef, counts),
         lambda: torch.bmm(A, Wzc),
-        4 * (coef.numel() + 3 * n_live + B * P * n),
+        4 * (f.numel() + 4 * n_live + B),
         n_live * OPS_PER_MARKER, note="product only")
     del A, Wzc
-    n_touched = _touched_entries(wx, wy, wz, live, tid, B, P, n)
+    # what the two kernels fold in, alone at the per-tile shapes: the
+    # overlap-add of (B, P, nz) partials and the tile extraction of a field
+    T_part = torch.randn((B, P, n), generator=gen).to(dev)
+    fold_ms = time_ms(lambda: _overlap_add(geom, grid, T_part), 10)
+    extract_ms = time_ms(lambda: _extract_tiles(geom, grid, f), 10)
+    log(f"[kernels] folded into the tile kernels, timed alone: "
+        f"_overlap_add of ({B}, {P}, {n}) partials {fold_ms:.4f} ms, "
+        f"_extract_tiles of a {n}^3 field {extract_ms:.4f} ms")
+    del T_part
+    # an interp reads the grid entries under the live supports once
+    touched = _touched_tiles(wx, wy, wz, live, tid, B, P, n)
+    n_touched = int((_overlap_add(geom, grid, touched) != 0).sum())
+    del touched
     rows["tile_interp"] = _check_kernel(
         "tile_interp",
-        lambda: ci.tile_interp(geom, grid, offs, Xb, T_in),
-        lambda: ci.tile_interp_plain(geom, grid, offs, Xb, T_in),
+        lambda: ci.tile_interp(geom, grid, offs, Xb, f, counts),
+        lambda: ci.tile_interp_plain(geom, grid, offs, Xb, f, counts),
         lambda: torch.bmm(T_in, wz),
-        4 * (Xb.numel() + n_touched + B * cap),
+        4 * (3 * n_live + n_touched + B * cap + B),
         n_live * OPS_PER_MARKER, live=live,
-        note=f"z-contraction only; {n_touched} tile entries touched")
+        note=f"z-contraction only; {n_touched} grid entries touched")
     return rows
 
 

@@ -1,7 +1,9 @@
-// Shared device code of the packed transfer kernels: the tile geometry
-// passed by value from Python, and the IB_4 weight that spread and interp
-// must evaluate identically. It is the port of _marker_weight_preamble
-// (ibamr_tpu/ops/pallas_interaction.py) for one marker and one offset.
+// Shared device code of the transfer kernels: the tile geometry passed by
+// value from Python, and the IB_4 weights that a spread and its interp
+// must evaluate identically. delta_weight is the port of
+// _marker_weight_preamble (ibamr_tpu/ops/pallas_interaction.py) for one
+// marker and one offset (the packed kernels); ib4_weights gives a
+// marker's 4 nonzero weights on one axis at once (the tile kernels).
 //
 // Every float operation below is an explicit round-to-nearest intrinsic,
 // so nvcc never contracts a multiply-add into an FMA here: the weight is
@@ -51,4 +53,23 @@ __device__ __forceinline__ float delta_weight(float xi, float k, float n) {
   t = __fsub_rn(t, __fmul_rn(rintf(__fdiv_rn(t, n)), n));
   if (!(fabsf(t) < 2.0f)) return 0.0f;
   return phi_ib4(fminf(fmaxf(t, -2.0f), 2.0f));
+}
+
+// The 4 nonzero IB_4 weights of a marker at grid coordinate xi, for the
+// points floor(xi) - 1 + k, k = 0..3 (periodic images alike): with
+// r = xi - floor(xi) and q = sqrt(1 + 4r - 4r^2), phi at the distances
+// 1+r, r, 1-r, 2-r is (3-2r-q)/8, (3-2r+q)/8, (1+2r+q)/8, (1+2r-q)/8.
+// One square root instead of four evaluations of phi; the weights agree
+// with delta_weight to f32 rounding (w[3] = 0 exactly at r = 0).
+__device__ __forceinline__ void ib4_weights(float xi, float w[4]) {
+  const float r = __fsub_rn(xi, floorf(xi));
+  const float q = sqrtf(
+      fmaxf(__fadd_rn(1.0f, __fmul_rn(__fmul_rn(4.0f, r),
+                                      __fsub_rn(1.0f, r))), 0.0f));
+  const float lo = __fsub_rn(3.0f, __fmul_rn(2.0f, r));  // 3 - 2r
+  const float hi = __fadd_rn(1.0f, __fmul_rn(2.0f, r));  // 1 + 2r
+  w[0] = __fmul_rn(0.125f, __fsub_rn(lo, q));
+  w[1] = __fmul_rn(0.125f, __fadd_rn(lo, q));
+  w[2] = __fmul_rn(0.125f, __fadd_rn(hi, q));
+  w[3] = __fmul_rn(0.125f, __fsub_rn(hi, q));
 }

@@ -11,11 +11,14 @@ Kernels (sources in ``csrc/``, notes on design and bound there):
 - ``packed_interp`` (``csrc/packed_interp.cu``) replaces
   ``_packed_interp_kernel_3d``: per-slot interpolants ``(Q, c)`` from the
   tiles' footprints ``(B, P, nz)``.
-- ``tile_spread`` (``csrc/tile_spread.cu``) replaces
-  ``_spread_kernel_3d``: the same partial grids from the unpacked
-  per-tile layout (``Buckets``, B tiles of ``cap`` slots).
-- ``tile_interp`` (``csrc/tile_interp.cu``) replaces
-  ``_interp_kernel_3d``: per-slot interpolants ``(B, cap)``.
+- ``tile_spread`` (``csrc/tile_spread.cu``) replaces ``_spread_kernel_3d``
+  and the ``_overlap_add`` after it: the periodic grid component itself
+  from the unpacked per-tile layout (``Buckets``, B tiles of ``cap``
+  slots, the first ``counts[t]`` of row t filled).
+- ``tile_interp`` (``csrc/tile_interp.cu``) replaces ``_interp_kernel_3d``
+  and the ``_extract_tiles`` before it: per-slot interpolants
+  ``(B, cap)`` read straight from the grid component, exact zeros past
+  each row's ``counts[t]``.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain PyTorch version beside it for CPU tensors; nothing falls back
@@ -23,7 +26,7 @@ from the GPU. ``LAUNCHES`` counts the kernel launches. The plain
 versions are the reference's dense weight preamble with a batched
 contraction and, for the packed spread, an ``index_add_`` over
 ``tile_of_chunk``; the tile versions are the packed ones over the
-identity tile map.
+identity tile map, composed with the overlap-add or the extraction.
 """
 
 from __future__ import annotations
@@ -136,16 +139,46 @@ def _tile_ids(Xb: torch.Tensor) -> torch.Tensor:
     return torch.arange(Xb.shape[0], dtype=torch.int32, device=Xb.device)
 
 
-def tile_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                      Xb: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    """Plain version of the tile spread kernel -> (B, P, nz)."""
+def _filled(Xb: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """(B, cap) mask of the filled slot prefix of each row."""
+    slots = torch.arange(Xb.shape[1], device=Xb.device)
+    return slots[None, :] < counts.to(Xb.device)[:, None]
+
+
+def tile_spread_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
+                               offs, Xb: torch.Tensor,
+                               coef: torch.Tensor) -> torch.Tensor:
+    """The reference's tile spread program: per-tile partial grids
+    (B, P, nz) over every slot."""
     return _chunk_partials(geom, grid, offs, _tile_ids(Xb), Xb, coef)
 
 
-def tile_interp_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                      Xb: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
-    """Plain version of the tile interp kernel -> (B, cap)."""
+def tile_interp_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
+                               offs, Xb: torch.Tensor,
+                               T: torch.Tensor) -> torch.Tensor:
+    """The reference's tile interp program: per-slot interpolants
+    (B, cap) from the extracted tiles T (B, P, nz), every slot."""
     return packed_interp_plain(geom, grid, offs, _tile_ids(Xb), Xb, T)
+
+
+def tile_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
+                      Xb: torch.Tensor, coef: torch.Tensor,
+                      counts: torch.Tensor) -> torch.Tensor:
+    """Plain version of the tile spread kernel: the filled slots' partial
+    grids folded onto the periodic grid -> ``grid.n``."""
+    coef = torch.where(_filled(Xb, counts), coef, torch.zeros_like(coef))
+    return _overlap_add(geom, grid, tile_spread_partials_plain(
+        geom, grid, offs, Xb, coef))
+
+
+def tile_interp_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
+                      Xb: torch.Tensor, f: torch.Tensor,
+                      counts: torch.Tensor) -> torch.Tensor:
+    """Plain version of the tile interp kernel: the field's tiles
+    interpolated at the filled slots, 0 elsewhere -> (B, cap)."""
+    U = tile_interp_partials_plain(geom, grid, offs, Xb,
+                                   _extract_tiles(geom, grid, f))
+    return torch.where(_filled(Xb, counts), U, torch.zeros_like(U))
 
 
 # -- kernel wrappers ------------------------------------------------------------
@@ -163,14 +196,15 @@ def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
 # argument types of each launcher (C prototypes in csrc/*.cu):
 # packed_spread (tid, Xb, coef, out, Q, c, B, geom, stream),
 # packed_interp (tid, Xb, T, out, Q, c, geom, stream), and
-# tile_spread / tile_interp (Xb, coef or T, out, B, cap, geom, stream)
+# tile_spread / tile_interp (Xb, coef or f, counts, out, B, cap, geom,
+# stream)
 _ARGTYPES = {"packed_spread": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
              + [_Geom, ctypes.c_void_p],
              "packed_interp": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
              + [_Geom, ctypes.c_void_p],
-             "tile_spread": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+             "tile_spread": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
              + [_Geom, ctypes.c_void_p],
-             "tile_interp": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+             "tile_interp": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
              + [_Geom, ctypes.c_void_p]}
 _bound: Dict[str, tuple] = {}
 
@@ -276,24 +310,37 @@ def packed_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
     return out
 
 
+def _check_tile_args(name: str, geom: BucketGeometry, grid: StaggeredGrid,
+                     Xb: torch.Tensor, counts: torch.Tensor, **tensors):
+    """Bind a tile kernel and check its arguments: one slot row per tile,
+    f32 operands and int32 per-tile counts on Xb's device."""
+    fn = _check_shapes(name, geom, grid, Xb)
+    _check_cuda(name, Xb.device, Xb=(Xb, torch.float32),
+                counts=(counts, torch.int32),
+                **{k: (t, torch.float32) for k, t in tensors.items()})
+    if counts.shape != Xb.shape[:1]:
+        raise ValueError(f"{name}: counts must be (B,), got "
+                         f"{tuple(counts.shape)}")
+    return fn
+
+
 def tile_spread(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                Xb: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    """Per-tile partial grids (B, P, nz) of the tile spread: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+                Xb: torch.Tensor, coef: torch.Tensor,
+                counts: torch.Tensor) -> torch.Tensor:
+    """The grid component (``grid.n``) spread from the filled slots of
+    the per-tile layout: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     if Xb.device.type == "cpu":
-        return tile_spread_plain(geom, grid, offs, Xb, coef)
+        return tile_spread_plain(geom, grid, offs, Xb, coef, counts)
     if Xb.device.type != "cuda":
         raise ValueError(f"tile_spread: unsupported device {Xb.device}")
-    fn = _check_shapes("tile_spread", geom, grid, Xb)
-    _check_cuda("tile_spread", Xb.device, Xb=(Xb, torch.float32),
-                coef=(coef, torch.float32))
+    fn = _check_tile_args("tile_spread", geom, grid, Xb, counts, coef=coef)
     if coef.shape != Xb.shape[:2]:
         raise ValueError("tile_spread: coef must be (B, cap)")
     B, cap = coef.shape
-    out = torch.empty((B, geom.width[0] * geom.width[1], grid.n[2]),
-                      dtype=torch.float32, device=Xb.device)
-    err = fn(Xb.data_ptr(), coef.data_ptr(), out.data_ptr(), B, cap,
-             _tile_geom(geom, grid, offs),
+    out = torch.empty(grid.n, dtype=torch.float32, device=Xb.device)
+    err = fn(Xb.data_ptr(), coef.data_ptr(), counts.data_ptr(),
+             out.data_ptr(), B, cap, _tile_geom(geom, grid, offs),
              torch.cuda.current_stream(Xb.device).cuda_stream)
     _raise_on("tile_spread", err)
     LAUNCHES["tile_spread"] += 1
@@ -301,23 +348,23 @@ def tile_spread(geom: BucketGeometry, grid: StaggeredGrid, offs,
 
 
 def tile_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                Xb: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
-    """Per-slot interpolants (B, cap) of the tile interp: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+                Xb: torch.Tensor, f: torch.Tensor,
+                counts: torch.Tensor) -> torch.Tensor:
+    """Per-slot interpolants (B, cap) of the field ``f`` (``grid.n``) at
+    the filled slots of the per-tile layout, exact zeros elsewhere: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if Xb.device.type == "cpu":
-        return tile_interp_plain(geom, grid, offs, Xb, T)
+        return tile_interp_plain(geom, grid, offs, Xb, f, counts)
     if Xb.device.type != "cuda":
         raise ValueError(f"tile_interp: unsupported device {Xb.device}")
-    fn = _check_shapes("tile_interp", geom, grid, Xb)
-    _check_cuda("tile_interp", Xb.device, Xb=(Xb, torch.float32),
-                T=(T, torch.float32))
+    fn = _check_tile_args("tile_interp", geom, grid, Xb, counts, f=f)
+    if f.shape != grid.n:
+        raise ValueError(f"tile_interp: f must be {grid.n}, got "
+                         f"{tuple(f.shape)}")
     B, cap = Xb.shape[0], Xb.shape[1]
-    if T.shape != (B, geom.width[0] * geom.width[1], grid.n[2]):
-        raise ValueError(f"tile_interp: T must be (B, P, nz), got "
-                         f"{tuple(T.shape)}")
     out = torch.empty((B, cap), dtype=torch.float32, device=Xb.device)
-    err = fn(Xb.data_ptr(), T.data_ptr(), out.data_ptr(), B, cap,
-             _tile_geom(geom, grid, offs),
+    err = fn(Xb.data_ptr(), f.data_ptr(), counts.data_ptr(), out.data_ptr(),
+             B, cap, _tile_geom(geom, grid, offs),
              torch.cuda.current_stream(Xb.device).cuda_stream)
     _raise_on("tile_interp", err)
     LAUNCHES["tile_interp"] += 1
@@ -327,15 +374,16 @@ def tile_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
 # -- the engine -------------------------------------------------------------------
 
 class _KernelEngine:
-    """Spread and interp of a MAC velocity through one pair of tile
-    kernels: per component one spread launch (then the overlap-add and
-    the overflow scatter) and one interp launch per transfer (after the
-    tile extraction, then the unbucketing and the overflow gather)."""
+    """Spread and interp of a MAC velocity through one pair of kernels:
+    per component one spread launch (its grid, then the overflow
+    scatter) and one interp launch per transfer (then the unbucketing
+    and the overflow gather). Each engine's hooks turn a component into
+    its grid and a field into per-slot interpolants."""
 
-    def _spread_tiles(self, offs, b, Xb, coef):
+    def _spread_grid(self, offs, b, Xb, coef):
         raise NotImplementedError
 
-    def _interp_tiles(self, offs, b, Xb, T):
+    def _interp_slots(self, offs, b, Xb, f):
         raise NotImplementedError
 
     def spread(self, F: torch.Tensor, X: torch.Tensor, centering,
@@ -344,10 +392,9 @@ class _KernelEngine:
         inv_vol = 1.0 / math.prod(grid.dx)
         offs = _centering_offsets(grid, centering)
         coef = bucketed_channel(b, F) * b.wb * inv_vol
-        T = self._spread_tiles(offs, b, b.Xb.to(coef.dtype), coef)
-        out = _overlap_add(self.geom, grid, T.to(F.dtype))
-        return spread_overflow_fallbacks(out, b, F, X, grid, centering,
-                                         self.kernel)
+        out = self._spread_grid(offs, b, b.Xb.to(coef.dtype), coef)
+        return spread_overflow_fallbacks(out.to(F.dtype), b, F, X, grid,
+                                         centering, self.kernel)
 
     def spread_vel(self, F: torch.Tensor, X: torch.Tensor,
                    weights: Optional[torch.Tensor] = None, b=None) -> tuple:
@@ -360,8 +407,7 @@ class _KernelEngine:
                     b) -> torch.Tensor:
         grid = self.grid
         offs = _centering_offsets(grid, centering)
-        T = _extract_tiles(self.geom, grid, f)             # (B, P, nz)
-        Ub = self._interp_tiles(offs, b, b.Xb.to(f.dtype), T) * b.wb
+        Ub = self._interp_slots(offs, b, b.Xb.to(f.dtype), f) * b.wb
         return unbucket_with_overflow(Ub, b, f, X, grid, centering,
                                       self.kernel)
 
@@ -403,11 +449,12 @@ class PackedKernelInteraction(_KernelEngine):
         """Slot-preserving half-step refresh; returns ``(buckets, hit)``."""
         return refresh_packed(self.geom, self.grid, b, X, weights)
 
-    def _spread_tiles(self, offs, b, Xb, coef):
-        return packed_spread(self.geom, self.grid, offs, b.tile_of_chunk,
-                             Xb, coef)
+    def _spread_grid(self, offs, b, Xb, coef):
+        return _overlap_add(self.geom, self.grid, packed_spread(
+            self.geom, self.grid, offs, b.tile_of_chunk, Xb, coef))
 
-    def _interp_tiles(self, offs, b, Xb, T):
+    def _interp_slots(self, offs, b, Xb, f):
+        T = _extract_tiles(self.geom, self.grid, f)        # (B, P, nz)
         return packed_interp(self.geom, self.grid, offs, b.tile_of_chunk,
                              Xb, T)
 
@@ -415,10 +462,12 @@ class PackedKernelInteraction(_KernelEngine):
 class TileKernelInteraction(_KernelEngine):
     """The per-tile layout (``interaction_fast.bucket_markers``: B tiles of
     ``cap`` slots) with the spread and interp of each velocity component
-    done by the tile kernels: 3 spread and 3 interp launches per transfer
-    of a MAC velocity. Markers beyond a tile's ``cap`` go through the
-    exact scatter fallback. Like the reference engine it has no
-    ``refresh``: the midpoint step buckets the half-step positions anew."""
+    done by the tile kernels, which write and read the grid themselves:
+    3 spread and 3 interp launches per transfer of a MAC velocity, and no
+    overlap-add or tile extraction. Markers beyond a tile's ``cap`` go
+    through the exact scatter fallback. Like the reference engine it has
+    no ``refresh``: the midpoint step buckets the half-step positions
+    anew."""
 
     def __init__(self, grid: StaggeredGrid, kernel="IB_4", tile: int = 8,
                  cap: int = 256, overflow_cap: Optional[int] = None,
@@ -436,8 +485,9 @@ class TileKernelInteraction(_KernelEngine):
         return bucket_markers(self.geom, self.grid, X, weights=weights,
                               overflow_cap=self.overflow_cap)
 
-    def _spread_tiles(self, offs, b, Xb, coef):
-        return tile_spread(self.geom, self.grid, offs, Xb, coef)
+    def _spread_grid(self, offs, b, Xb, coef):
+        return tile_spread(self.geom, self.grid, offs, Xb, coef, b.counts)
 
-    def _interp_tiles(self, offs, b, Xb, T):
-        return tile_interp(self.geom, self.grid, offs, Xb, T)
+    def _interp_slots(self, offs, b, Xb, f):
+        return tile_interp(self.geom, self.grid, offs, Xb, f.contiguous(),
+                           b.counts)

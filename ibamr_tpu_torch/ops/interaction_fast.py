@@ -129,6 +129,7 @@ class Buckets(NamedTuple):
     any_overflow: bool             # host flag
     exceeded: bool                 # host flag: overflow count > ocap
     x0: Tuple[torch.Tensor, ...]   # per blocked axis: (B,) tile origin cell
+    counts: torch.Tensor           # (B,) int32 filled slots, min(count, cap)
 
 
 def bucket_markers(geom: BucketGeometry, grid: StaggeredGrid,
@@ -136,7 +137,8 @@ def bucket_markers(geom: BucketGeometry, grid: StaggeredGrid,
                    overflow_cap: Optional[int] = None) -> Buckets:
     """Bucket markers by tile into ``geom.cap`` slots per tile, in the
     order of a stable sort of their tile ids (slot for slot the
-    reference's layout); a tile's markers beyond ``cap`` overflow."""
+    reference's layout); a tile's markers beyond ``cap`` overflow. Row
+    t fills slots ``0 .. counts[t] - 1`` and leaves the rest empty."""
     N, dim = X.shape
     dev = X.device
     if weights is None:
@@ -172,7 +174,8 @@ def bucket_markers(geom: BucketGeometry, grid: StaggeredGrid,
     x0 = _tile_origins(geom, torch.arange(B, dtype=torch.int32, device=dev))
     return Buckets(Xb=Xb, wb=wb, slot_of_marker=slot_of_marker,
                    w_overflow=w_overflow, o_idx=o_idx, o_w=o_w,
-                   any_overflow=any_overflow, exceeded=exceeded, x0=x0)
+                   any_overflow=any_overflow, exceeded=exceeded, x0=x0,
+                   counts=torch.clamp(counts, max=cap).to(torch.int32))
 
 
 def compact_overflow(order: torch.Tensor, keep: torch.Tensor,

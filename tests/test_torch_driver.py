@@ -150,7 +150,7 @@ def test_driver_sequence_and_state_match_reference(start):
                         engine_fallback=False, **SHELL)
     tinteg, _ = tbuild(use_fast_interaction="scatter", dtype=torch.float64,
                        device="cpu", **SHELL)
-    ts = convert.ib_state(js)
+    ts = convert.ib_state(js, device="cpu")
     kw = dict(dt=DT, num_steps=7, viz_dump_interval=2, restart_interval=3,
               regrid_interval=4, health_interval=3)
     jseen, tseen = [], []
@@ -215,7 +215,7 @@ def _stepped_states():
     js = jax.jit(jinteg.step, static_argnums=1)(js, DT)
     tinteg, _ = tbuild(use_fast_interaction="scatter", dtype=torch.float64,
                        device="cpu", **SHELL)
-    return js, convert.ib_state(js), tinteg
+    return js, convert.ib_state(js, device="cpu"), tinteg
 
 
 def _bitwise(jstate, tstate):
@@ -233,7 +233,8 @@ def test_checkpoints_cross_restore_bitwise(tmp_path):
     assert tckpt.state_schema(ts) == jckpt.state_schema(js)
     # JAX writes, the port restores
     jckpt.save_checkpoint(str(tmp_path / "j"), js, 5)
-    template = convert.ib_state(jax.tree_util.tree_map(jnp.zeros_like, js))
+    template = convert.ib_state(jax.tree_util.tree_map(jnp.zeros_like, js),
+                                device="cpu")
     got, step, meta = tckpt.restore_checkpoint(str(tmp_path / "j"), template)
     assert step == 5 and meta["step"] == 5
     _bitwise(js, got)

@@ -102,6 +102,51 @@ def test_gpu_entry_points_raise_without_a_gpu():
         resolve_device("meta")
 
 
+def test_converters_default_to_the_gpu():
+    """Every ``convert`` function places its tensors on the card unless it
+    is passed ``device="cpu"``, like every entry point of the port."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works here")
+    from types import SimpleNamespace as NS
+
+    import numpy as np
+
+    from ibamr_tpu_torch import convert
+
+    z3 = np.zeros((2, 3))
+    ins = NS(u=(z3,) * 3, p=z3, n_prev=(z3,) * 3, t=0.0, k=0)
+    ib = NS(ins=ins, X=z3, U=z3, mask=np.ones(2))
+    specs = NS(targets=None, beams=None, springs=NS(
+        idx0=[0], idx1=[1], stiffness=[1.0], rest_length=[0.5],
+        enabled=[1.0]))
+    b = NS(Xb=np.zeros((4, 2, 3)), wb=np.zeros((4, 2)),
+           slot_of_marker=np.array([0, 8]), w_overflow=np.zeros(2),
+           o_idx=np.array([1]), o_w=np.zeros(1), any_overflow=True,
+           exceeded=False, x0=(np.zeros(4), np.zeros(4)),
+           tile_of_chunk=np.zeros(4))
+    calls = {"tensor": lambda **kw: convert.tensor(z3, **kw),
+             "ins_state": lambda **kw: convert.ins_state(ins, **kw),
+             "ib_state": lambda **kw: convert.ib_state(ib, **kw),
+             "force_specs": lambda **kw: convert.force_specs(specs, 2, **kw),
+             "buckets": lambda **kw: convert.buckets(b, **kw),
+             "packed_buckets": lambda **kw: convert.packed_buckets(b, **kw)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        leaves = list(_leaves(call(device="cpu")))
+        assert leaves and all(t.device.type == "cpu" for t in leaves), name
+    assert convert.buckets(b, device="cpu").counts.tolist() == [1, 0, 0, 0]
+
+
+def _leaves(obj):
+    """The tensors of a tensor or of nested (named) tuples."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, tuple):
+        for v in obj:
+            yield from _leaves(v)
+
+
 def test_chip_smoke_fails_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: chip_smoke.py would run")

@@ -74,7 +74,7 @@ def test_spread_kernel_plain_matches_pallas(centering):
     X, F, _ = _inputs(0, 300, n)
     je, te = _engines(n, X, chunk=64)
     jb = je.buckets(jnp.asarray(X))
-    tb = convert.packed_buckets(jb)
+    tb = convert.packed_buckets(jb, device="cpu")
     offs = _centering_offsets(je.grid, centering)
     coef = j_channel(jb, jnp.asarray(F[:, centering])) * jb.wb \
         / float(np.prod(je.grid.dx))
@@ -94,7 +94,7 @@ def test_interp_kernel_plain_matches_pallas(centering):
     X, _, u = _inputs(1, 300, n)
     je, te = _engines(n, X, chunk=64)
     jb = je.buckets(jnp.asarray(X))
-    tb = convert.packed_buckets(jb)
+    tb = convert.packed_buckets(jb, device="cpu")
     offs = _centering_offsets(je.grid, centering)
     T = j_extract(je.geom, je.grid, jnp.asarray(u[centering]))
     Tt = _extract_tiles(te.geom, te.grid, torch.tensor(u[centering]))

@@ -25,7 +25,7 @@ def _grids(n):
 
 
 def _assert_same(jb, tb):
-    ref = convert.packed_buckets(jb)
+    ref = convert.packed_buckets(jb, device="cpu")
     for name in tb._fields:
         a, b = getattr(ref, name), getattr(tb, name)
         if isinstance(a, bool):

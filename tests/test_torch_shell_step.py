@@ -36,7 +36,7 @@ def test_three_midpoint_steps_match_reference(engine):
     tinteg, _ = tbuild(use_fast_interaction=engine, dtype=torch.float64,
                        device="cpu", **SHELL)
     assert tinteg.ib.engine_name == engine
-    ts = convert.ib_state(js)
+    ts = convert.ib_state(js, device="cpu")
     X0 = np.asarray(js.X)
     jstep = jax.jit(jinteg.step_with_stats, static_argnums=1)
     for _ in range(3):
@@ -65,7 +65,7 @@ def test_forward_euler_scatter_step_matches_reference():
                        device="cpu", **SHELL)
     jfe = JInteg(jinteg.ins, jinteg.ib, scheme="forward_euler")
     tfe = TInteg(tinteg.ins, tinteg.ib, scheme="forward_euler")
-    ts = convert.ib_state(js)
+    ts = convert.ib_state(js, device="cpu")
     for _ in range(2):
         js = jfe.step(js, DT)
         ts = tfe.step(ts, DT)
@@ -110,7 +110,7 @@ def test_engine_without_refresh_rebuckets_like_reference():
     tinteg, _ = tbuild(use_fast_interaction="pallas_packed",
                        dtype=torch.float64, device="cpu", **SHELL)
     tinteg.ib.fast = _NoRefresh(tinteg.ib.fast)
-    ts = convert.ib_state(js)
+    ts = convert.ib_state(js, device="cpu")
     assert tinteg.ib.refresh(tinteg.ib.prepare(ts.X, ts.mask), ts.X,
                              ts.mask) == (None, None)
     jstep = jax.jit(jinteg.step_with_stats, static_argnums=1)
