@@ -11,16 +11,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bucketing of the 316x316 shell on the 256^3 grid) each kernel against
    its plain PyTorch version on the card, two kernel runs bitwise equal,
    and the times of the kernel, the plain version and one ``torch.bmm``
-   yardstick beside the kernel's bound; the tile kernels write and read
-   the grid themselves, and the overlap-add and tile extraction they
-   fold in are timed alone beside them.
+   yardstick beside the kernel's bound; the tile kernels and the packed
+   interp write or read the grid themselves, and the overlap-add and
+   tile extraction they fold in are timed alone beside them.
 3. parity  -- 3 midpoint steps of the 32^3 shell (16x16) on the GPU (the
    kernels) and on the CPU (the plain versions) from the same state, on
    the ``pallas_packed`` and the ``pallas`` engine; a buffered and an
    exceeded overflow through each engine against the CPU scatter oracle.
 4. path    -- the flagship step, ``build_shell_example(n_cells=256,
    n_lat=316, n_lon=316, use_fast_interaction="pallas_packed")``, warmed
-   up and timed; the kernel launch counts of exactly this run.
+   up and timed; the kernel launch counts of exactly this run, and no
+   tile extraction in it.
 5. driver  -- the ex4 driver, ``ibamr_tpu_torch.examples.ib_explicit_ex4
    .run``, on the committed ``input3d.northstar`` (256^3, 316x316 shell)
    with ``IBMethod.transfer_engine = "pallas"``: steps/s, the metrics log,
@@ -123,8 +124,10 @@ def _check_kernel(name: str, kernel, plain, library, nbytes: int,
     """One kernel against its plain version on the same inputs: max
     abs error (on live slots where ``live`` is given: the engine weights
     the rest by 0), run-to-run bitwise equality, and the times of the
-    kernel, the plain version and the ``torch.bmm`` yardstick beside the
-    bound of ``nbytes`` moved and ``ops`` operations."""
+    kernel (its device time from the profiler, and CUDA events around
+    back-to-back wrapper calls, which the host's launch rate can set for a
+    short kernel), the plain version and the ``torch.bmm`` yardstick
+    beside the bound of ``nbytes`` moved and ``ops`` operations."""
     k1, k2, ref = kernel(), kernel(), plain()
     torch.cuda.synchronize()
     diff, mag = (k1 - ref).abs(), ref.abs()
@@ -133,14 +136,16 @@ def _check_kernel(name: str, kernel, plain, library, nbytes: int,
     err, scale = float(diff.max()), float(mag.max())
     bitwise = bool(torch.equal(k1, k2))
     del k1, k2, ref, diff, mag
-    ms = time_ms(kernel, 50)
+    ms = _device_ms(kernel, 20)[0]
+    calls_ms = time_ms(kernel, 50)
     plain_ms = time_ms(plain, 5)
     library_ms = time_ms(library, 10)
     bms, by = bound(nbytes, ops)
     log(f"[kernels] {name}: max|kernel-plain|"
         f"{' on live slots' if live is not None else ''}={err:.3e} "
         f"(tol {TOL_KERNEL:g}*max|plain| = {TOL_KERNEL * scale:.3e}) "
-        f"bitwise run-to-run={bitwise} kernel_ms={ms:.4f} "
+        f"bitwise run-to-run={bitwise} kernel_ms(profiler device)={ms:.4f} "
+        f"(events over back-to-back calls {calls_ms:.4f}) "
         f"plain_ms={plain_ms:.4f} library_ms(bmm, {note})="
         f"{library_ms:.4f} bound_ms={bms:.4f} ({by}, {nbytes} B)")
     if not (err <= TOL_KERNEL * scale and bitwise):
@@ -215,17 +220,23 @@ def phase_kernels() -> dict:
         4 * (tid.numel() + coef.numel() + 3 * n_live + B * P * n),
         n_live * OPS_PER_MARKER, note="product only")
     del A, Wzc
-    n_touched = int((_touched_tiles(wx, wy, wz, live, tid, B, P, n) != 0)
-                    .sum())
+    extract_ms = time_ms(lambda: _extract_tiles(geom, grid, f), 10)
+    log(f"[kernels] folded into packed_interp, timed alone: _extract_tiles "
+        f"of a {n}^3 field into ({B}, {P}, {n}) tiles {extract_ms:.4f} ms")
+    # an interp reads the grid entries under the live supports once, the
+    # X of every slot (it evaluates them all), tid, and writes (Q, c)
+    touched = _touched_tiles(wx, wy, wz, live, tid, B, P, n)
+    n_touched = int((_overlap_add(geom, grid, touched) != 0).sum())
+    del touched
     Tq = T_in[tid.to(torch.int64)].contiguous()
     rows["packed_interp"] = _check_kernel(
         "packed_interp",
-        lambda: ci.packed_interp(geom, grid, offs, tid, Xb, T_in),
-        lambda: ci.packed_interp_plain(geom, grid, offs, tid, Xb, T_in),
+        lambda: ci.packed_interp(geom, grid, offs, tid, Xb, f),
+        lambda: ci.packed_interp_plain(geom, grid, offs, tid, Xb, f),
         lambda: torch.bmm(Tq, wz),
         4 * (tid.numel() + Xb.numel() + n_touched + Q * c),
-        n_live * OPS_PER_MARKER, live=live,
-        note=f"z-contraction only; {n_touched} tile entries touched")
+        n_live * OPS_PER_MARKER,
+        note=f"z-contraction only; {n_touched} grid entries touched")
     del Tq, wx, wy, wz
 
     # -- tile kernels, on the pallas engine's real per-tile bucketing ------
@@ -263,9 +274,9 @@ def phase_kernels() -> dict:
     del A, Wzc
     # what the two kernels fold in, alone at the per-tile shapes: the
     # overlap-add of (B, P, nz) partials and the tile extraction of a field
+    # (timed above: both layouts have the same B tiles)
     T_part = torch.randn((B, P, n), generator=gen).to(dev)
     fold_ms = time_ms(lambda: _overlap_add(geom, grid, T_part), 10)
-    extract_ms = time_ms(lambda: _extract_tiles(geom, grid, f), 10)
     log(f"[kernels] folded into the tile kernels, timed alone: "
         f"_overlap_add of ({B}, {P}, {n}) partials {fold_ms:.4f} ms, "
         f"_extract_tiles of a {n}^3 field {extract_ms:.4f} ms")
@@ -389,6 +400,7 @@ def phase_path(warmup: int, steps: int):
     it reached."""
     from ibamr_tpu_torch.models.shell3d import build_shell_example
     from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.ops import interaction_fast
 
     t0 = time.perf_counter()
     integ, state = build_shell_example(use_fast_interaction="pallas_packed",
@@ -399,18 +411,32 @@ def phase_path(warmup: int, steps: int):
         f"grid {integ.ins.grid.n}, {state.X.shape[0]} markers, "
         f"engine {integ.ib.engine_name}, Q={integ.ib.fast.nchunks}")
     X0 = state.X.clone()
+    # the packed interp reads the grid itself: count any tile extraction
+    extractions = []
+    extract = interaction_fast._extract_tiles
+
+    def counted(*args, **kwargs):
+        extractions.append(1)
+        return extract(*args, **kwargs)
+
+    for mod in (ci, interaction_fast):
+        mod._extract_tiles = counted
     ci.reset_launch_counts()
     hits = []
-    for _ in range(warmup):
-        state, st = integ.step_with_stats(state, DT_FLAGSHIP)
-        hits.append(st["refresh_hit"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        state, st = integ.step_with_stats(state, DT_FLAGSHIP)
-        hits.append(st["refresh_hit"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    try:
+        for _ in range(warmup):
+            state, st = integ.step_with_stats(state, DT_FLAGSHIP)
+            hits.append(st["refresh_hit"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, st = integ.step_with_stats(state, DT_FLAGSHIP)
+            hits.append(st["refresh_hit"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod in (ci, interaction_fast):
+            mod._extract_tiles = extract
     launches = dict(ci.LAUNCHES)
     total = warmup + steps
     div = float(integ.ins.max_divergence(state.ins))
@@ -428,7 +454,8 @@ def phase_path(warmup: int, steps: int):
         f"max|X-X0|={disp:.3e}; finite={finite}")
     log(f"[path] kernel launches in {total} steps: {launches} "
         f"(per step: packed_spread 3 = one per velocity component, "
-        f"packed_interp 6 = two interps x 3 components)")
+        f"packed_interp 6 = two interps x 3 components); tile extractions "
+        f"{len(extractions)}")
     if not finite:
         raise AssertionError("flagship state is not finite")
     if rel_div > 1e-4:
@@ -436,6 +463,8 @@ def phase_path(warmup: int, steps: int):
     if launches != {**dict.fromkeys(KERNELS, 0), "packed_spread": 3 * total,
                     "packed_interp": 6 * total}:
         raise AssertionError(f"unexpected kernel launch counts {launches}")
+    if extractions:
+        raise AssertionError("the pallas_packed step extracted tiles")
     return launches, 1e3 * wall / steps, integ, state
 
 

@@ -1,29 +1,56 @@
-// Packed-chunk interpolation for Hopper (sm_90a).
+// Packed-chunk interpolation straight from the grid for Hopper (sm_90a):
+// the pallas_packed engine's tile extraction and packed interp in one
+// kernel.
 //
-// Replaces _packed_interp_kernel_3d (ibamr_tpu/ops/pallas_interaction.py).
-// For every chunk slot (q, m), with t = tile_of_chunk[q]:
+// Replaces _packed_interp_kernel_3d (ibamr_tpu/ops/pallas_interaction.py:314,
+// pallas_call at :359) together with the prologue that copies each
+// tile's footprint out of the grid, _extract_tiles
+// (ibamr_tpu/ops/interaction_fast.py:345, called at
+// pallas_interaction.py:462). The layout is the occupancy-packed one: Q
+// chunks of c slots, chunk q holding markers of tile t = tile_of_chunk[q].
+// For every slot (q, m), m < c:
 //
-//   out[q, m] = sum_a wx[a,m] sum_b wy[b,m] sum_z T[t, a*W1 + b, z] wz[z,m]
+//   out[q, m] = sum_a wx[a,m] sum_b wy[b,m] sum_z wz[z,m]
+//               f[wrap(x0(t)-1+a), wrap(y0(t)-1+b), z]
 //
-// where T (B, W0*W1, nz) holds each tile's footprint of the field
-// (_extract_tiles) and the weights are the IB_4 weights of delta_ib4.cuh,
-// the same function the spread kernel evaluates.
+// over the footprint offsets a < W0, b < W1 of tile t (x0(t) =
+// (t / nb1) * t0, y0(t) = (t % nb1) * t1), with the IB_4 weights of
+// delta_ib4.cuh, the function the spread kernels evaluate. Only taps
+// inside the footprint count, as in the reference: an empty slot (X = 0)
+// of a tile whose footprint misses the origin gets a partial sum, which
+// the engine then weights by wb = 0. Every slot is evaluated, so the
+// kernel and its plain version agree on all Q * c slots.
 //
-// Design: compact support, one thread per marker slot. The TPU kernel
-// forms the dense (P, nz) x (nz, c) product because that shape suits the
-// MXU; but every weight outside |t| < 2 is exactly 0, so the same sum
-// needs only each marker's 4 x 4 x 4 nonzero taps, about 700x fewer
-// multiply-adds. A thread evaluates the 13 x- and 13 y-weights of the
-// footprint and the weights of the 5 z planes around its marker (the 4
-// planes within the support and one more against rounding; z planes
-// further out have weight exactly 0), and skips zero weights. The sum runs
-// in the reference's nesting (z innermost, then b, then a).
+// Bound. At the flagship (256^3 grid, Q = 1,146 chunks of 128, 99,856
+// live slots) an interp must read the 320,572 grid entries under the
+// live slots' supports (1.3 MB), the X of all Q * c slots (1.8 MB) and
+// tile_of_chunk, and write the (Q, c) output (0.6 MB): 3.6 MB, 0.0011 ms
+// at 3.35 TB/s; its ~3e7 operations bound nothing. The reference's form
+// first copies the 67 MB grid into a 177 MB (B, 169, nz) tile block and
+// then reads it back.
 //
-// Bound. Each live marker reads 64 floats of T, scattered over the tile's
-// footprint, plus its position, and writes one float: the kernel is bound
-// by those bytes (a gather), not by its ~200 flops per marker. Markers of
-// one chunk are neighbours on the structure, so a warp's taps fall in a
-// few cache lines of one tile.
+// Design. One thread per slot over the compact support: it takes the 4
+// nonzero weights of each axis (ib4_weights: from the fraction of the
+// grid coordinate, one square root; every weight outside |t| < 2 is
+// exactly 0), zeroes the x and y taps that fall outside its tile's
+// footprint, and reads the 4 x 4 grid columns of its support, 4 z taps
+// each: 64 independent loads in flight per thread. Slots of a chunk are
+// neighbours on the structure and the chunks of one tile are consecutive
+// in q, so neighbouring threads gather from the same few lines of L1 and
+// L2 (a tile's footprint over all z is 173 KB at 256^3); the whole pack
+// runs in about one wave. The sum runs in the reference's nesting (z,
+// then y, then x) as fixed FMA chains: no atomics, bitwise reproducible.
+// At the flagship pack on an H100 80GB HBM3 (700 W), chip_smoke.py's
+// kernels phase read 0.0139 ms of device time for this form, 0.0311 ms
+// for a half-warp per slot (tile_interp's form: 4 loads per lane and
+// butterfly sums) and 0.0172 ms with each column's 4 taps read as two
+// aligned 16-byte loads.
+//
+// Tensor cores do not pay here: the TPU's matrix unit takes a dense
+// (169, nz) x (nz, c) product per chunk, ~676x the 64 multiply-adds a
+// marker needs; the compact form is a gather bound by bytes, with no
+// product left to feed a matrix unit, and its f32 sums must stay exact
+// to f32 rounding, which TF32 is not.
 
 #include <cstdint>
 
@@ -31,60 +58,59 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;   // one slot per thread
 constexpr int kMaxWidth = 16;   // footprint widths W0, W1 <= kMaxWidth
-constexpr int kZTaps = 5;       // z planes visited per marker (nz >= 5)
+constexpr int kMinNz = 5;       // 4 distinct z stencil planes
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
 
 __global__ void __launch_bounds__(kThreads)
 packed_interp_kernel(const int* __restrict__ tid,
                      const float* __restrict__ Xb,
-                     const float* __restrict__ T,
-                     float* __restrict__ out, int Q, int c, TileGeom g) {
+                     const float* __restrict__ f, float* __restrict__ out,
+                     int Q, int c, TileGeom g) {
   const size_t s = (size_t)blockIdx.x * kThreads + threadIdx.x;
   if (s >= (size_t)Q * c) return;
-  const int q = (int)(s / c);
-  const int t = tid[q];
-  const float x0 = (float)((t / g.nb1) * g.t0 - 1);
-  const float y0 = (float)((t % g.nb1) * g.t1 - 1);
+  const int t = tid[s / c];
+  // footprint origins of tile t: offset a of the footprint is the grid
+  // point o - 1 + a
+  const int ox = (t / g.nb1) * g.t0, oy = (t % g.nb1) * g.t1;
   const float xi = grid_coord(Xb[3 * s + 0], g.lo0, g.dx0, g.off0);
   const float yi = grid_coord(Xb[3 * s + 1], g.lo1, g.dx1, g.off1);
   const float zi = grid_coord(Xb[3 * s + 2], g.lo2, g.dx2, g.off2);
-
-  float wy[kMaxWidth];
+  // tap k of an axis is the grid point floor(xi) - 1 + k
+  float wx[4], wy[4], wz[4];
+  ib4_weights(xi, wx);
+  ib4_weights(yi, wy);
+  ib4_weights(zi, wz);
+  const int fx = (int)floorf(xi), fy = (int)floorf(yi), fz = (int)floorf(zi);
+  int gx[4], gy[4], gz[4];
 #pragma unroll
-  for (int b = 0; b < kMaxWidth; ++b)
-    wy[b] = (b < g.W1) ? delta_weight(yi, y0 + (float)b, (float)g.n1)
-                       : 0.0f;
-
-  // z planes floor(zi)-2 .. floor(zi)+2, wrapped onto [0, nz)
-  float wz[kZTaps];
-  int kz[kZTaps];
-  const int zf = (int)floorf(zi);
-#pragma unroll
-  for (int k = 0; k < kZTaps; ++k) {
-    int z = (zf - 2 + k) % g.nz;
-    z += (z < 0) ? g.nz : 0;
-    kz[k] = z;
-    wz[k] = delta_weight(zi, (float)z, (float)g.nz);
+  for (int k = 0; k < 4; ++k) {
+    const int ax = wrap(fx + k - ox, g.n0);   // footprint offsets
+    const int ay = wrap(fy + k - oy, g.n1);
+    gx[k] = wrap(ox - 1 + ax, g.n0);
+    gy[k] = wrap(oy - 1 + ay, g.n1);
+    gz[k] = wrap(fz - 1 + k, g.nz);
+    if (ax >= g.W0) wx[k] = 0.0f;   // only taps inside the footprint
+    if (ay >= g.W1) wy[k] = 0.0f;
   }
-
-  const float* Tt = T + (size_t)t * g.W0 * g.W1 * g.nz;
   float acc = 0.0f;
-  for (int a = 0; a < g.W0; ++a) {
-    const float wa = delta_weight(xi, x0 + (float)a, (float)g.n0);
-    if (wa == 0.0f) continue;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
     float inner = 0.0f;
 #pragma unroll
-    for (int b = 0; b < kMaxWidth; ++b) {
-      if (wy[b] == 0.0f) continue;
-      const float* row = Tt + (size_t)(a * g.W1 + b) * g.nz;
+    for (int b = 0; b < 4; ++b) {
+      const float* col = f + ((size_t)gx[a] * g.n1 + gy[b]) * g.nz;
       float sz = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kZTaps; ++k)
-        if (wz[k] != 0.0f) sz = fmaf(row[kz[k]], wz[k], sz);
+      for (int p = 0; p < 4; ++p) sz = fmaf(col[gz[p]], wz[p], sz);
       inner = fmaf(wy[b], sz, inner);
     }
-    acc = fmaf(wa, inner, acc);
+    acc = fmaf(wx[a], inner, acc);
   }
   out[s] = acc;
 }
@@ -93,13 +119,13 @@ packed_interp_kernel(const int* __restrict__ tid,
 
 // Launches on `stream`; returns cudaGetLastError() of the launch.
 extern "C" int packed_interp_launch(const int* tid, const float* Xb,
-                                    const float* T, float* out, int Q, int c,
+                                    const float* f, float* out, int Q, int c,
                                     TileGeom g, void* stream) {
   const long long slots = (long long)Q * c;
-  const unsigned blocks = (unsigned)((slots + kThreads - 1) / kThreads);
+  const long long blocks = (slots + kThreads - 1) / kThreads;
   if (blocks == 0) return 0;
-  packed_interp_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      tid, Xb, T, out, Q, c, g);
+  packed_interp_kernel<<<(unsigned)blocks, kThreads, 0,
+                         (cudaStream_t)stream>>>(tid, Xb, f, out, Q, c, g);
   return (int)cudaGetLastError();
 }
 
@@ -107,6 +133,6 @@ extern "C" int packed_interp_limits(int* max_chunk, int* max_width,
                                     int* min_nz) {
   *max_chunk = 1 << 30;   // one thread per slot: any chunk size
   *max_width = kMaxWidth;
-  *min_nz = kZTaps;
+  *min_nz = kMinNz;
   return 0;
 }

@@ -9,8 +9,9 @@ Kernels (sources in ``csrc/``, notes on design and bound there):
   ``_packed_spread_kernel_3d``: per-tile partial grids ``(B, P, nz)``
   from the chunks' markers, zero for tiles no chunk visits.
 - ``packed_interp`` (``csrc/packed_interp.cu``) replaces
-  ``_packed_interp_kernel_3d``: per-slot interpolants ``(Q, c)`` from the
-  tiles' footprints ``(B, P, nz)``.
+  ``_packed_interp_kernel_3d`` and the ``_extract_tiles`` before it:
+  per-slot interpolants ``(Q, c)`` read straight from the grid component,
+  every slot.
 - ``tile_spread`` (``csrc/tile_spread.cu``) replaces ``_spread_kernel_3d``
   and the ``_overlap_add`` after it: the periodic grid component itself
   from the unpacked per-tile layout (``Buckets``, B tiles of ``cap``
@@ -25,7 +26,8 @@ the plain PyTorch version beside it for CPU tensors; nothing falls back
 from the GPU. ``LAUNCHES`` counts the kernel launches. The plain
 versions are the reference's dense weight preamble with a batched
 contraction and, for the packed spread, an ``index_add_`` over
-``tile_of_chunk``; the tile versions are the packed ones over the
+``tile_of_chunk``; the interp versions compose the reference's program
+with the extraction, and the tile versions are the packed ones over the
 identity tile map, composed with the overlap-add or the extraction.
 """
 
@@ -123,15 +125,25 @@ def packed_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
     return T.index_add_(0, tid.to(torch.int64), Tq)
 
 
-def packed_interp_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                        tid: torch.Tensor, Xb: torch.Tensor,
-                        T: torch.Tensor) -> torch.Tensor:
-    """Plain version of the packed interp kernel -> (Q, c)."""
+def packed_interp_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
+                                 offs, tid: torch.Tensor, Xb: torch.Tensor,
+                                 T: torch.Tensor) -> torch.Tensor:
+    """The reference's packed interp program: per-slot interpolants
+    (Q, c) from the extracted tiles T (B, P, nz), every slot."""
     wx, wy, wz = tile_weights(geom, grid, offs, tid, Xb)
     Q, W0, c = wx.shape
     tmp = torch.bmm(T[tid.to(torch.int64)], wz)          # (Q, P, c)
     inner = torch.sum(wy[:, None, :, :] * tmp.reshape(Q, W0, -1, c), dim=2)
     return torch.sum(wx * inner, dim=1)
+
+
+def packed_interp_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
+                        tid: torch.Tensor, Xb: torch.Tensor,
+                        f: torch.Tensor) -> torch.Tensor:
+    """Plain version of the packed interp kernel: the field's tiles
+    interpolated at every chunk slot -> (Q, c)."""
+    return packed_interp_partials_plain(geom, grid, offs, tid, Xb,
+                                        _extract_tiles(geom, grid, f))
 
 
 def _tile_ids(Xb: torch.Tensor) -> torch.Tensor:
@@ -158,7 +170,8 @@ def tile_interp_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
                                T: torch.Tensor) -> torch.Tensor:
     """The reference's tile interp program: per-slot interpolants
     (B, cap) from the extracted tiles T (B, P, nz), every slot."""
-    return packed_interp_plain(geom, grid, offs, _tile_ids(Xb), Xb, T)
+    return packed_interp_partials_plain(geom, grid, offs, _tile_ids(Xb),
+                                        Xb, T)
 
 
 def tile_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
@@ -195,7 +208,7 @@ def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
 
 # argument types of each launcher (C prototypes in csrc/*.cu):
 # packed_spread (tid, Xb, coef, out, Q, c, B, geom, stream),
-# packed_interp (tid, Xb, T, out, Q, c, geom, stream), and
+# packed_interp (tid, Xb, f, out, Q, c, geom, stream), and
 # tile_spread / tile_interp (Xb, coef or f, counts, out, B, cap, geom,
 # stream)
 _ARGTYPES = {"packed_spread": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
@@ -286,23 +299,23 @@ def packed_spread(geom: BucketGeometry, grid: StaggeredGrid, offs,
 
 def packed_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
                   tid: torch.Tensor, Xb: torch.Tensor,
-                  T: torch.Tensor) -> torch.Tensor:
-    """Per-slot interpolants (Q, c) of the packed interp: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+                  f: torch.Tensor) -> torch.Tensor:
+    """Per-slot interpolants (Q, c) of the field ``f`` (``grid.n``) at
+    every chunk slot of the packed layout: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if Xb.device.type == "cpu":
-        return packed_interp_plain(geom, grid, offs, tid, Xb, T)
+        return packed_interp_plain(geom, grid, offs, tid, Xb, f)
     if Xb.device.type != "cuda":
         raise ValueError(f"packed_interp: unsupported device {Xb.device}")
     fn = _check_shapes("packed_interp", geom, grid, Xb, tid)
     Q, c = Xb.shape[0], Xb.shape[1]
     _check_cuda("packed_interp", Xb.device, tid=(tid, torch.int32),
-                Xb=(Xb, torch.float32), T=(T, torch.float32))
-    B = int(np.prod(geom.nblk))
-    if T.shape != (B, geom.width[0] * geom.width[1], grid.n[2]):
-        raise ValueError(f"packed_interp: T must be (B, P, nz), got "
-                         f"{tuple(T.shape)}")
+                Xb=(Xb, torch.float32), f=(f, torch.float32))
+    if f.shape != grid.n:
+        raise ValueError(f"packed_interp: f must be {grid.n}, got "
+                         f"{tuple(f.shape)}")
     out = torch.empty((Q, c), dtype=torch.float32, device=Xb.device)
-    err = fn(tid.data_ptr(), Xb.data_ptr(), T.data_ptr(), out.data_ptr(),
+    err = fn(tid.data_ptr(), Xb.data_ptr(), f.data_ptr(), out.data_ptr(),
              Q, c, _tile_geom(geom, grid, offs),
              torch.cuda.current_stream(Xb.device).cuda_stream)
     _raise_on("packed_interp", err)
@@ -424,7 +437,9 @@ class PackedKernelInteraction(_KernelEngine):
     """Occupancy-packed chunks (``ops/interaction_packed.py`` layout) with
     the spread and interp of each velocity component done by the packed
     kernels: 3 spread and 3 interp launches per transfer of a MAC
-    velocity. Overflow markers go through the exact scatter fallback."""
+    velocity. The spread's tile partials fold onto the grid by the
+    overlap-add; the interp reads the grid itself, with no tile
+    extraction. Overflow markers go through the exact scatter fallback."""
 
     def __init__(self, grid: StaggeredGrid, kernel="IB_4", tile: int = 8,
                  chunk: int = 128, nchunks: int = 1024,
@@ -454,9 +469,8 @@ class PackedKernelInteraction(_KernelEngine):
             self.geom, self.grid, offs, b.tile_of_chunk, Xb, coef))
 
     def _interp_slots(self, offs, b, Xb, f):
-        T = _extract_tiles(self.geom, self.grid, f)        # (B, P, nz)
         return packed_interp(self.geom, self.grid, offs, b.tile_of_chunk,
-                             Xb, T)
+                             Xb, f.contiguous())
 
 
 class TileKernelInteraction(_KernelEngine):

@@ -1,10 +1,12 @@
 """Port parity: the plain PyTorch versions of the two packed transfer
-kernels (``ibamr_tpu_torch/ops/cuda_interaction.py``) and the engine
-around them against the reference Pallas programs
-(``PallasPackedInteraction``, interpret mode) on the CPU, in f32, with
-the cases of ``tests/test_pallas_packed.py``. The two sides sum in
-different orders: transfers agree to ``2e-6·max|ref|`` (the reference
-suite's own tolerance). The CUDA kernels themselves are held against
+kernels (``ibamr_tpu_torch/ops/cuda_interaction.py``: ``packed_spread``
+and ``packed_interp``, which reads the grid component itself), the
+packed interp's partial form over extracted tiles, and the engine around
+them against the reference Pallas programs (``PallasPackedInteraction``,
+``_packed_interp_kernel_3d`` after ``_extract_tiles``, interpret mode)
+on the CPU, in f32, with the cases of ``tests/test_pallas_packed.py``.
+The two sides sum in different orders: transfers agree to
+``2e-6·max|ref|`` (the reference suite's own tolerance). The CUDA kernels themselves are held against
 these plain versions on the card by ``chip_smoke.py`` and by
 ``tests/test_torch_cuda_kernels.py``."""
 
@@ -26,6 +28,9 @@ from ibamr_tpu_torch.ops import cuda_interaction as ci
 from ibamr_tpu_torch.ops.interaction_fast import _extract_tiles
 
 TOL = 2e-6
+# a 16-cell blocked axis (nblk = 2: a tile's two neighbours on an axis are
+# one tile) and nblk = 4
+SIZES = {"nblk2": (16, 16, 32), "nblk4": (32, 32, 32)}
 
 
 def _grids(n):
@@ -102,10 +107,34 @@ def test_interp_kernel_plain_matches_pallas(centering):
     call = jpal._packed_interp_kernel_3d(je.geom, je.grid, offs, je._phi,
                                          True)
     ref = np.asarray(call(jb.tile_of_chunk, jb.Xb, T))[:, 0, :]
-    got = ci.packed_interp(te.geom, te.grid, offs, tb.tile_of_chunk, tb.Xb,
-                           Tt)
+    got = ci.packed_interp_partials_plain(te.geom, te.grid, offs,
+                                          tb.tile_of_chunk, tb.Xb, Tt)
     live = np.asarray(jb.wb) != 0     # empty slots are weighted by 0
     _close(ref * live, got * torch.tensor(live))
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
+@pytest.mark.parametrize("centering", [0, 1, 2])
+def test_packed_interp_field_plain_matches_pallas(centering, size):
+    n = SIZES[size]
+    X, _, u = _inputs(5, 300, n)
+    je, te = _engines(n, X, chunk=64)
+    jb = je.buckets(jnp.asarray(X))
+    tb = convert.packed_buckets(jb, device="cpu")
+    offs = _centering_offsets(je.grid, centering)
+    f = u[centering]
+    call = jpal._packed_interp_kernel_3d(je.geom, je.grid, offs, je._phi,
+                                         True)
+    ref = np.asarray(call(jb.tile_of_chunk, jb.Xb,
+                          j_extract(je.geom, je.grid, jnp.asarray(f))))
+    got = ci.packed_interp(te.geom, te.grid, offs, tb.tile_of_chunk, tb.Xb,
+                           torch.tensor(f))
+    # every slot, the empty ones (X = 0, partial sums over the footprint)
+    # and the trailing chunks pinned to the last tile included
+    B = int(np.prod(te.geom.nblk))
+    assert not bool((tb.wb[-1] != 0).any()) and int(tb.tile_of_chunk[-1]) \
+        == B - 1
+    _close(ref[:, 0, :], got)
 
 
 def test_engine_random_markers_match_pallas():
@@ -172,4 +201,4 @@ def test_wrappers_refuse_other_devices():
                          torch.zeros((4, 16), device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         ci.packed_interp(te.geom, tg, (0.5,) * 3, tid, Xb,
-                         torch.zeros((4, 169, 16), device="meta"))
+                         torch.zeros(n, device="meta"))
