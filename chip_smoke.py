@@ -11,22 +11,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bucketing of the 316x316 shell on the 256^3 grid) each kernel against
    its plain PyTorch version on the card, two kernel runs bitwise equal,
    and the times of the kernel, the plain version and one ``torch.bmm``
-   yardstick beside the kernel's bound; the tile kernels and the packed
-   interp write or read the grid themselves, and the overlap-add and
-   tile extraction they fold in are timed alone beside them.
+   yardstick beside the kernel's bound; every kernel writes or reads the
+   grid itself, and the overlap-add and tile extraction they fold in are
+   timed alone beside them; the packed spread also on a hot tile of
+   40,000 markers.
 3. parity  -- 3 midpoint steps of the 32^3 shell (16x16) on the GPU (the
    kernels) and on the CPU (the plain versions) from the same state, on
-   the ``pallas_packed`` and the ``pallas`` engine; a buffered and an
-   exceeded overflow through each engine against the CPU scatter oracle.
+   the ``pallas_packed``, ``pallas`` and ``packed`` engines; a buffered
+   and an exceeded overflow through each kernel engine against the CPU
+   scatter oracle.
 4. path    -- the flagship step, ``build_shell_example(n_cells=256,
    n_lat=316, n_lon=316, use_fast_interaction="pallas_packed")``, warmed
    up and timed; the kernel launch counts of exactly this run, and no
-   tile extraction in it.
+   tile extraction or overlap-add in it.
 5. driver  -- the ex4 driver, ``ibamr_tpu_torch.examples.ib_explicit_ex4
    .run``, on the committed ``input3d.northstar`` (256^3, 316x316 shell)
    with ``IBMethod.transfer_engine = "pallas"``: steps/s, the metrics log,
    the kernel launches of exactly this run, the checkpoint it wrote
    restored bitwise, and a restart from its mid-run checkpoint.
+6. auto    -- the ex4 driver on the committed ``input3d.northstar`` and
+   ``input3d`` as they are (no ``transfer_engine``; only the output
+   directories and a short run overridden): the engine each resolves
+   (``packed`` and ``scatter`` by the default rule), checked against the
+   resolver, and its steps/s.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -66,6 +73,10 @@ DT_FLAGSHIP = 5e-5       # bench.py's flagship timestep
 WARMUP, STEPS = 3, 20    # flagship steps before and inside the timing
 DRIVER_INPUT = "examples/IB/explicit/ex4/input3d.northstar"
 DRIVER_STEPS = 20        # driver phase: steps, viz every 10, restart every 10
+AUTO_INPUTS = ("examples/IB/explicit/ex4/input3d.northstar",
+               "examples/IB/explicit/ex4/input3d")
+AUTO_STEPS, AUTO_TIMED = 4, 5   # auto leg: driver steps, then timed steps
+HOT_TILE_MARKERS = 40000  # the packed spread's hot-tile case
 DEVICE = "cuda"
 # the TPU kernel each CUDA kernel replaces, and its source
 KERNELS = {
@@ -128,14 +139,7 @@ def _check_kernel(name: str, kernel, plain, library, nbytes: int,
     back-to-back wrapper calls, which the host's launch rate can set for a
     short kernel), the plain version and the ``torch.bmm`` yardstick
     beside the bound of ``nbytes`` moved and ``ops`` operations."""
-    k1, k2, ref = kernel(), kernel(), plain()
-    torch.cuda.synchronize()
-    diff, mag = (k1 - ref).abs(), ref.abs()
-    if live is not None:
-        diff, mag = diff * live, mag * live
-    err, scale = float(diff.max()), float(mag.max())
-    bitwise = bool(torch.equal(k1, k2))
-    del k1, k2, ref, diff, mag
+    err, scale, bitwise = _compare(kernel, plain, live)
     ms = _device_ms(kernel, 20)[0]
     calls_ms = time_ms(kernel, 50)
     plain_ms = time_ms(plain, 5)
@@ -153,6 +157,17 @@ def _check_kernel(name: str, kernel, plain, library, nbytes: int,
                              "is not run-to-run bitwise")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=library_ms)
+
+
+def _compare(kernel, plain, live=None):
+    """Max |kernel - plain| (on live slots where ``live`` is given), max
+    |plain| and whether two kernel runs are bitwise equal."""
+    k1, k2, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    diff, mag = (k1 - ref).abs(), ref.abs()
+    if live is not None:
+        diff, mag = diff * live, mag * live
+    return float(diff.max()), float(mag.max()), bool(torch.equal(k1, k2))
 
 
 def _touched_tiles(wx, wy, wz, live, tid, B, P, nz) -> torch.Tensor:
@@ -211,15 +226,24 @@ def phase_kernels() -> dict:
     wx, wy, wz = ci.tile_weights(geom, grid, offs, tid, Xb)
     A = (wx[:, :, None, :] * wy[:, None, :, :]).reshape(Q, P, c)
     Wzc = (wz * coef[:, None, :]).transpose(1, 2).contiguous()
-    # a spread reads every coef but the X of live slots (coef != 0) only
+    # the spread stores the grid once and reads tid, every coef and the X
+    # of the live slots (coef != 0) only
     rows["packed_spread"] = _check_kernel(
         "packed_spread",
         lambda: ci.packed_spread(geom, grid, offs, tid, Xb, coef),
         lambda: ci.packed_spread_plain(geom, grid, offs, tid, Xb, coef),
         lambda: torch.bmm(A, Wzc),
-        4 * (tid.numel() + coef.numel() + 3 * n_live + B * P * n),
+        4 * (tid.numel() + coef.numel() + 3 * n_live + f.numel()),
         n_live * OPS_PER_MARKER, note="product only")
     del A, Wzc
+    # what the two spread kernels fold in, alone at the flagship shapes:
+    # the overlap-add of (B, P, nz) partials
+    T_part = torch.randn((B, P, n), generator=gen).to(dev)
+    fold_ms = time_ms(lambda: _overlap_add(geom, grid, T_part), 10)
+    log(f"[kernels] folded into packed_spread and tile_spread, timed alone: "
+        f"_overlap_add of ({B}, {P}, {n}) partials {fold_ms:.4f} ms")
+    del T_part
+    check_hot_tile(grid, offs)
     extract_ms = time_ms(lambda: _extract_tiles(geom, grid, f), 10)
     log(f"[kernels] folded into packed_interp, timed alone: _extract_tiles "
         f"of a {n}^3 field into ({B}, {P}, {n}) tiles {extract_ms:.4f} ms")
@@ -272,15 +296,11 @@ def phase_kernels() -> dict:
         4 * (f.numel() + 4 * n_live + B),
         n_live * OPS_PER_MARKER, note="product only")
     del A, Wzc
-    # what the two kernels fold in, alone at the per-tile shapes: the
-    # overlap-add of (B, P, nz) partials and the tile extraction of a field
-    # (timed above: both layouts have the same B tiles)
-    T_part = torch.randn((B, P, n), generator=gen).to(dev)
-    fold_ms = time_ms(lambda: _overlap_add(geom, grid, T_part), 10)
+    # what the two kernels fold in, timed alone above (both layouts have
+    # the same B tiles)
     log(f"[kernels] folded into the tile kernels, timed alone: "
         f"_overlap_add of ({B}, {P}, {n}) partials {fold_ms:.4f} ms, "
         f"_extract_tiles of a {n}^3 field {extract_ms:.4f} ms")
-    del T_part
     # an interp reads the grid entries under the live supports once
     touched = _touched_tiles(wx, wy, wz, live, tid, B, P, n)
     n_touched = int((_overlap_add(geom, grid, touched) != 0).sum())
@@ -296,6 +316,49 @@ def phase_kernels() -> dict:
     return rows
 
 
+def check_hot_tile(grid, offs) -> None:
+    """The packed spread on a pack whose one hot tile holds
+    HOT_TILE_MARKERS markers (313 chunks of 128): the columns around it
+    hold more 32-slot chunks than the kernel's chunk table and more than
+    2^15 live slots, so they walk every chunk per slab and narrow their
+    fixed point. Kernel against plain, bitwise run to run."""
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.ops.interaction_fast import bucketed_channel
+    from ibamr_tpu_torch.ops.interaction_packed import suggest_chunks
+
+    rng = np.random.default_rng(2)
+    N = HOT_TILE_MARKERS
+    lo, hi = 10.0 / grid.n[0], 16.0 / grid.n[0]   # stencil origins 8..14
+    X = np.stack([rng.uniform(lo, hi, N), rng.uniform(lo, hi, N),
+                  rng.uniform(0, 1, N)], axis=1).astype(np.float32)
+    Q = suggest_chunks(grid, X, tile=8, chunk=128, slack=1.3)
+    eng = ci.PackedKernelInteraction(grid, chunk=128, nchunks=Q,
+                                     device=DEVICE)
+    b = eng.buckets(torch.tensor(X, device=DEVICE))
+    live = (b.wb != 0).any(1)
+    tiles = b.tile_of_chunk[live].unique()
+    F = torch.tensor(rng.standard_normal(N), dtype=torch.float32,
+                     device=DEVICE)
+    coef = (bucketed_channel(b, F) * b.wb / grid.cell_volume).contiguous()
+    err, scale, bitwise = _compare(
+        lambda: ci.packed_spread(eng.geom, grid, offs, b.tile_of_chunk,
+                                 b.Xb, coef),
+        lambda: ci.packed_spread_plain(eng.geom, grid, offs,
+                                       b.tile_of_chunk, b.Xb, coef))
+    log(f"[kernels] packed_spread hot tile: {N} markers in tiles "
+        f"{tiles.tolist()}, {int(live.sum())} live chunks of Q={Q}, "
+        f"overflow={b.any_overflow}: max|kernel-plain|={err:.3e} (tol "
+        f"{TOL_KERNEL:g}*max|plain| = {TOL_KERNEL * scale:.3e}) bitwise "
+        f"run-to-run={bitwise}")
+    if tiles.numel() != 1 or int(live.sum()) * 4 <= 1024 or b.any_overflow:
+        raise AssertionError("the hot-tile case is not one tile of more "
+                             "chunks than the kernel's table")
+    if not (err <= TOL_KERNEL * scale and bitwise):
+        raise AssertionError("packed_spread disagrees with its plain "
+                             "version on the hot tile or is not "
+                             "run-to-run bitwise")
+
+
 def _to(s, dev):
     """An IBState's tensors on ``dev``."""
     from ibamr_tpu_torch.integrators.ib import IBState
@@ -307,9 +370,11 @@ def _to(s, dev):
                    X=s.X.to(dev), U=s.U.to(dev), mask=s.mask.to(dev))
 
 
-# the kernels each engine launches
+# the kernels each engine launches (the packed engine is the reference's
+# XLA engine in torch ops: none)
 ENGINE_KERNELS = {"pallas_packed": ("packed_spread", "packed_interp"),
-                  "pallas": ("tile_spread", "tile_interp")}
+                  "pallas": ("tile_spread", "tile_interp"),
+                  "packed": ()}
 
 
 def phase_parity() -> None:
@@ -342,9 +407,10 @@ def phase_parity() -> None:
             f"{TOL_PARITY_U:g}) finite={finite} kernel launches={ran}")
         if not (ex <= TOL_PARITY_X and eu <= TOL_PARITY_U and finite):
             raise AssertionError(f"GPU and CPU steps disagree on {engine}")
-        if min(ran[k] for k in kernels) == 0:
+        if ran != {k: (ran[k] if k in kernels else 0) for k in ran} \
+                or not all(ran[k] for k in kernels):
             raise AssertionError(f"the GPU step on {engine} did not launch "
-                                 f"its kernels {kernels}")
+                                 f"its kernels {kernels} alone")
     check_overflow()
 
 
@@ -411,16 +477,20 @@ def phase_path(warmup: int, steps: int):
         f"grid {integ.ins.grid.n}, {state.X.shape[0]} markers, "
         f"engine {integ.ib.engine_name}, Q={integ.ib.fast.nchunks}")
     X0 = state.X.clone()
-    # the packed interp reads the grid itself: count any tile extraction
-    extractions = []
-    extract = interaction_fast._extract_tiles
+    # the packed kernels write and read the grid themselves: count any
+    # tile extraction or overlap-add
+    folds = {"_extract_tiles": [], "_overlap_add": []}
+    real = {name: getattr(interaction_fast, name) for name in folds}
 
-    def counted(*args, **kwargs):
-        extractions.append(1)
-        return extract(*args, **kwargs)
+    def counted(name):
+        def fn(*args, **kwargs):
+            folds[name].append(1)
+            return real[name](*args, **kwargs)
+        return fn
 
     for mod in (ci, interaction_fast):
-        mod._extract_tiles = counted
+        for name in folds:
+            setattr(mod, name, counted(name))
     ci.reset_launch_counts()
     hits = []
     try:
@@ -436,7 +506,8 @@ def phase_path(warmup: int, steps: int):
         wall = time.perf_counter() - t0
     finally:
         for mod in (ci, interaction_fast):
-            mod._extract_tiles = extract
+            for name in folds:
+                setattr(mod, name, real[name])
     launches = dict(ci.LAUNCHES)
     total = warmup + steps
     div = float(integ.ins.max_divergence(state.ins))
@@ -455,7 +526,8 @@ def phase_path(warmup: int, steps: int):
     log(f"[path] kernel launches in {total} steps: {launches} "
         f"(per step: packed_spread 3 = one per velocity component, "
         f"packed_interp 6 = two interps x 3 components); tile extractions "
-        f"{len(extractions)}")
+        f"{len(folds['_extract_tiles'])}, overlap-adds "
+        f"{len(folds['_overlap_add'])}")
     if not finite:
         raise AssertionError("flagship state is not finite")
     if rel_div > 1e-4:
@@ -463,8 +535,9 @@ def phase_path(warmup: int, steps: int):
     if launches != {**dict.fromkeys(KERNELS, 0), "packed_spread": 3 * total,
                     "packed_interp": 6 * total}:
         raise AssertionError(f"unexpected kernel launch counts {launches}")
-    if extractions:
-        raise AssertionError("the pallas_packed step extracted tiles")
+    if folds["_extract_tiles"] or folds["_overlap_add"]:
+        raise AssertionError("the pallas_packed step extracted or folded "
+                             "tiles")
     return launches, 1e3 * wall / steps, integ, state
 
 
@@ -604,6 +677,97 @@ def phase_driver(steps: int):
     return launches, step_ms, db, state
 
 
+def phase_auto(path_ms: float, breakdown: bool = False):
+    """The ex4 driver on each committed input as it is (no
+    ``transfer_engine``): the engine it resolves, checked against the
+    resolver, the launches of exactly that run (none: the resolved
+    engines run no hand kernel), its steps/s, then AUTO_TIMED steps of
+    the built integrator timed alone beside the path phase's
+    ``pallas_packed``; with ``breakdown``, the profile of the flagship's
+    ``packed`` step."""
+    from ibamr_tpu_torch.examples import ib_explicit_ex4
+    from ibamr_tpu_torch.models.engine_resolver import resolve_engine
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.ops.delta import get_kernel
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+
+    real_build = ib_explicit_ex4.build_shell_example
+    for path in AUTO_INPUTS:
+        db = parse_input_file(os.path.join(ROOT, path))
+        if "transfer_engine" in db.get_database("IBMethod").keys():
+            raise AssertionError(f"{path} names a transfer engine")
+        geo = db.get_database("CartesianGeometry")
+        shell = db.get_database("Shell")
+        n = tuple(geo.get_int_array("n_cells"))
+        markers = shell.get_int("n_lat") * shell.get_int("n_lon")
+        want = resolve_engine(
+            n, markers,
+            get_kernel(db.get_database("IBMethod").get_string("delta_fcn"))[0],
+            spectral_dtype=db.get_database(
+                "INSStaggeredHierarchyIntegrator").get_string(
+                    "spectral_dtype", "f32"),
+            platform="cuda")
+        built = []
+
+        def spy(*args, **kwargs):
+            built.append(real_build(*args, **kwargs))
+            return built[-1]
+
+        with tempfile.TemporaryDirectory() as tmp:
+            main = db.get_database("Main")
+            for key, val in (("log_file", os.path.join(tmp, "metrics.jsonl")),
+                             ("viz_dirname", os.path.join(tmp, "viz")),
+                             ("restart_dirname", os.path.join(tmp, "rst"))):
+                main.put(key, val)
+            db.get_database("INSStaggeredHierarchyIntegrator").put(
+                "num_steps", AUTO_STEPS)
+            timer = TimerManager.instance()
+            timer.reset()
+            ib_explicit_ex4.build_shell_example = spy
+            ci.reset_launch_counts()
+            try:
+                state = ib_explicit_ex4.run(db, device=DEVICE)
+                torch.cuda.synchronize()
+            finally:
+                ib_explicit_ex4.build_shell_example = real_build
+            launches = dict(ci.LAUNCHES)
+            adv = timer.get("IB::advanceHierarchy")
+        integ = built[0][0]
+        run_sps = AUTO_STEPS / adv.total
+        dt = db.get_database("INSStaggeredHierarchyIntegrator").get_float(
+            "dt")
+        st = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AUTO_TIMED):
+            st = integ.step(st, dt)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / AUTO_TIMED
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (st.X, *st.ins.u, st.ins.p))
+        log(f"[auto] {path} (grid {n}, {markers} markers, no "
+            f"transfer_engine): resolved {integ.ib.engine_name!r} "
+            f"(resolve_engine on cuda: {want!r}); {AUTO_STEPS} driver steps "
+            f"{run_sps:.3f} steps/s (first chunk's set-up included), then "
+            f"{AUTO_TIMED} steps alone {1e3 / step_ms:.3f} steps/s, "
+            f"{step_ms:.3f} ms/step; kernel launches {launches}; "
+            f"finite={finite}")
+        if want == "packed":
+            log(f"[auto] shoot-out datum on "
+                f"{torch.cuda.get_device_name(0)}: packed "
+                f"{1e3 / step_ms:.3f} steps/s vs pallas_packed "
+                f"{1e3 / path_ms:.3f} steps/s (path phase) at the flagship")
+        if integ.ib.engine_name != want or int(state.ins.k) != AUTO_STEPS:
+            raise AssertionError(f"{path} resolved {integ.ib.engine_name!r}"
+                                 f", not {want!r}, or did not run")
+        if any(launches.values()) or not finite:
+            raise AssertionError(f"{path}: unexpected kernel launches "
+                                 f"{launches} or a state that is not finite")
+        if breakdown and want == "packed":
+            phase_breakdown(integ, st, step_ms, "packed")
+
+
 def phase_breakdown(integ, state, step_ms: float, label: str) -> None:
     """Where a flagship step's time goes: each stage of
     ``step_with_stats`` alone on the state a timed phase reached (host
@@ -658,10 +822,11 @@ def phase_breakdown(integ, state, step_ms: float, label: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,parity,path,driver",
+    ap.add_argument("--phases", default="kernels,parity,path,driver,auto",
                     help="comma-separated subset of kernels,parity,path,"
-                    "driver (add 'breakdown' for a profile of the step of "
-                    "each of path and driver that runs)")
+                    "driver,auto (add 'breakdown' for a profile of the "
+                    "step of each of path, driver and the flagship's auto "
+                    "leg that runs)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -681,11 +846,12 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_parity()
     launches = dict.fromkeys(KERNELS, 0)
+    path_ms = float("nan")
     if "path" in phases:
-        ran, step_ms, integ, state = phase_path(WARMUP, STEPS)
+        ran, path_ms, integ, state = phase_path(WARMUP, STEPS)
         launches = {k: launches[k] + ran[k] for k in launches}
         if "breakdown" in phases:
-            phase_breakdown(integ, state, step_ms, "pallas_packed")
+            phase_breakdown(integ, state, path_ms, "pallas_packed")
         del integ, state
     if "driver" in phases:
         ran, step_ms, db, state = phase_driver(DRIVER_STEPS)
@@ -697,6 +863,8 @@ def main(argv=None) -> int:
             integ, _ = build_shell_example(input_db=db, dtype=torch.float32,
                                            device=DEVICE)
             phase_breakdown(integ, state, step_ms, "pallas")
+    if "auto" in phases:
+        phase_auto(path_ms, "breakdown" in phases)
 
     table = [dict(name=k, route="cuda", source=KERNELS[k][0],
                   replaces=KERNELS[k][1], launches=launches[k], **v)

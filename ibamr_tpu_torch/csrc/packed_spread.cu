@@ -1,196 +1,103 @@
-// Packed-chunk spread for Hopper (sm_90a).
+// Grid-owner packed spread for Hopper (sm_90a): the pallas_packed engine's
+// packed spread, its visited-tile mask and its overlap-add in one kernel
+// that writes the periodic grid itself.
 //
-// Replaces _packed_spread_kernel_3d (ibamr_tpu/ops/pallas_interaction.py).
-// For every tile t and footprint offset p = a*W1 + b, z in [0, nz):
+// Replaces _packed_spread_kernel_3d (ibamr_tpu/ops/pallas_interaction.py:250,
+// pallas_call at :304) together with what PallasPackedInteraction.spread
+// (:423-444) does with its (B, W0*W1, nz) tile partials: the visited-tile
+// mask (_visited_mask, :415) and the fold onto the grid, _overlap_add
+// (ibamr_tpu/ops/interaction_fast.py:297).
+// The layout is the packed one (interaction_packed.pack_markers): Q chunks
+// of c slots, chunk q holding markers of the tile tid[q], tid
+// nondecreasing, so a tile's chunks are one contiguous range of slots; a
+// tile's markers fill a prefix of its range, and the chunks past the last
+// allocated one are pinned to the last tile with coef 0 and X 0. The grid
+// component g (n0, n1, nz) f32 sums, over every slot, the marker's IB_4
+// weights times its coef (spread_column.cuh, which holds the design: a
+// block per tile's core column, the distinct 3 x 3 neighbour tiles walked
+// once, fixed-point sums in shared memory, each slab stored once; a column
+// no live slot reaches is stored as zeros, which is the reference's mask).
 //
-//   out[t, p, z] = sum over chunks q with tile_of_chunk[q] == t,
-//                  markers m of q:  wx[a,m] * wy[b,m] * wz[z,m] * coef[q,m]
+// Bound. At the flagship (256^3 grid, Q = 1,146 chunks of 128, 99,856 live
+// slots) the kernel must store the grid once (67.1 MB f32), read the coef
+// of every slot (0.59 MB), the X of the live ones (1.20 MB) and tid (4.6
+// KB): 68.9 MB, 0.0206 ms at 3.35 TB/s. Its ~3e7 operations bound nothing.
+// The reference's form stores a (B, 169, nz) tile block (177 MB) and the
+// overlap-add reads it back.
 //
-// with IB_4 weights from delta_ib4.cuh. A tile that no chunk visits comes
-// out as zeros (the reference's visited-tile mask, folded in).
-//
-// Design. On the TPU the grid runs in order and consecutive chunks of one
-// tile accumulate into a block resident in VMEM. Here blocks run in
-// parallel and in no order, so one block owns one (tile, z-slab) output
-// block of (W0*W1, kSlab) values: it counts the tile's contiguous chunk
-// range out of the nondecreasing tile_of_chunk, walks those chunks in
-// order and stores once. Compact support: every weight outside |t| < 2 is
-// exactly 0, so a marker adds to only its 4 x 4 x 4 stencil points (those
-// inside the footprint and the slab), not to the dense (P, nz) block the
-// TPU's matrix unit wanted; each live marker costs 64 additions, not
-// P * nz. Each warp takes a fixed quarter of every chunk's slots and
-// adds them in slot order into its own shared-memory copy of the block,
-// one marker at a time with its 64 taps spread over the lanes (the taps
-// of one marker are distinct points, so lanes never collide); the four
-// copies are summed in a fixed order at the end. No atomics: the result
-// is bitwise reproducible run to run.
-//
-// Bound. The output (B, P, nz) f32 must be written in full (177 MB at the
-// flagship's B = 1024, P = 169, nz = 256), against ~2 MB of marker
-// inputs and ~3e7 useful operations: the kernel is bound by the bytes of
-// its store. Blocks of tiles no chunk visits (most of them) only store
-// zeros; the store is 16 consecutive floats of one z-row per 16 threads.
+// Finding a tile's chunks. Each of 9 warps finds one neighbour's range
+// [q0, q1) of tid by two 33-way warp searches (lanes probe 32 split points
+// at once, ballot, narrow): 3 dependent reads of tid each at the flagship,
+// no per-tile table in the layout. Unlike the per-tile layout, the packed
+// one caps no tile: a pole tile keeps every marker, in as many chunks as it
+// needs, so a column may hold tens of thousands of slots (spread_column.cuh
+// scales its fixed point by the column's live count, and walks a column
+// that overflows its chunk table chunk by chunk).
 
-#include <cstdint>
-
-#include "delta_ib4.cuh"
+#include "spread_column.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kSlab = 16;        // z planes per block
-constexpr int kMaxChunk = kThreads;  // chunk slots c <= one per thread
-constexpr int kMaxWidth = 16;    // footprint widths W0, W1 <= kMaxWidth
-constexpr int kMinNz = 5;        // 4 distinct z stencil planes
-// per-marker record in shared memory: 4 x, 4 y, 4 z weights (the z
-// weights carry coef), then their footprint x/y offsets and slab z
-// offsets as ints; stride 25 keeps the lanes' record writes conflict-free
-constexpr int kRec = 25;
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  const int r = i % n;
-  return r < 0 ? r + n : r;
+// The first q in [0, Q) with tid[q] >= key (Q if none) for nondecreasing
+// tid; all 32 lanes call it and get the answer.
+__device__ int warp_lower_bound(const int* __restrict__ tid, int Q, int key,
+                                int lane) {
+  int lo = 0, hi = Q;  // the answer lies in [lo, hi]
+  while (hi > lo) {
+    const int len = hi - lo;
+    // 32 probes in [lo, hi): every candidate, or 32 evenly spaced ones
+    const int pos = len <= 32
+                        ? lo + lane
+                        : lo + (int)((long long)(lane + 1) * len / 33);
+    const bool below = pos < hi && tid[pos] < key;
+    const int n = __popc(__ballot_sync(kFull, below));  // a prefix of lanes
+    if (len <= 32) return lo + n;
+    const int p_lo = __shfl_sync(kFull, pos, max(n - 1, 0));
+    const int p_hi = __shfl_sync(kFull, pos, min(n, 31));
+    if (n > 0) lo = p_lo + 1;
+    if (n < 32) hi = p_hi;
+  }
+  return lo;
 }
 
 __global__ void __launch_bounds__(kThreads)
 packed_spread_kernel(const int* __restrict__ tid,
                      const float* __restrict__ Xb,
                      const float* __restrict__ coef,
-                     float* __restrict__ out, int Q, int c, TileGeom g) {
+                     float* __restrict__ out, int Q, int c, int table,
+                     TileGeom g) {
   extern __shared__ float smem[];
-  __shared__ int s_count[kWarps][2];
-
-  const int t = blockIdx.x;
-  const int z0 = blockIdx.y * kSlab;
-  const int P = g.W0 * g.W1;
-  const int n_acc = P * kSlab;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  // the tile's chunk range [q0, q1): tile_of_chunk is nondecreasing, so
-  // q0 counts the chunks of lower tiles and q1 those up to this one
-  int lo = 0, hi = 0;
-  for (int i = threadIdx.x; i < Q; i += kThreads) {
-    const int v = tid[i];
-    lo += v < t;
-    hi += v <= t;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    lo += __shfl_xor_sync(0xffffffffu, lo, off);
-    hi += __shfl_xor_sync(0xffffffffu, hi, off);
-  }
-  if (lane == 0) {
-    s_count[warp][0] = lo;
-    s_count[warp][1] = hi;
-  }
-  __syncthreads();
-  int q0 = 0, q1 = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    q0 += s_count[w][0];
-    q1 += s_count[w][1];
-  }
-
-  float* tile_out = out + (size_t)t * P * g.nz;
-  if (q0 == q1) {   // no chunk visits this tile
-    for (int e = threadIdx.x; e < n_acc; e += kThreads)
-      if (z0 + e % kSlab < g.nz)
-        tile_out[(size_t)(e / kSlab) * g.nz + z0 + e % kSlab] = 0.0f;
-    return;
-  }
-
-  float* acc_all = smem;                                  // kWarps copies
-  float* acc = acc_all + warp * n_acc;
-  float* rec = acc_all + kWarps * n_acc + warp * 32 * kRec;
-  for (int e = threadIdx.x; e < kWarps * n_acc; e += kThreads)
-    acc_all[e] = 0.0f;
-  __syncthreads();
-
-  const int x0 = (t / g.nb1) * g.t0;
-  const int y0 = (t % g.nb1) * g.t1;
-  const float x0m1 = (float)(x0 - 1);
-  const float y0m1 = (float)(y0 - 1);
-  const int m = warp * 32 + lane;   // this lane's slot of every chunk
-
-  for (int q = q0; q < q1; ++q) {
-    bool live = false;
-    if (m < c) {
-      const size_t s = (size_t)q * c + m;
-      const float cm = coef[s];
-      if (cm != 0.0f) {
-        float* r = rec + lane * kRec;
-        int* ri = reinterpret_cast<int*>(r);
-        const float zi = grid_coord(Xb[3 * s + 2], g.lo2, g.dx2, g.off2);
-        const int zf = (int)floorf(zi);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int z = wrap(zf - 1 + k, g.nz);
-          const float w = (z >= z0 && z < z0 + kSlab)
-              ? delta_weight(zi, (float)z, (float)g.nz) * cm : 0.0f;
-          r[8 + k] = w;
-          ri[20 + k] = z - z0;
-          live |= (w != 0.0f);
-        }
-        if (live) {
-          const float xi = grid_coord(Xb[3 * s + 0], g.lo0, g.dx0, g.off0);
-          const float yi = grid_coord(Xb[3 * s + 1], g.lo1, g.dx1, g.off1);
-          const int xf = (int)floorf(xi);
-          const int yf = (int)floorf(yi);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            // footprint offsets of the stencil points floor-1 .. floor+2
-            const int a = wrap(xf + k - x0, g.n0);
-            const int b = wrap(yf + k - y0, g.n1);
-            r[k] = a < g.W0
-                ? delta_weight(xi, x0m1 + (float)a, (float)g.n0) : 0.0f;
-            r[4 + k] = b < g.W1
-                ? delta_weight(yi, y0m1 + (float)b, (float)g.n1) : 0.0f;
-            ri[12 + k] = a;
-            ri[16 + k] = b;
-          }
-        }
-      }
-    }
-    unsigned todo = __ballot_sync(0xffffffffu, live);
-    __syncwarp();
-    while (todo) {   // this warp's live markers, in slot order
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const float* r = rec + j * kRec;
-      const int* ri = reinterpret_cast<const int*>(r);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int tap = lane + 32 * h;
-        const int sx = tap >> 4, sy = (tap >> 2) & 3, sz = tap & 3;
-        const float w = __fmul_rn(__fmul_rn(r[sx], r[4 + sy]), r[8 + sz]);
-        if (w != 0.0f) {
-          float* dst = acc + (ri[12 + sx] * g.W1 + ri[16 + sy]) * kSlab
-                       + ri[20 + sz];
-          *dst = __fadd_rn(*dst, w);
-        }
-      }
-      __syncwarp();
+  __shared__ Column col;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < kNeighbours) {
+    bool repeat;
+    const int t = neighbour_tile(warp, blockIdx.x / g.nb1,
+                                 blockIdx.x % g.nb1, g.n0 / g.t0, g.nb1,
+                                 repeat);
+    const int q0 = warp_lower_bound(tid, Q, t, lane);
+    const int q1 = warp_lower_bound(tid, Q, t + 1, lane);
+    if (lane == 0) {
+      col.tile[warp] = t;
+      col.base[warp] = q0 * c;
+      col.len[warp] = repeat ? 0 : (q1 - q0) * c;
     }
   }
   __syncthreads();
-
-  for (int e = threadIdx.x; e < n_acc; e += kThreads) {
-    float v = acc_all[e];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) v = __fadd_rn(v, acc_all[w * n_acc + e]);
-    if (z0 + e % kSlab < g.nz)
-      tile_out[(size_t)(e / kSlab) * g.nz + z0 + e % kSlab] = v;
-  }
+  spread_column(col, Xb, coef, out, table, g, smem);
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
+// Launches on `stream`; returns cudaGetLastError() of the launch. The
+// shared memory (one slab of the column in fixed point, 19 KB at tile 8;
+// 30 KB of records; a 24 KB staging ring; an 8 KB chunk table: two blocks
+// fit an SM) passes the 48 KB default of dynamic shared memory, so the
+// kernel's limit is raised first.
 extern "C" int packed_spread_launch(const int* tid, const float* Xb,
                                     const float* coef, float* out, int Q,
-                                    int c, int B, TileGeom g, void* stream) {
-  const int smem = (int)sizeof(float) *
-                   (kWarps * g.W0 * g.W1 * kSlab + kWarps * 32 * kRec);
+                                    int c, TileGeom g, void* stream) {
+  const int table = column_table(Q * ((c + 31) / 32));
+  const int smem = column_smem(g.t0, g.t1, table);
   static int smem_set = 0;
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -199,15 +106,16 @@ extern "C" int packed_spread_launch(const int* tid, const float* Xb,
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
-  const dim3 grid(B, (g.nz + kSlab - 1) / kSlab);
-  packed_spread_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      tid, Xb, coef, out, Q, c, g);
+  const int B = (g.n0 / g.t0) * g.nb1;
+  packed_spread_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      tid, Xb, coef, out, Q, c, table, g);
   return (int)cudaGetLastError();
 }
 
-extern "C" int packed_spread_limits(int* max_chunk, int* max_width,
+extern "C" int packed_spread_limits(int* max_slots, int* max_width,
                                     int* min_nz) {
-  *max_chunk = kMaxChunk;
+  // every slot of the layout may lie around one column
+  *max_slots = kMaxSlots;
   *max_width = kMaxWidth;
   *min_nz = kMinNz;
   return 0;

@@ -4,9 +4,11 @@ the GPU (port of ``examples/IB/explicit/ex4/main.py``).
 Run:  python -m ibamr_tpu_torch.examples.ib_explicit_ex4 INPUT [RESTART_DIR STEP]
 
 The input file is the reference's (``examples/IB/explicit/ex4/input3d``,
-``input3d.northstar``) and must name a ported transfer engine, for
-example ``IBMethod { transfer_engine = "pallas" }``: the port has no
-engine resolver. The run loop is :class:`HierarchyDriver`; per chunk it
+``input3d.northstar``), run as it is: an absent or ``"auto"``
+``IBMethod.transfer_engine`` resolves as in the reference
+(``models/engine_resolver.py``: ``scatter`` for ``input3d``, ``packed``
+for ``input3d.northstar``), and a ported engine may be named instead, for
+example ``IBMethod { transfer_engine = "pallas_packed" }``. The run loop is :class:`HierarchyDriver`; per chunk it
 logs ``step, t, volume, ke, max_div, cfl_dt`` to ``Main.log_file``
 (JSONL), writes the marker positions to ``<viz_dirname>/markers.<step>.csv``
 at the viz cadence and a checkpoint to ``restart_dirname`` at the restart

@@ -5,13 +5,16 @@ A latitude-longitude lattice of ``n_lat`` rings of ``n_lon`` markers
 (poles excluded) with ring and meridian springs and optional meridian
 beams, in a periodic unit box of incompressible fluid, IB_4 delta.
 
-Transfer engines (``ops/cuda_interaction.py``): ``"pallas_packed"`` (the
-packed chunk layout driven by the packed CUDA spread/interp kernels),
-``"pallas"`` (the per-tile layout driven by the tile kernels) and
-``"scatter"`` (the scatter/gather oracle). The other engines of the
-reference registry, its engine resolver and its build-failure fallback
-chain are not ported yet: the port raises where the reference would
-resolve ``"auto"`` or degrade to another engine.
+Transfer engines: ``"pallas_packed"`` (the packed chunk layout driven by
+the packed CUDA spread/interp kernels, ``ops/cuda_interaction.py``),
+``"pallas"`` (the per-tile layout driven by the tile kernels),
+``"packed"`` and ``"packed_bf16"`` (the reference's XLA engine on the
+packed layout in torch ops, ``ops/interaction_packed.py``) and
+``"scatter"`` (the scatter/gather oracle). An absent or ``"auto"`` engine
+resolves through ``models/engine_resolver.py`` as in the reference. The
+other engines of the reference registry are not ported yet and raise; the
+reference's build-failure fallback chain is not carried over: the port
+never degrades to another engine.
 """
 
 from __future__ import annotations
@@ -27,6 +30,11 @@ from ibamr_tpu_torch.integrators.ib import (IBExplicitIntegrator, IBMethod,
                                             IBState)
 from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator
 from ibamr_tpu_torch.io.structures import StructureData
+from ibamr_tpu_torch.models.engine_resolver import (RESOLVED_ENGINES,
+                                                    current_platform,
+                                                    resolve_engine)
+from ibamr_tpu_torch.ops.delta import get_kernel
+from ibamr_tpu_torch.ops.interaction_packed import normalize_engine_name
 
 
 def make_spherical_shell(n_lat: int, n_lon: int, radius: float,
@@ -86,34 +94,24 @@ def shell_volume(X: torch.Tensor, center: Tuple[float, float, float]):
     return (4.0 / 3.0) * math.pi * torch.mean(r ** 3)
 
 
-# the reference registry's engine names; the port builds PORTED_ENGINES
-KNOWN_ENGINES = ("scatter", "mxu", "packed", "pallas", "pallas_packed",
-                 "mxu_bf16", "packed_bf16", "packed3", "packed3_bf16",
-                 "hybrid_packed", "hybrid_packed_bf16", "hybrid_bf16")
-PORTED_ENGINES = ("scatter", "pallas", "pallas_packed")
-
-
-def normalize_engine_name(name) -> str:
-    """Map the ``use_fast_interaction`` vocabulary (True/False/str) to a
-    registry name, as the reference does."""
-    if name is True:
-        return "mxu"
-    if name is False or name is None or name == "scatter":
-        return "scatter"
-    return str(name).lower()
+# of the reference registry's engine names (RESOLVED_ENGINES), the ones
+# the port builds
+PORTED_ENGINES = ("scatter", "pallas", "pallas_packed", "packed",
+                  "packed_bf16")
 
 
 def construct_transfer_engine(name, grid: StaggeredGrid, vertices,
                               kernel: str, device="cuda"):
     """Build the named transfer engine for markers at ``vertices`` with
     the reference's sizing: ``"pallas"`` (tile capacity 1.2 x the fullest
-    tile, at most 1024), ``"pallas_packed"`` (1.3 x the chunk demand) or
-    ``"scatter"`` (None: the scatter path). Another registry name raises
-    ``NotImplementedError``; a name outside the registry ``ValueError``."""
+    tile, at most 1024), ``"pallas_packed"``, ``"packed"`` and
+    ``"packed_bf16"`` (1.3 x the chunk demand) or ``"scatter"`` (None: the
+    scatter path). Another registry name raises ``NotImplementedError``;
+    a name outside the registry ``ValueError``."""
     name = normalize_engine_name(name)
     if name == "scatter":
         return None
-    if name not in KNOWN_ENGINES:
+    if name not in RESOLVED_ENGINES:
         raise ValueError(f"unknown transfer engine {name!r}")
     if name not in PORTED_ENGINES:
         raise NotImplementedError(
@@ -122,7 +120,8 @@ def construct_transfer_engine(name, grid: StaggeredGrid, vertices,
     from ibamr_tpu_torch.ops.cuda_interaction import (
         PackedKernelInteraction, TileKernelInteraction)
     from ibamr_tpu_torch.ops.interaction_fast import suggest_cap
-    from ibamr_tpu_torch.ops.interaction_packed import suggest_chunks
+    from ibamr_tpu_torch.ops.interaction_packed import (PackedInteraction,
+                                                        suggest_chunks)
 
     overflow_cap = max(2048, vertices.shape[0] // 4)
     if name == "pallas":
@@ -135,9 +134,15 @@ def construct_transfer_engine(name, grid: StaggeredGrid, vertices,
                                      device=device)
     Q = suggest_chunks(grid, vertices, kernel=kernel, tile=8, chunk=128,
                        slack=1.3)
-    return PackedKernelInteraction(
+    if name == "pallas_packed":
+        return PackedKernelInteraction(
+            grid, kernel=kernel, tile=8, chunk=128, nchunks=Q,
+            overflow_cap=overflow_cap, device=device)
+    return PackedInteraction(
         grid, kernel=kernel, tile=8, chunk=128, nchunks=Q,
-        overflow_cap=overflow_cap, device=device)
+        overflow_cap=overflow_cap,
+        compute_dtype=torch.bfloat16 if name == "packed_bf16" else None,
+        device=device)
 
 
 def build_shell_example(
@@ -162,15 +167,18 @@ def build_shell_example(
     ``device`` (the GPU unless ``device="cpu"``).
 
     ``use_fast_interaction`` names the transfer engine (``"pallas"``,
-    ``"pallas_packed"``, ``"scatter"`` or False). ``input_db`` (an
-    ``InputDatabase``) overrides the keyword arguments as the reference
-    reads it: ``CartesianGeometry``, ``INSStaggeredHierarchyIntegrator``,
+    ``"pallas_packed"``, ``"packed"``, ``"packed_bf16"``, ``"scatter"`` or
+    False); None is ``"auto"``. ``input_db`` (an ``InputDatabase``)
+    overrides the keyword arguments as the reference reads it:
+    ``CartesianGeometry``, ``INSStaggeredHierarchyIntegrator``,
     ``IBMethod`` (``delta_fcn``, ``transfer_engine``) and ``Shell``; the
     file's ``transfer_engine`` applies when ``use_fast_interaction`` is
-    None. The reference resolves an absent engine ("auto"); the port has
-    no resolver and raises ``NotImplementedError``. The port never
-    degrades to another engine: a failed build raises, and the file's
-    ``IBMethod.engine_fallback`` is ignored.
+    None. An absent or ``"auto"`` engine resolves through
+    :func:`~ibamr_tpu_torch.models.engine_resolver.resolve_engine` for
+    this grid, marker count, delta support, spectral dtype and the
+    platform of ``device``; ``ib.engine_name`` is the resolved name. The
+    port never degrades to another engine: a failed build raises, and the
+    file's ``IBMethod.engine_fallback`` is ignored.
     """
     n = (n_cells,) * 3
     x_lo, x_up = (0.0,) * 3, (1.0,) * 3
@@ -191,7 +199,7 @@ def build_shell_example(
         ib_db = input_db.get_database_with_default("IBMethod")
         kernel = ib_db.get_string("delta_fcn", kernel)
         if use_fast_interaction is None:
-            knob = ("auto",) + KNOWN_ENGINES
+            knob = ("auto",) + RESOLVED_ENGINES
             eng = ib_db.get_string("transfer_engine", "auto").lower()
             if eng not in knob:
                 raise ValueError(
@@ -216,16 +224,18 @@ def build_shell_example(
     ins = INSStaggeredIntegrator(grid, rho=rho, mu=mu,
                                  convective_op_type=convective_op_type,
                                  dtype=dtype, device=device)
-    if use_fast_interaction is None:
-        raise NotImplementedError(
-            "the engine resolver is not ported yet: set IBMethod { "
-            "transfer_engine = \"pallas\" } (or \"pallas_packed\", "
-            "\"scatter\") in the input file, or pass use_fast_interaction")
     center = tuple(0.5 * (lo + hi) for lo, hi in zip(x_lo, x_up))
     structure = make_spherical_shell(
         n_lat, n_lon, radius, center=center,
         stiffness=stiffness, rest_length_factor=rest_length_factor,
         aspect=aspect, bend_rigidity=bend_rigidity)
+    if use_fast_interaction is None:
+        # "auto": the env override, a tuning DB, else the default rule,
+        # queried with the spectral dtype and the device's platform
+        use_fast_interaction = resolve_engine(
+            n, structure.vertices.shape[0], get_kernel(kernel)[0],
+            spectral_dtype=spectral_dtype,
+            platform=current_platform(ins.device))
     fast = construct_transfer_engine(use_fast_interaction, grid,
                                      structure.vertices, kernel,
                                      device=ins.device)

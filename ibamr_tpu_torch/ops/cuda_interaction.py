@@ -6,8 +6,9 @@ driven by two hand-written kernels (port of
 Kernels (sources in ``csrc/``, notes on design and bound there):
 
 - ``packed_spread`` (``csrc/packed_spread.cu``) replaces
-  ``_packed_spread_kernel_3d``: per-tile partial grids ``(B, P, nz)``
-  from the chunks' markers, zero for tiles no chunk visits.
+  ``_packed_spread_kernel_3d`` and the visited-tile mask and
+  ``_overlap_add`` after it: the periodic grid component itself from the
+  packed chunks.
 - ``packed_interp`` (``csrc/packed_interp.cu``) replaces
   ``_packed_interp_kernel_3d`` and the ``_extract_tiles`` before it:
   per-slot interpolants ``(Q, c)`` read straight from the grid component,
@@ -26,9 +27,11 @@ the plain PyTorch version beside it for CPU tensors; nothing falls back
 from the GPU. ``LAUNCHES`` counts the kernel launches. The plain
 versions are the reference's dense weight preamble with a batched
 contraction and, for the packed spread, an ``index_add_`` over
-``tile_of_chunk``; the interp versions compose the reference's program
-with the extraction, and the tile versions are the packed ones over the
-identity tile map, composed with the overlap-add or the extraction.
+``tile_of_chunk``; the spread versions compose the reference's program
+with the overlap-add and sum in float64 (each cell rounded once, as the
+kernels' exact sums are), the interp versions compose it with the
+extraction, and the tile versions are the packed ones over the identity
+tile map.
 """
 
 from __future__ import annotations
@@ -42,12 +45,11 @@ import torch
 
 from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.grid import StaggeredGrid
-from ibamr_tpu_torch.ops.delta import get_kernel
 from ibamr_tpu_torch.ops.interaction import _centering_offsets
 from ibamr_tpu_torch.ops.interaction_fast import (
-    BucketGeometry, _extract_tiles, _overlap_add, _phi_safe,
-    bucket_markers, bucketed_channel, make_geometry,
-    spread_overflow_fallbacks, unbucket_with_overflow)
+    BucketGeometry, _extract_tiles, _overlap_add, bucket_markers,
+    bucketed_channel, make_geometry, spread_overflow_fallbacks, tile_weights,
+    unbucket_with_overflow)
 from ibamr_tpu_torch.ops.interaction_packed import (pack_markers,
                                                     refresh_packed)
 
@@ -78,51 +80,47 @@ def _tile_geom(geom: BucketGeometry, grid: StaggeredGrid, offs) -> _Geom:
 
 # -- plain PyTorch versions ---------------------------------------------------
 
-def tile_weights(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                 tid: torch.Tensor, Xb: torch.Tensor):
-    """The weight preamble of the kernels for every chunk (or tile row)
-    ``q`` of tile ``tid[q]``: per-axis IB_4 weights ``wx (Q, W0, c)``,
-    ``wy (Q, W1, c)``, ``wz (Q, nz, c)`` of its markers over the tile's
-    footprint, wrapped periodically by rounding half to even."""
-    support, phi0 = get_kernel("IB_4")
-    phi = _phi_safe(phi0, support)
-    dtype, dev = Xb.dtype, Xb.device
-    t = tid.to(torch.int64)
-    nb1 = geom.nblk[1]
-    origins = ((t // nb1) * geom.tile[0] - 1, (t % nb1) * geom.tile[1] - 1)
-    out = []
-    for d in range(3):
-        n = grid.n[d]
-        xi = (Xb[..., d] - grid.x_lo[d]) / grid.dx[d] - offs[d]   # (Q, c)
-        if d < 2:
-            k = (origins[d][:, None].to(dtype)
-                 + torch.arange(geom.width[d], dtype=dtype, device=dev))
-        else:
-            k = torch.arange(n, dtype=dtype, device=dev)[None, :]
-        tk = xi[:, None, :] - k[:, :, None]
-        tk = tk - torch.round(tk / n) * n
-        out.append(phi(tk))
-    return tuple(out)
-
-
 def _chunk_partials(geom: BucketGeometry, grid: StaggeredGrid, offs,
                     tid: torch.Tensor, Xb: torch.Tensor,
                     coef: torch.Tensor) -> torch.Tensor:
-    """Each chunk's partial grid over its tile's footprint -> (Q, P, nz)."""
+    """Each chunk's partial grid over its tile's footprint -> (Q, P, nz),
+    in float64: the factors wx*wy and wz*coef of every term are formed in
+    the input type and the sums taken in float64, so that each cell is
+    rounded once, by the caller, as the kernels' exact fixed-point sums
+    round it."""
     wx, wy, wz = tile_weights(geom, grid, offs, tid, Xb)
     Q, c = coef.shape
     A = (wx[:, :, None, :] * wy[:, None, :, :]).reshape(Q, -1, c)
-    return torch.bmm(A, (wz * coef[:, None, :]).transpose(1, 2))
+    return torch.bmm(A.double(),
+                     (wz * coef[:, None, :]).double().transpose(1, 2))
+
+
+def _packed_tiles(geom: BucketGeometry, grid: StaggeredGrid, offs,
+                  tid: torch.Tensor, Xb: torch.Tensor,
+                  coef: torch.Tensor) -> torch.Tensor:
+    """The chunks' partial grids summed per tile -> (B, P, nz) float64,
+    zero for tiles no chunk visits."""
+    Tq = _chunk_partials(geom, grid, offs, tid, Xb, coef)
+    B = int(np.prod(geom.nblk))
+    T = torch.zeros((B,) + Tq.shape[1:], dtype=Tq.dtype, device=Tq.device)
+    return T.index_add_(0, tid.to(torch.int64), Tq)
+
+
+def packed_spread_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
+                                 offs, tid: torch.Tensor, Xb: torch.Tensor,
+                                 coef: torch.Tensor) -> torch.Tensor:
+    """The reference's packed spread program with its visited-tile mask:
+    per-tile partial grids (B, P, nz), zero for tiles no chunk visits."""
+    return _packed_tiles(geom, grid, offs, tid, Xb, coef).to(coef.dtype)
 
 
 def packed_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
                         tid: torch.Tensor, Xb: torch.Tensor,
                         coef: torch.Tensor) -> torch.Tensor:
-    """Plain version of the packed spread kernel -> (B, P, nz)."""
-    Tq = _chunk_partials(geom, grid, offs, tid, Xb, coef)
-    B = int(np.prod(geom.nblk))
-    T = torch.zeros((B,) + Tq.shape[1:], dtype=Tq.dtype, device=Tq.device)
-    return T.index_add_(0, tid.to(torch.int64), Tq)
+    """Plain version of the packed spread kernel: the chunks' partial
+    grids folded onto the periodic grid -> ``grid.n``."""
+    return _overlap_add(geom, grid, _packed_tiles(
+        geom, grid, offs, tid, Xb, coef)).to(coef.dtype)
 
 
 def packed_interp_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
@@ -162,7 +160,8 @@ def tile_spread_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
                                coef: torch.Tensor) -> torch.Tensor:
     """The reference's tile spread program: per-tile partial grids
     (B, P, nz) over every slot."""
-    return _chunk_partials(geom, grid, offs, _tile_ids(Xb), Xb, coef)
+    return _chunk_partials(geom, grid, offs, _tile_ids(Xb), Xb,
+                           coef).to(coef.dtype)
 
 
 def tile_interp_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
@@ -180,8 +179,8 @@ def tile_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
     """Plain version of the tile spread kernel: the filled slots' partial
     grids folded onto the periodic grid -> ``grid.n``."""
     coef = torch.where(_filled(Xb, counts), coef, torch.zeros_like(coef))
-    return _overlap_add(geom, grid, tile_spread_partials_plain(
-        geom, grid, offs, Xb, coef))
+    return _overlap_add(geom, grid, _chunk_partials(
+        geom, grid, offs, _tile_ids(Xb), Xb, coef)).to(coef.dtype)
 
 
 def tile_interp_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
@@ -207,11 +206,10 @@ def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
 
 
 # argument types of each launcher (C prototypes in csrc/*.cu):
-# packed_spread (tid, Xb, coef, out, Q, c, B, geom, stream),
-# packed_interp (tid, Xb, f, out, Q, c, geom, stream), and
-# tile_spread / tile_interp (Xb, coef or f, counts, out, B, cap, geom,
-# stream)
-_ARGTYPES = {"packed_spread": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+# packed_spread / packed_interp (tid, Xb, coef or f, out, Q, c, geom,
+# stream), and tile_spread / tile_interp (Xb, coef or f, counts, out, B,
+# cap, geom, stream)
+_ARGTYPES = {"packed_spread": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
              + [_Geom, ctypes.c_void_p],
              "packed_interp": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
              + [_Geom, ctypes.c_void_p],
@@ -223,8 +221,9 @@ _bound: Dict[str, tuple] = {}
 
 
 def _launcher(name: str):
-    """``(launch_fn, (max_chunk, max_width, min_nz))`` of one kernel,
-    built and bound at first use."""
+    """``(launch_fn, (max_rows, max_width, min_nz))`` of one kernel, built
+    and bound at first use: ``max_rows`` bounds the chunk (or tile row)
+    size, or for ``packed_spread`` the slot count Q * c."""
     if name not in _bound:
         from ibamr_tpu_torch.ops import kernel_build
 
@@ -257,10 +256,12 @@ def _check_shapes(name, geom, grid, Xb, tid=None):
     if tid is not None and tid.shape != (Q,):
         raise ValueError(f"{name}: need tid (Q,) for Xb (Q, c, 3); got "
                          f"{tuple(tid.shape)}, {tuple(Xb.shape)}")
-    fn, (max_chunk, max_width, min_nz) = _launcher(name)
-    if c > max_chunk or max(geom.width) > max_width or grid.n[2] < min_nz:
-        raise ValueError(f"{name}: needs chunk <= {max_chunk}, widths <= "
-                         f"{max_width}, nz >= {min_nz}; got chunk {c}, "
+    fn, (max_rows, max_width, min_nz) = _launcher(name)
+    what, size = (("slots", Q * c) if name == "packed_spread"
+                  else ("chunk", c))
+    if size > max_rows or max(geom.width) > max_width or grid.n[2] < min_nz:
+        raise ValueError(f"{name}: needs {what} <= {max_rows}, widths <= "
+                         f"{max_width}, nz >= {min_nz}; got {what} {size}, "
                          f"widths {geom.width}, nz {grid.n[2]}")
     return fn
 
@@ -273,8 +274,9 @@ def _raise_on(name: str, err: int) -> None:
 def packed_spread(geom: BucketGeometry, grid: StaggeredGrid, offs,
                   tid: torch.Tensor, Xb: torch.Tensor,
                   coef: torch.Tensor) -> torch.Tensor:
-    """Per-tile partial grids (B, P, nz) of the packed spread: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    """The grid component (``grid.n``) spread from every slot of the
+    packed layout: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
     if Xb.device.type == "cpu":
         return packed_spread_plain(geom, grid, offs, tid, Xb, coef)
     if Xb.device.type != "cuda":
@@ -285,12 +287,9 @@ def packed_spread(geom: BucketGeometry, grid: StaggeredGrid, offs,
                 Xb=(Xb, torch.float32), coef=(coef, torch.float32))
     if coef.shape != Xb.shape[:2]:
         raise ValueError("packed_spread: coef must be (Q, c)")
-    B = int(np.prod(geom.nblk))
-    P = geom.width[0] * geom.width[1]
-    out = torch.empty((B, P, grid.n[2]), dtype=torch.float32,
-                      device=Xb.device)
+    out = torch.empty(grid.n, dtype=torch.float32, device=Xb.device)
     err = fn(tid.data_ptr(), Xb.data_ptr(), coef.data_ptr(), out.data_ptr(),
-             Q, c, B, _tile_geom(geom, grid, offs),
+             Q, c, _tile_geom(geom, grid, offs),
              torch.cuda.current_stream(Xb.device).cuda_stream)
     _raise_on("packed_spread", err)
     LAUNCHES["packed_spread"] += 1
@@ -437,9 +436,9 @@ class PackedKernelInteraction(_KernelEngine):
     """Occupancy-packed chunks (``ops/interaction_packed.py`` layout) with
     the spread and interp of each velocity component done by the packed
     kernels: 3 spread and 3 interp launches per transfer of a MAC
-    velocity. The spread's tile partials fold onto the grid by the
-    overlap-add; the interp reads the grid itself, with no tile
-    extraction. Overflow markers go through the exact scatter fallback."""
+    velocity. Both write or read the grid themselves, with no overlap-add
+    or tile extraction. Overflow markers go through the exact scatter
+    fallback."""
 
     def __init__(self, grid: StaggeredGrid, kernel="IB_4", tile: int = 8,
                  chunk: int = 128, nchunks: int = 1024,
@@ -465,8 +464,8 @@ class PackedKernelInteraction(_KernelEngine):
         return refresh_packed(self.geom, self.grid, b, X, weights)
 
     def _spread_grid(self, offs, b, Xb, coef):
-        return _overlap_add(self.geom, self.grid, packed_spread(
-            self.geom, self.grid, offs, b.tile_of_chunk, Xb, coef))
+        return packed_spread(self.geom, self.grid, offs, b.tile_of_chunk, Xb,
+                             coef)
 
     def _interp_slots(self, offs, b, Xb, f):
         return packed_interp(self.geom, self.grid, offs, b.tile_of_chunk,

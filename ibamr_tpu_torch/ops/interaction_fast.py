@@ -219,6 +219,33 @@ def _phi_safe(phi, support):
     return f
 
 
+def tile_weights(geom: BucketGeometry, grid: StaggeredGrid, offs,
+                 tid: torch.Tensor, Xb: torch.Tensor):
+    """The weight preamble of the kernels for every chunk (or tile row)
+    ``q`` of tile ``tid[q]``: per-axis IB_4 weights ``wx (Q, W0, c)``,
+    ``wy (Q, W1, c)``, ``wz (Q, nz, c)`` of its markers over the tile's
+    footprint, wrapped periodically by rounding half to even."""
+    support, phi0 = get_kernel("IB_4")
+    phi = _phi_safe(phi0, support)
+    dtype, dev = Xb.dtype, Xb.device
+    t = tid.to(torch.int64)
+    nb1 = geom.nblk[1]
+    origins = ((t // nb1) * geom.tile[0] - 1, (t % nb1) * geom.tile[1] - 1)
+    out = []
+    for d in range(3):
+        n = grid.n[d]
+        xi = (Xb[..., d] - grid.x_lo[d]) / grid.dx[d] - offs[d]   # (Q, c)
+        if d < 2:
+            k = (origins[d][:, None].to(dtype)
+                 + torch.arange(geom.width[d], dtype=dtype, device=dev))
+        else:
+            k = torch.arange(n, dtype=dtype, device=dev)[None, :]
+        tk = xi[:, None, :] - k[:, :, None]
+        tk = tk - torch.round(tk / n) * n
+        out.append(phi(tk))
+    return tuple(out)
+
+
 def _pad_axis(x: torch.Tensor, axis: int, after: int) -> torch.Tensor:
     shape = list(x.shape)
     shape[axis] = after
@@ -286,6 +313,22 @@ def bucketed_channel(b, F: torch.Tensor) -> torch.Tensor:
     Ff = torch.zeros(nslot + 1, dtype=F.dtype, device=F.device)
     Ff[b.slot_of_marker.to(torch.int64)] = F
     return Ff[:-1].reshape(b.wb.shape)
+
+
+def contract_compressed(spec: str, a: torch.Tensor, b: torch.Tensor,
+                        compute_dtype=None) -> torch.Tensor:
+    """The transfer engines' contraction: exact in the operands' type, or,
+    with ``compute_dtype=torch.bfloat16``, of the operands rounded to bf16
+    with an f32 sum and an f32 result (cast to ``a``'s type) as the
+    reference's ``preferred_element_type=f32``. Each rounded operand goes
+    back to f32 before the product: a bf16 ``einsum`` would round its
+    result to bf16 too."""
+    if compute_dtype is not None:
+        def rounded(x):
+            return x.to(compute_dtype).to(torch.float32)
+
+        return torch.einsum(spec, rounded(a), rounded(b)).to(a.dtype)
+    return torch.einsum(spec, a, b)
 
 
 def spread_overflow_fallbacks(out: torch.Tensor, b, F: torch.Tensor,

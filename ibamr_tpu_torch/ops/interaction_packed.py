@@ -1,5 +1,6 @@
-"""Occupancy-packed chunk layout of the markers (port of the layout half
-of ``ibamr_tpu/ops/interaction_packed.py``).
+"""Occupancy-packed chunk layout of the markers and the ``packed`` /
+``packed_bf16`` transfer engines on it (port of
+``ibamr_tpu/ops/interaction_packed.py``; forward only, 3D only).
 
 Markers are bucketed by (x, y) tile and packed into ``Q`` chunks of
 ``c`` slots, allocated compactly in tile order: chunk q holds up to c
@@ -13,6 +14,14 @@ Layouts match the reference slot for slot: the sort is stable (as
 read an explicit zero pad row. The two overflow flags and the refresh
 hit are read to the host once per pack or refresh: that is the step's
 host synchronisation.
+
+The engine (:class:`PackedInteraction`) is the reference's XLA engine in
+torch ops on the engine's device: per chunk a batched contraction of its
+markers' weights over the tile footprint, a sorted segment sum of the
+chunks onto their tiles (deterministic: no atomics on the card), then the
+overlap-add (spread); or the tile extraction, the contraction and a sum
+over the footprint (interp). It is not the ``pallas_packed`` engine,
+which runs the hand-written kernels (``ops/cuda_interaction.py``).
 """
 
 from __future__ import annotations
@@ -23,11 +32,16 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.grid import StaggeredGrid
 from ibamr_tpu_torch.ops.delta import get_kernel
+from ibamr_tpu_torch.ops.interaction import _centering_offsets, scatter_add
 from ibamr_tpu_torch.ops.interaction_fast import (
-    BucketGeometry, _block_ids_np, _host_array, _marker_tile_ids,
-    _tile_origins, compact_overflow, default_overflow_cap)
+    BucketGeometry, _block_ids_np, _extract_tiles, _host_array,
+    _marker_tile_ids, _overlap_add, _tile_origins, bucketed_channel,
+    compact_overflow, contract_compressed, default_overflow_cap,
+    make_geometry, spread_overflow_fallbacks, tile_weights,
+    unbucket_with_overflow)
 
 
 class PackedBuckets(NamedTuple):
@@ -162,3 +176,147 @@ def refresh_packed(geom: BucketGeometry, grid: StaggeredGrid,
     inv[slot] = torch.arange(N, device=X.device)
     Xp = torch.cat([X, X.new_zeros(1, dim)])
     return b._replace(Xb=Xp[inv[:-1]].reshape(Q, c, dim)), True
+
+
+# -- the packed engine ---------------------------------------------------------
+
+def _chunk_weights(geom: BucketGeometry, grid: StaggeredGrid,
+                   b: PackedBuckets, centering):
+    """Each chunk's weights over its tile's footprint: the blocked axes
+    combined, ``A (Q, P, c)`` with p = a * W1 + b, and the last axis
+    ``Wz (Q, nz, c)``."""
+    if grid.dim != 3:
+        raise NotImplementedError("the packed engine is ported for 3D only")
+    offs = _centering_offsets(grid, centering)
+    wx, wy, wz = tile_weights(geom, grid, offs, b.tile_of_chunk, b.Xb)
+    Q, _, c = wx.shape
+    return (wx[:, :, None, :] * wy[:, None, :, :]).reshape(Q, -1, c), wz
+
+
+def spread_packed(geom: BucketGeometry, grid: StaggeredGrid,
+                  b: PackedBuckets, F: torch.Tensor, X: torch.Tensor,
+                  centering, kernel, compute_dtype=None) -> torch.Tensor:
+    """Spread marker values F (N,) to the grid component at
+    ``centering``; the overflow markers go through the exact scatter.
+    ``compute_dtype=torch.bfloat16`` rounds the contraction's operands to
+    bf16 (f32 sum). The reference's ``_spread_raw``: its custom VJP is
+    not ported."""
+    inv_vol = 1.0 / math.prod(grid.dx)
+    A, Wz = _chunk_weights(geom, grid, b, centering)
+    A = A * (bucketed_channel(b, F) * b.wb * inv_vol)[:, None, :]
+    Tq = contract_compressed("qpm,qzm->qpz", A, Wz, compute_dtype)
+    # tile_of_chunk is nondecreasing: the chunks of a tile are one
+    # segment, summed without atomics
+    B = int(np.prod(geom.nblk))
+    T = scatter_add(Tq.new_zeros((B,) + Tq.shape[1:]),
+                    b.tile_of_chunk.to(torch.int64), Tq)
+    return spread_overflow_fallbacks(_overlap_add(geom, grid, T), b, F, X,
+                                     grid, centering, kernel)
+
+
+def interpolate_packed(geom: BucketGeometry, grid: StaggeredGrid,
+                       b: PackedBuckets, f: torch.Tensor, X: torch.Tensor,
+                       centering, kernel,
+                       compute_dtype=None) -> torch.Tensor:
+    """Interpolate the grid component ``f`` at the markers -> (N,), the
+    adjoint of :func:`spread_packed` (the reference's ``_interp_raw``)."""
+    A, Wz = _chunk_weights(geom, grid, b, centering)
+    Tq = _extract_tiles(geom, grid, f)[b.tile_of_chunk.to(torch.int64)]
+    D = contract_compressed("qpz,qzm->qpm", Tq, Wz, compute_dtype)
+    Ub = torch.sum(A * D, dim=1) * b.wb                   # (Q, c)
+    return unbucket_with_overflow(Ub, b, f, X, grid, centering, kernel)
+
+
+class PackedInteraction:
+    """The ``packed`` engine (``packed_bf16`` with ``compute_dtype=
+    torch.bfloat16``): occupancy-packed chunks of ``chunk`` slots, packed
+    once per position and reused for every component and both directions;
+    ``nchunks`` is the static chunk capacity (size it with
+    :func:`suggest_chunks`); markers beyond it take the exact scatter
+    fallback."""
+
+    def __init__(self, grid: StaggeredGrid, kernel="IB_4", tile: int = 8,
+                 chunk: int = 128, nchunks: int = 1024,
+                 overflow_cap: Optional[int] = None, compute_dtype=None,
+                 device="cuda"):
+        if grid.dim != 3:
+            raise NotImplementedError(
+                "the packed engine is ported for 3D only")
+        resolve_device(device)   # raises for a GPU request without one
+        self.grid = grid
+        self.kernel = kernel
+        self.geom = make_geometry(grid, kernel, tile=tile, cap=chunk)
+        self.nchunks = int(nchunks)
+        self.overflow_cap = overflow_cap
+        self.compute_dtype = compute_dtype
+
+    def buckets(self, X: torch.Tensor,
+                weights: Optional[torch.Tensor] = None) -> PackedBuckets:
+        return pack_markers(self.geom, self.grid, X, weights,
+                            nchunks=self.nchunks,
+                            overflow_cap=self.overflow_cap)
+
+    def refresh(self, b: PackedBuckets, X: torch.Tensor,
+                weights: Optional[torch.Tensor] = None):
+        """Slot-preserving half-step refresh; returns ``(buckets, hit)``."""
+        return refresh_packed(self.geom, self.grid, b, X, weights)
+
+    def interpolate_vel(self, u, X: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None,
+                        b: Optional[PackedBuckets] = None) -> torch.Tensor:
+        if b is None:
+            b = self.buckets(X, weights)
+        return torch.stack([
+            interpolate_packed(self.geom, self.grid, b, u[d], X, d,
+                               self.kernel, compute_dtype=self.compute_dtype)
+            for d in range(self.grid.dim)], dim=-1)
+
+    def spread_vel(self, F: torch.Tensor, X: torch.Tensor,
+                   weights: Optional[torch.Tensor] = None,
+                   b: Optional[PackedBuckets] = None) -> tuple:
+        if b is None:
+            b = self.buckets(X, weights)
+        return tuple(spread_packed(self.geom, self.grid, b, F[:, d], X, d,
+                                   self.kernel,
+                                   compute_dtype=self.compute_dtype)
+                     for d in range(self.grid.dim))
+
+
+# -- engine names ------------------------------------------------------------------
+#
+# The reference's degradation order, kept as names only: the port never
+# degrades to another engine (a failed build raises).
+
+ENGINE_FALLBACKS = {
+    "pallas_packed": "packed",
+    "hybrid_bf16": "packed_bf16",
+    "hybrid_packed_bf16": "packed_bf16",
+    "packed_bf16": "packed",
+    "packed3_bf16": "packed3",
+    "packed3": "packed",
+    "packed": "scatter",
+    "pallas": "mxu",
+    "mxu_bf16": "mxu",
+    "mxu": "scatter",
+}
+
+
+def normalize_engine_name(name) -> str:
+    """Map the ``use_fast_interaction`` vocabulary (True/False/str) to a
+    registry name."""
+    if name is True:
+        return "mxu"
+    if name is False or name is None or name == "scatter":
+        return "scatter"
+    return str(name).lower()
+
+
+def fallback_chain(name):
+    """The reference's degradation order from ``name`` (inclusive) to
+    "scatter"; KeyError for an unknown name."""
+    cur = normalize_engine_name(name)
+    chain = [cur]
+    while cur != "scatter":
+        cur = ENGINE_FALLBACKS[cur]
+        chain.append(cur)
+    return chain

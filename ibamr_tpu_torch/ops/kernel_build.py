@@ -26,7 +26,7 @@ SOURCES = {"packed_spread": "packed_spread.cu",
            "packed_interp": "packed_interp.cu",
            "tile_spread": "tile_spread.cu",
            "tile_interp": "tile_interp.cu"}
-HEADERS = ("delta_ib4.cuh",)
+HEADERS = ("delta_ib4.cuh", "spread_column.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

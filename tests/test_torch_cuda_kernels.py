@@ -1,11 +1,15 @@
 """The CUDA kernels on the card: each against its plain PyTorch version
 (``1e-5·max|plain|``, f32, other sum order) and bitwise run to run. The
 packed kernels with several chunks per tile, on a 16-cell blocked axis
-(nblk = 2: a tile's two neighbours on an axis are one tile) and with
-markers within 2 cells of every periodic face, each with more chunks
-than the pack needs (trailing chunks pinned to the last tile, X = 0);
-the packed interp, which reads the grid itself, on every slot, and the
-packed engine's interp without any tile extraction. The tile kernels,
+(nblk = 2: a tile's two neighbours on an axis are one tile), with
+markers within 2 cells of every periodic face, and with one hot tile of
+40,000 markers (its columns hold more chunks than the spread's chunk
+table and more live slots than 2^15), each with more chunks than the
+pack needs (trailing chunks pinned to the last tile, X = 0); the packed
+spread, which writes the grid itself, and the packed interp, which reads
+it, on every slot; the packed engine's spread without any overlap-add and
+its interp without any tile extraction; a packed spread past the
+kernel's slot limit raises. The tile kernels,
 which write and read the grid themselves, with more than 128 markers per
 tile, on a 16-cell blocked axis and with markers at every periodic face.
 A launch that reports a CUDA error raises. Needs an NVIDIA GPU and skips
@@ -37,10 +41,18 @@ def _faces(rng, N, n):
     return np.where(rng.uniform(size=(N, 3)) < 0.5, near, 1.0 - near)
 
 
+def _hot_tile(rng, N):
+    """Every marker in one (x, y) tile (x, y in 0.3..0.4 of a 32-cell
+    axis: stencil origins in cells 8..11), random z."""
+    return np.stack([rng.uniform(0.3, 0.4, N), rng.uniform(0.3, 0.4, N),
+                     rng.uniform(0, 1, N)], axis=1)
+
+
 # (grid, markers, nchunks): several chunks in every tile; a 16-cell
-# blocked axis; markers at every periodic face. Each pack leaves trailing
-# chunks unallocated.
+# blocked axis; markers at every periodic face; one hot tile of 313
+# chunks. Each pack leaves trailing chunks unallocated.
 PACKED_CASES = {
+    "hot_tile": ((32, 32, 64), lambda rng, n: _hot_tile(rng, 40000), 330),
     "several_chunks_per_tile": ((32, 32, 64), lambda rng, n: rng.uniform(
         0, 1, (6000, 3)), 64),
     "nblk2": ((16, 16, 40), lambda rng, n: rng.uniform(0, 1, (1500, 3)),
@@ -88,7 +100,7 @@ def test_cuda_kernels_match_plain_on_card(case):
                               coef)
         ref = ci.packed_spread_plain(eng.geom, tg, offs, b.tile_of_chunk,
                                      b.Xb, coef)
-        assert torch.equal(k1, k2)
+        assert k1.shape == tg.n and torch.equal(k1, k2)
         _close(ref, k1, 1e-5)
         f = torch.tensor(u[d], device="cuda")
         k1 = ci.packed_interp(eng.geom, tg, offs, b.tile_of_chunk, b.Xb, f)
@@ -120,6 +132,50 @@ def test_packed_engine_interp_reads_the_grid_on_card(case, monkeypatch):
                               torch.tensor(X, device="cuda"), b=b)
     assert ci.LAUNCHES["packed_interp"] == before + 3
     _close(ref, got.cpu(), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+def test_packed_engine_spread_writes_the_grid_on_card(case, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels build and run "
+                    "only there")
+    tg, eng, b, X, F, u = _packed_case(case)
+    cpu = ci.PackedKernelInteraction(tg, chunk=128, nchunks=eng.nchunks,
+                                     device="cpu")
+    ref = cpu.spread_vel(torch.tensor(F), torch.tensor(X))
+
+    def no_overlap_add(*args, **kwargs):
+        raise AssertionError("the packed engine folded tile partials on "
+                             "CUDA")
+
+    monkeypatch.setattr(ci, "_overlap_add", no_overlap_add)
+    before = ci.LAUNCHES["packed_spread"]
+    got = eng.spread_vel(torch.tensor(F, device="cuda"),
+                         torch.tensor(X, device="cuda"), b=b)
+    assert ci.LAUNCHES["packed_spread"] == before + 3
+    for r, g in zip(ref, got):
+        assert g.shape == tg.n
+        _close(r, g.cpu(), 1e-5)
+
+
+@pytest.mark.cuda
+def test_packed_spread_past_its_limit_raises_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels build and run "
+                    "only there")
+    tg = StaggeredGrid(n=(32, 32, 64), x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
+    eng = ci.PackedKernelInteraction(tg, chunk=128, nchunks=8,
+                                     device="cuda")
+    _, (max_slots, _, _) = ci._launcher("packed_spread")
+    Q = max_slots // 128 + 1
+    tid = torch.zeros(Q, dtype=torch.int32, device="cuda")
+    Xb = torch.zeros((Q, 128, 3), device="cuda")
+    before = ci.LAUNCHES["packed_spread"]
+    with pytest.raises(ValueError, match="needs slots <="):
+        ci.packed_spread(eng.geom, tg, (0.5,) * 3, tid, Xb,
+                         torch.zeros((Q, 128), device="cuda"))
+    assert ci.LAUNCHES["packed_spread"] == before
 
 
 # (grid, markers, cap): more than 128 markers in every tile; a 16-cell

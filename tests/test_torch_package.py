@@ -81,6 +81,7 @@ def test_gpu_entry_points_raise_without_a_gpu():
     from ibamr_tpu_torch.models.shell3d import build_shell_example
     from ibamr_tpu_torch.ops.cuda_interaction import (PackedKernelInteraction,
                                                       TileKernelInteraction)
+    from ibamr_tpu_torch.ops.interaction_packed import PackedInteraction
     from ibamr_tpu_torch.utils.input_db import parse_input_file
 
     grid = StaggeredGrid(n=(16,) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
@@ -95,6 +96,7 @@ def test_gpu_entry_points_raise_without_a_gpu():
                  lambda: INSStaggeredIntegrator(grid),
                  lambda: PackedKernelInteraction(grid),
                  lambda: TileKernelInteraction(grid),
+                 lambda: PackedInteraction(grid),
                  lambda: ib_explicit_ex4.run(db)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

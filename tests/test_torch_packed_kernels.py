@@ -1,12 +1,14 @@
 """Port parity: the plain PyTorch versions of the two packed transfer
-kernels (``ibamr_tpu_torch/ops/cuda_interaction.py``: ``packed_spread``
-and ``packed_interp``, which reads the grid component itself), the
-packed interp's partial form over extracted tiles, and the engine around
-them against the reference Pallas programs (``PallasPackedInteraction``,
-``_packed_interp_kernel_3d`` after ``_extract_tiles``, interpret mode)
-on the CPU, in f32, with the cases of ``tests/test_pallas_packed.py``.
-The two sides sum in different orders: transfers agree to
-``2e-6·max|ref|`` (the reference suite's own tolerance). The CUDA kernels themselves are held against
+kernels (``ibamr_tpu_torch/ops/cuda_interaction.py``: ``packed_spread``,
+which writes the grid component itself, and ``packed_interp``, which
+reads it), their partial forms over tiles, and the engine around them
+against the reference Pallas programs (``PallasPackedInteraction``:
+``_packed_spread_kernel_3d`` then its visited-tile mask and
+``_overlap_add``, ``_packed_interp_kernel_3d`` after ``_extract_tiles``,
+interpret mode) on the CPU, with the cases of
+``tests/test_pallas_packed.py``. The two sides sum in different orders:
+transfers agree to ``2e-6·max|ref|`` in f32 (the reference suite's own
+tolerance) and to ``1e-13·max|ref|`` in f64. The CUDA kernels themselves are held against
 these plain versions on the card by ``chip_smoke.py`` and by
 ``tests/test_torch_cuda_kernels.py``."""
 
@@ -20,6 +22,7 @@ from ibamr_tpu.grid import StaggeredGrid as JGrid
 from ibamr_tpu.ops import pallas_interaction as jpal
 from ibamr_tpu.ops.interaction import _centering_offsets
 from ibamr_tpu.ops.interaction_fast import _extract_tiles as j_extract
+from ibamr_tpu.ops.interaction_fast import _overlap_add as j_overlap_add
 from ibamr_tpu.ops.interaction_fast import bucketed_channel as j_channel
 from ibamr_tpu.ops.interaction_packed import suggest_chunks
 from ibamr_tpu_torch import convert
@@ -73,24 +76,62 @@ def _hot_inputs(seed, N, n):
     return X, F
 
 
+def _pallas_spread(je, jb, offs, coef):
+    """The reference's packed spread: the Pallas program, its visited-tile
+    mask, then the overlap-add onto the grid (``PallasPackedInteraction
+    .spread`` without the overflow scatter)."""
+    B = int(np.prod(je.geom.nblk))
+    call = jpal._packed_spread_kernel_3d(je.geom, je.grid, offs, je._phi,
+                                         True)
+    T = call(jb.tile_of_chunk, jb.Xb.astype(coef.dtype), coef, B)
+    T = jnp.where(je._visited_mask(jb)[:, None, None], T, 0.0)
+    return T, j_overlap_add(je.geom, je.grid, T.reshape(
+        (B,) + tuple(je.geom.width) + (je.grid.n[2],)))
+
+
+def _coef(je, jb, F, centering, dtype):
+    return (j_channel(jb, jnp.asarray(F[:, centering], dtype=dtype))
+            * jb.wb.astype(dtype) / float(np.prod(je.grid.dx)))
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
 @pytest.mark.parametrize("centering", [0, 1, 2])
-def test_spread_kernel_plain_matches_pallas(centering):
-    n = (16, 16, 32)
+def test_spread_kernel_plain_matches_pallas(centering, size):
+    n = SIZES[size]
     X, F, _ = _inputs(0, 300, n)
     je, te = _engines(n, X, chunk=64)
     jb = je.buckets(jnp.asarray(X))
     tb = convert.packed_buckets(jb, device="cpu")
     offs = _centering_offsets(je.grid, centering)
-    coef = j_channel(jb, jnp.asarray(F[:, centering])) * jb.wb \
-        / float(np.prod(je.grid.dx))
-    B = int(np.prod(je.geom.nblk))
-    call = jpal._packed_spread_kernel_3d(je.geom, je.grid, offs, je._phi,
-                                         True)
-    ref = call(jb.tile_of_chunk, jb.Xb, coef, B)
-    ref = jnp.where(je._visited_mask(jb)[:, None, None], ref, 0.0)
+    coef = _coef(je, jb, F, centering, jnp.float32)
+    T, ref = _pallas_spread(je, jb, offs, coef)
     got = ci.packed_spread(te.geom, te.grid, offs, tb.tile_of_chunk, tb.Xb,
                            torch.tensor(np.asarray(coef)))
+    assert got.shape == te.grid.n
     _close(ref, got)
+    # the program's partial form, before the fold
+    _close(T, ci.packed_spread_partials_plain(
+        te.geom, te.grid, offs, tb.tile_of_chunk, tb.Xb,
+        torch.tensor(np.asarray(coef))))
+
+
+@pytest.mark.parametrize("size", sorted(SIZES))
+@pytest.mark.parametrize("centering", [0, 1, 2])
+def test_spread_kernel_plain_matches_pallas_f64(centering, size):
+    # at f64 the two sum orders agree to roundoff
+    n = SIZES[size]
+    X, F, _ = _inputs(7, 300, n)
+    X = X.astype(np.float64)
+    je, te = _engines(n, X, chunk=64)
+    jb = je.buckets(jnp.asarray(X))
+    tb = convert.packed_buckets(jb, device="cpu")
+    offs = _centering_offsets(je.grid, centering)
+    coef = _coef(je, jb, F, centering, jnp.float64)
+    _, ref = _pallas_spread(je, jb, offs, coef)
+    got = ci.packed_spread(te.geom, te.grid, offs, tb.tile_of_chunk, tb.Xb,
+                           torch.tensor(np.asarray(coef)))
+    assert got.dtype == torch.float64
+    _close(ref, got, tol=1e-13)
 
 
 @pytest.mark.parametrize("centering", [0, 1, 2])
@@ -152,22 +193,32 @@ def test_engine_random_markers_match_pallas():
                               b=tb))
 
 
-def test_hot_tile_accumulates_and_untouched_tiles_are_zero():
+@pytest.mark.parametrize("dtype,tol", [(np.float32, TOL),
+                                       (np.float64, 1e-13)])
+def test_hot_tile_accumulates_and_untouched_tiles_are_zero(dtype, tol):
     n = (16, 16, 16)
     X, F = _hot_inputs(3, 150, n)
+    X, F = X.astype(dtype), F.astype(dtype)
     je, te = _engines(n, X, chunk=16, nchunks=16)
     jb = je.buckets(jnp.asarray(X))
     tb = te.buckets(torch.tensor(X))
     assert not tb.any_overflow
+    # one tile takes every marker, in several chunks of 16
     assert int((tb.wb > 0).any(1).sum()) >= 9
+    assert len(set(tb.tile_of_chunk[(tb.wb != 0).any(1)].tolist())) == 1
     for a, b in zip(je.spread_vel(jnp.asarray(F), jnp.asarray(X), b=jb),
                     te.spread_vel(torch.tensor(F), torch.tensor(X), b=tb)):
-        _close(a, b)
-    # kernel level: tiles no live chunk visits come out exactly zero
+        _close(a, b, tol)
+    # kernel level: the grid equals the reference's program, mask and
+    # overlap-add; in partial form the tiles no live chunk visits are zero
     offs = _centering_offsets(je.grid, 0)
-    coef = torch.ones_like(tb.wb) * tb.wb
-    T = ci.packed_spread(te.geom, te.grid, offs, tb.tile_of_chunk, tb.Xb,
-                         coef)
+    coef = _coef(je, jb, F, 0, jnp.asarray(X).dtype)
+    _, ref = _pallas_spread(je, jb, offs, coef)
+    tcoef = torch.tensor(np.asarray(coef))
+    _close(ref, ci.packed_spread(te.geom, te.grid, offs, tb.tile_of_chunk,
+                                 tb.Xb, tcoef), tol)
+    T = ci.packed_spread_partials_plain(te.geom, te.grid, offs,
+                                        tb.tile_of_chunk, tb.Xb, tcoef)
     visited = torch.zeros(T.shape[0], dtype=torch.bool)
     visited[tb.tile_of_chunk[(tb.wb != 0).any(1)].long()] = True
     assert int(visited.sum()) == 1

@@ -76,19 +76,34 @@ def test_forward_euler_scatter_step_matches_reference():
 
 def test_flagship_options_not_ported_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        tbuild(use_fast_interaction="packed_bf16", device="cpu", **SHELL)
-    with pytest.raises(NotImplementedError, match="resolver"):
-        tbuild(use_fast_interaction=None, device="cpu", **SHELL)
+        tbuild(use_fast_interaction="hybrid_bf16", device="cpu", **SHELL)
     with pytest.raises(NotImplementedError, match="spectral_dtype"):
         tbuild(spectral_dtype="bf16", device="cpu", **SHELL)
-    from ibamr_tpu_torch.utils.input_db import parse_input_string
-    for knob in ("", 'transfer_engine = "auto"'):
-        db = parse_input_string("IBMethod { delta_fcn = \"IB_4\" %s }"
-                                % knob)
-        with pytest.raises(NotImplementedError, match="transfer_engine"):
-            tbuild(input_db=db, device="cpu", **SHELL)
     with pytest.raises(NotImplementedError):
         tbuild(convective_op_type="ppm", device="cpu", **SHELL)
+
+
+def test_absent_or_auto_engine_resolves_like_reference(monkeypatch):
+    # an absent engine, "auto" in the input file, or None resolves as the
+    # reference does: the 64 markers of the 16^3 shell take the scatter
+    # oracle (the packed promotion needs >= 4,096 markers)
+    from ibamr_tpu.utils.input_db import parse_input_string as j_parse
+    from ibamr_tpu_torch.utils.input_db import parse_input_string
+
+    monkeypatch.delenv("IBAMR_TRANSFER_ENGINE", raising=False)
+    monkeypatch.delenv("IBAMR_TUNING_DB", raising=False)
+    tinteg, _ = tbuild(use_fast_interaction=None, device="cpu", **SHELL)
+    jinteg, _ = jbuild(use_fast_interaction=None, engine_fallback=False,
+                       **SHELL)
+    assert tinteg.ib.engine_name == jinteg.ib.engine_name == "scatter"
+    assert tinteg.ib.fast is None
+    for knob in ("", 'transfer_engine = "auto"'):
+        text = "IBMethod { delta_fcn = \"IB_4\" %s }" % knob
+        tinteg, _ = tbuild(input_db=parse_input_string(text), device="cpu",
+                           **SHELL)
+        jinteg, _ = jbuild(input_db=j_parse(text), engine_fallback=False,
+                           **SHELL)
+        assert tinteg.ib.engine_name == jinteg.ib.engine_name == "scatter"
 
 
 class _NoRefresh:
