@@ -17,23 +17,37 @@ Phases, in order; any failure raises and the exit code is non-zero:
    40,000 markers.
 3. parity  -- 3 midpoint steps of the 32^3 shell (16x16) on the GPU (the
    kernels) and on the CPU (the plain versions) from the same state, on
-   the ``pallas_packed``, ``pallas`` and ``packed`` engines; a buffered
-   and an exceeded overflow through each kernel engine against the CPU
-   scatter oracle.
+   the ``pallas_packed``, ``pallas``, ``hybrid_bf16``, ``hybrid_packed``
+   and ``packed`` engines, each launching its own kernels and no other; a
+   buffered and an exceeded overflow through each kernel engine against
+   the CPU scatter oracle.
 4. path    -- the flagship step, ``build_shell_example(n_cells=256,
    n_lat=316, n_lon=316, use_fast_interaction="pallas_packed")``, warmed
    up and timed; the kernel launch counts of exactly this run, and no
    tile extraction or overlap-add in it.
-5. driver  -- the ex4 driver, ``ibamr_tpu_torch.examples.ib_explicit_ex4
+5. hybrid  -- the flagship on ``hybrid_bf16`` and ``hybrid_packed`` (the
+   ``packed_spread`` kernel, the interp in torch ops), warmed up and timed
+   beside the path phase's ``pallas_packed``: the launches of exactly
+   each run (``packed_spread`` alone), the refresh hits, and one step
+   taken twice from the same state, bitwise equal.
+6. driver  -- the ex4 driver, ``ibamr_tpu_torch.examples.ib_explicit_ex4
    .run``, on the committed ``input3d.northstar`` (256^3, 316x316 shell)
    with ``IBMethod.transfer_engine = "pallas"``: steps/s, the metrics log,
    the kernel launches of exactly this run, the checkpoint it wrote
    restored bitwise, and a restart from its mid-run checkpoint.
-6. auto    -- the ex4 driver on the committed ``input3d.northstar`` and
+7. auto    -- the ex4 driver on the committed ``input3d.northstar`` and
    ``input3d`` as they are (no ``transfer_engine``; only the output
    directories and a short run overridden): the engine each resolves
    (``packed`` and ``scatter`` by the default rule), checked against the
    resolver, and its steps/s.
+8. ex0     -- the ex0 driver, ``ibamr_tpu_torch.examples.ib_explicit_ex0
+   .run``, on the committed ``examples/IB/explicit/ex0/input2d`` as it is
+   (64^2, 128 markers, 400 steps; the 2D path runs no hand kernel) in a
+   temporary working directory: finite metrics, the area conserved to
+   the reference's bound with the eccentricity falling, a restart from
+   the step-200 checkpoint bitwise equal to the straight run, the first
+   20 steps on the GPU against the CPU, and the steps/s of the restarted
+   (warm) leg.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -77,6 +91,11 @@ AUTO_INPUTS = ("examples/IB/explicit/ex4/input3d.northstar",
                "examples/IB/explicit/ex4/input3d")
 AUTO_STEPS, AUTO_TIMED = 4, 5   # auto leg: driver steps, then timed steps
 HOT_TILE_MARKERS = 40000  # the packed spread's hot-tile case
+HYBRID_ENGINES = ("hybrid_bf16", "hybrid_packed")
+EX0_INPUT = "examples/IB/explicit/ex0/input2d"
+EX0_RESTART = 200        # ex0: the checkpoint step restarted from
+EX0_PARITY_STEPS = 20    # ex0: steps of the GPU-vs-CPU check
+EX0_AREA_DRIFT = 0.02    # |area - area0| / area0: tests/test_ib_membrane.py
 DEVICE = "cuda"
 # the TPU kernel each CUDA kernel replaces, and its source
 KERNELS = {
@@ -371,9 +390,11 @@ def _to(s, dev):
 
 
 # the kernels each engine launches (the packed engine is the reference's
-# XLA engine in torch ops: none)
+# XLA engine in torch ops: none; the hybrid engines interpolate with it)
 ENGINE_KERNELS = {"pallas_packed": ("packed_spread", "packed_interp"),
                   "pallas": ("tile_spread", "tile_interp"),
+                  "hybrid_bf16": ("packed_spread",),
+                  "hybrid_packed": ("packed_spread",),
                   "packed": ()}
 
 
@@ -539,6 +560,177 @@ def phase_path(warmup: int, steps: int):
         raise AssertionError("the pallas_packed step extracted or folded "
                              "tiles")
     return launches, 1e3 * wall / steps, integ, state
+
+
+def _finite_div(integ, state):
+    """Whether the state is finite, and max|div u| * dx / max|u|."""
+    div = float(integ.ins.max_divergence(state.ins))
+    umax = max(float(c.abs().max()) for c in state.ins.u)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (state.X, *state.ins.u, state.ins.p))
+    return finite, div * integ.ins.grid.dx[0] / max(umax, 1e-30)
+
+
+def phase_hybrid(path_ms: float, breakdown: bool = False) -> dict:
+    """The flagship on each hybrid engine: WARMUP steps, then STEPS timed;
+    the launches of exactly those steps (``packed_spread``, 3 per step,
+    and no other kernel), the refresh hits, then one step taken twice
+    from the state reached, bitwise equal. Returns the summed launches."""
+    from ibamr_tpu_torch.models.shell3d import build_shell_example
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.utils.tree import flatten_with_path
+
+    total = dict.fromkeys(KERNELS, 0)
+    for engine in HYBRID_ENGINES:
+        t0 = time.perf_counter()
+        integ, state = build_shell_example(use_fast_interaction=engine,
+                                           dtype=torch.float32,
+                                           device=DEVICE, **FLAGSHIP)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ci.reset_launch_counts()
+        hits = []
+        for _ in range(WARMUP):
+            state, st = integ.step_with_stats(state, DT_FLAGSHIP)
+            hits.append(st["refresh_hit"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            state, st = integ.step_with_stats(state, DT_FLAGSHIP)
+            hits.append(st["refresh_hit"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ci.LAUNCHES)
+        one, two = (integ.step(state, DT_FLAGSHIP) for _ in range(2))
+        bitwise = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            flatten_with_path(one), flatten_with_path(two)))
+        finite, rel_div = _finite_div(integ, state)
+        ms = 1e3 * wall / STEPS
+        log(f"[hybrid] {engine} on {torch.cuda.get_device_name(0)}: built "
+            f"in {build_s:.2f} s (Q={integ.ib.fast.nchunks}, interp "
+            f"compute dtype {integ.ib.fast.compute_dtype}); {STEPS} timed "
+            f"steps after {WARMUP} warm-up: {1e3 / ms:.3f} steps/s, "
+            f"{ms:.3f} ms/step (host clock, synchronized) vs pallas_packed "
+            f"{1e3 / path_ms:.3f} steps/s (path phase, same call)")
+        log(f"[hybrid] {engine}: refresh hits {sum(bool(h) for h in hits)}/"
+            f"{len(hits)}; kernel launches in {WARMUP + STEPS} steps "
+            f"{launches} (per step: packed_spread 3, no interp kernel); one "
+            f"step twice from the same state bitwise={bitwise}; finite="
+            f"{finite}, max|div u|*dx/max|u|={rel_div:.3e}")
+        want = {**dict.fromkeys(KERNELS, 0),
+                "packed_spread": 3 * (WARMUP + STEPS)}
+        if launches != want:
+            raise AssertionError(f"{engine}: unexpected kernel launch "
+                                 f"counts {launches}")
+        if not (finite and bitwise and rel_div <= 1e-4):
+            raise AssertionError(f"{engine}: state not finite, not "
+                                 "divergence-free or not run-to-run bitwise")
+        total = {k: total[k] + launches[k] for k in total}
+        if breakdown:
+            phase_breakdown(integ, state, ms, engine)
+        del integ, state, one, two
+    return total
+
+
+def _ecc(X: torch.Tensor) -> float:
+    """Largest over smallest distance of the markers from their mean."""
+    r = torch.linalg.norm(X - X.mean(0), dim=1)
+    return float(r.max() / r.min())
+
+
+def phase_ex0(breakdown: bool = False) -> dict:
+    """The ex0 driver on the committed input2d as it is, on the card, in a
+    temporary working directory; returns the kernel launches of the run
+    (none: the 2D path runs no hand kernel). With ``breakdown``, the
+    profile of the step at the state the run reached."""
+    from ibamr_tpu_torch.examples import ib_explicit_ex0
+    from ibamr_tpu_torch.integrators.ib import advance_ib, polygon_area
+    from ibamr_tpu_torch.models.membrane2d import build_membrane_example
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+    from ibamr_tpu_torch.utils.tree import flatten_with_path
+
+    db = parse_input_file(os.path.join(ROOT, EX0_INPUT))
+    ins_db = db.get_database("INSStaggeredHierarchyIntegrator")
+    main = db.get_database("Main")
+    steps, dt = ins_db.get_int("num_steps"), ins_db.get_float("dt")
+    _, s0 = build_membrane_example(input_db=db, device=DEVICE)
+    area0, ecc0 = float(polygon_area(s0.X)), _ecc(s0.X)
+    timer = TimerManager.instance()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            timer.reset()
+            ci.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = ib_explicit_ex0.run(db, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ci.LAUNCHES)
+            run_s = timer.get("IB::advanceHierarchy").total
+            with open(main.get_string("log_file")) as fh:
+                records = [json.loads(ln) for ln in fh]
+            rst = main.get_string("restart_dirname")
+            ckpts = sorted(os.listdir(rst))
+            viz = [f for f in os.listdir(main.get_string("viz_dirname"))
+                   if f.endswith(".csv")]
+            timer.reset()
+            again = ib_explicit_ex0.run(db, device=DEVICE,
+                                        restart=(rst, EX0_RESTART))
+            torch.cuda.synchronize()
+            warm_s = timer.get("IB::advanceHierarchy").total
+        finally:
+            os.chdir(cwd)
+    restart_bitwise = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        flatten_with_path(again), flatten_with_path(state)))
+    finite = all(isinstance(v, (int, float)) and math.isfinite(v)
+                 for r in records for v in r.values())
+    area1, ecc1 = records[-1]["area"], _ecc(state.X)
+    drift = abs(area1 - area0) / area0
+    # the first steps on the card against the CPU, from the same build
+    gi, gs = build_membrane_example(input_db=db, device=DEVICE)
+    ci_, cs = build_membrane_example(input_db=db, device="cpu")
+    gs = advance_ib(gi, gs, dt, EX0_PARITY_STEPS)
+    cs = advance_ib(ci_, cs, dt, EX0_PARITY_STEPS)
+    ex = float((gs.X.cpu() - cs.X).abs().max() / cs.X.abs().max())
+    eu = max(float((a.cpu() - b).abs().max() / b.abs().max())
+             for a, b in zip(gs.ins.u, cs.ins.u))
+    warm = steps - EX0_RESTART
+    log(f"[ex0] {EX0_INPUT} on {torch.cuda.get_device_name(0)}: grid "
+        f"{s0.ins.u[0].shape}, {s0.X.shape[0]} markers, {steps} steps of "
+        f"dt={dt:g}, f32: {steps / run_s:.3f} steps/s over the run (first "
+        f"chunk's set-up included), restarted leg of {warm} steps "
+        f"{warm / warm_s:.3f} steps/s, {1e3 * warm_s / warm:.3f} ms/step "
+        f"(warm chunks: host clock around each chunk and its synchronize); "
+        f"whole run {wall:.2f} s with build, metrics, viz and checkpoints")
+    for r in records:
+        log(f"[ex0] metrics {json.dumps(r)}")
+    log(f"[ex0] area {area0:.9g} -> {area1:.9g}: |drift|/area0={drift:.3e} "
+        f"(bound {EX0_AREA_DRIFT}); eccentricity max r/min r {ecc0:.6f} -> "
+        f"{ecc1:.6f}; marker CSVs {len(viz)}, restart files {ckpts}; restart "
+        f"from step {EX0_RESTART} bitwise={restart_bitwise}; kernel "
+        f"launches {launches}")
+    log(f"[ex0] first {EX0_PARITY_STEPS} steps GPU vs CPU: "
+        f"max|X_gpu-X_cpu|/max|X|={ex:.3e} (tol {TOL_PARITY_X:g}) max_d "
+        f"|u_gpu-u_cpu|/max|u|={eu:.3e} (tol {TOL_PARITY_U:g})")
+    if not (finite and len(records) * main.get_int("viz_dump_interval")
+            == steps and int(state.ins.k) == steps):
+        raise AssertionError("ex0: metrics not finite or the run incomplete")
+    if not (drift < EX0_AREA_DRIFT and ecc1 < ecc0):
+        raise AssertionError("ex0: area not conserved or the ellipse did "
+                             "not relax")
+    if not restart_bitwise:
+        raise AssertionError("ex0: the restarted run does not reach the "
+                             "straight run's state bitwise")
+    if not (ex <= TOL_PARITY_X and eu <= TOL_PARITY_U):
+        raise AssertionError("ex0: GPU and CPU steps disagree")
+    if any(launches.values()):
+        raise AssertionError(f"ex0: unexpected kernel launches {launches}")
+    if breakdown:
+        phase_breakdown(gi, state, 1e3 * warm_s / warm, "ex0", dt)
+    return launches
 
 
 def _device_ms(fn, reps: int):
@@ -768,13 +960,15 @@ def phase_auto(path_ms: float, breakdown: bool = False):
             phase_breakdown(integ, st, step_ms, "packed")
 
 
-def phase_breakdown(integ, state, step_ms: float, label: str) -> None:
-    """Where a flagship step's time goes: each stage of
-    ``step_with_stats`` alone on the state a timed phase reached (host
-    clock around a synchronize, and the profiler's device busy time),
-    then the top kernels of whole steps and the device's idle share. An
-    engine without a refresh buckets twice per step."""
-    ib, grid, dt, s = integ.ib, integ.ins.grid, DT_FLAGSHIP, state
+def phase_breakdown(integ, state, step_ms: float, label: str,
+                    dt: float = DT_FLAGSHIP) -> None:
+    """Where a step's time goes: each stage of ``step_with_stats`` alone
+    on the state a timed phase reached (host clock around a synchronize,
+    and the profiler's device busy time), then the top kernels of whole
+    steps and the device's idle share. An engine without a refresh
+    buckets twice per step; the scatter oracle (no engine) buckets not at
+    all."""
+    ib, grid, s = integ.ib, integ.ins.grid, state
     ctx = ib.prepare(s.X, s.mask)
     U = ib.interpolate_velocity(s.ins.u, grid, s.X, s.mask, ctx=ctx)
     Xh = s.X + 0.5 * dt * U
@@ -785,7 +979,8 @@ def phase_breakdown(integ, state, step_ms: float, label: str) -> None:
     f = ib.spread_force(F, grid, Xh, s.mask, ctx=ctx_h)
     stages = [("pack", 1, lambda: ib.prepare(s.X, s.mask)),
               ("refresh", 1, lambda: ib.refresh(ctx, Xh, s.mask))] \
-        if refresh else [("bucket", 2, lambda: ib.prepare(s.X, s.mask))]
+        if refresh else [("bucket", 2, lambda: ib.prepare(s.X, s.mask))] \
+        if ib.fast is not None else []
     stages += [
         ("interp", 2, lambda: ib.interpolate_velocity(
             s.ins.u, grid, s.X, s.mask, ctx=ctx)),
@@ -822,11 +1017,13 @@ def phase_breakdown(integ, state, step_ms: float, label: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,parity,path,driver,auto",
+    ap.add_argument("--phases",
+                    default="kernels,parity,path,hybrid,driver,auto,ex0",
                     help="comma-separated subset of kernels,parity,path,"
-                    "driver,auto (add 'breakdown' for a profile of the "
-                    "step of each of path, driver and the flagship's auto "
-                    "leg that runs)")
+                    "hybrid,driver,auto,ex0 (add 'breakdown' for a profile "
+                    "of the step of each of path, hybrid, driver, the "
+                    "flagship's auto leg and ex0 that runs; hybrid reads "
+                    "the path phase's time)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -853,6 +1050,9 @@ def main(argv=None) -> int:
         if "breakdown" in phases:
             phase_breakdown(integ, state, path_ms, "pallas_packed")
         del integ, state
+    if "hybrid" in phases:
+        ran = phase_hybrid(path_ms, "breakdown" in phases)
+        launches = {k: launches[k] + ran[k] for k in launches}
     if "driver" in phases:
         ran, step_ms, db, state = phase_driver(DRIVER_STEPS)
         launches = {k: launches[k] + ran[k] for k in launches}
@@ -865,6 +1065,9 @@ def main(argv=None) -> int:
             phase_breakdown(integ, state, step_ms, "pallas")
     if "auto" in phases:
         phase_auto(path_ms, "breakdown" in phases)
+    if "ex0" in phases:
+        ran = phase_ex0("breakdown" in phases)
+        launches = {k: launches[k] + ran[k] for k in launches}
 
     table = [dict(name=k, route="cuda", source=KERNELS[k][0],
                   replaces=KERNELS[k][1], launches=launches[k], **v)

@@ -42,12 +42,10 @@ def ib_state(s, device="cuda") -> IBState:
 
 def force_specs(specs, num_markers: int,
                 device="cuda") -> forces.ForceSpecs:
-    """A ``ForceSpecs`` with springs and/or beams (targets are not
-    ported yet), with the port's gather table for ``num_markers``."""
-    if getattr(specs, "targets", None) is not None:
-        raise NotImplementedError("target point specs are not ported yet")
+    """A ``ForceSpecs`` with springs, beams and/or targets, with the
+    port's gather table for ``num_markers``."""
     idx = dict(dtype=torch.int64, device=device)
-    springs = beams = None
+    springs = beams = targets = None
     if specs.springs is not None:
         s = specs.springs
         springs = forces.SpringSpecs(
@@ -62,7 +60,15 @@ def force_specs(specs, num_markers: int,
             nxt=tensor(b.nxt, **idx), rigidity=tensor(b.rigidity, device),
             rest_curvature=tensor(b.rest_curvature, device),
             enabled=tensor(b.enabled, device))
-    return forces.make_force_specs(springs, beams, num_markers=num_markers)
+    if getattr(specs, "targets", None) is not None:
+        t = specs.targets
+        targets = forces.TargetSpecs(
+            idx=tensor(t.idx, **idx), stiffness=tensor(t.stiffness, device),
+            damping=tensor(t.damping, device),
+            X_target=tensor(t.X_target, device),
+            enabled=tensor(t.enabled, device))
+    return forces.make_force_specs(springs, beams, targets,
+                                   num_markers=num_markers)
 
 
 def buckets(b, device="cuda") -> Buckets:

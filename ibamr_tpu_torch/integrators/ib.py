@@ -9,7 +9,8 @@
   U^{n+1/2} = J(X^{n+1/2}) (u^n + u^{n+1})/2
   X^{n+1}   = X^n + dt U^{n+1/2}
 
-The step is eager PyTorch. With the packed transfer engine it reads two
+The step is eager PyTorch; ``advance_ib`` is a plain loop of steps
+where the reference scans. With the packed transfer engine it reads two
 host values per step: the overflow flags of the pack and the hit of the
 half-step refresh. An engine without a refresh (the tile engine) buckets
 twice per step instead and reads the overflow flags of each bucketing.
@@ -17,7 +18,7 @@ twice per step instead and reads the overflow flags of each bucketing.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -106,12 +107,18 @@ class IBExplicitIntegrator:
         self.ib = ib
         self.scheme = scheme
 
-    def initialize(self, X0) -> IBState:
-        """Fluid at rest, markers at ``X0``, every marker active."""
+    def initialize(self, X0, ins_state: Optional[INSState] = None,
+                   mask=None) -> IBState:
+        """Markers at ``X0`` in the fluid state ``ins_state`` (default: at
+        rest), with the active-slot ``mask`` (default: every marker)."""
         kw = dict(dtype=self.ins.dtype, device=self.ins.device)
         X = torch.as_tensor(X0, **kw)
-        return IBState(ins=self.ins.initialize(), X=X, U=torch.zeros_like(X),
-                       mask=torch.ones(X.shape[0], **kw))
+        if ins_state is None:
+            ins_state = self.ins.initialize()
+        if mask is None:
+            mask = torch.ones(X.shape[0], **kw)
+        return IBState(ins=ins_state, X=X, U=torch.zeros_like(X),
+                       mask=torch.as_tensor(mask, **kw))
 
     def step(self, state: IBState, dt: float) -> IBState:
         return self.step_with_stats(state, dt)[0]
@@ -152,3 +159,24 @@ class IBExplicitIntegrator:
             X_new = X_n + dt * U_n
         return (IBState(ins=ins_new, X=X_new, U=U_out, mask=state.mask),
                 {"refresh_hit": refresh_hit})
+
+    def total_marker_force(self, state: IBState) -> torch.Tensor:
+        """The sum of the active markers' Lagrangian forces -> (dim,)."""
+        F = self.ib.compute_force(state.X, state.U, state.ins.t)
+        return torch.sum(F * state.mask[:, None], dim=0)
+
+
+def advance_ib(integrator: IBExplicitIntegrator, state: IBState, dt: float,
+               num_steps: int) -> IBState:
+    """Advance ``num_steps`` fixed-dt steps."""
+    for _ in range(num_steps):
+        state = integrator.step(state, dt)
+    return state
+
+
+def polygon_area(X: torch.Tensor) -> torch.Tensor:
+    """Shoelace area of a closed 2D marker loop (the membrane's volume-
+    conservation diagnostic) -> 0-dim tensor."""
+    x, y = X[:, 0], X[:, 1]
+    xn, yn = torch.roll(x, -1), torch.roll(y, -1)
+    return 0.5 * torch.abs(torch.sum(x * yn - xn * y))

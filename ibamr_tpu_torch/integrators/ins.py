@@ -11,7 +11,9 @@ Per step (pressure-increment projection, AB2 convection, CN diffusion):
 
 Only the fully periodic path with centered/upwind (or no) convection is
 ported; walls, PPM/CUI convection, divergence sources and the Krylov
-solvers are not ported yet and raise.
+solvers are not ported yet and raise. The initial velocity comes from
+callables evaluated at each component's own face centers, or from raw
+MAC arrays, as in the reference.
 """
 
 from __future__ import annotations
@@ -62,10 +64,29 @@ class INSStaggeredIntegrator:
         self._convective = (None if op == "none"
                             else partial(convective_rate, scheme=op))
 
-    def initialize(self) -> INSState:
-        """The fluid at rest."""
+    def initialize(self, u0=None, u0_arrays: Optional[Vel] = None
+                   ) -> INSState:
+        """The initial state: the fluid at rest, or the velocity ``u0``,
+        either a sequence of per-component callables ``u0[d](coords, t)``
+        or one vector callable ``u0(coords, t) -> [array, ...]`` (what
+        ``utils.gridfunctions.function_from_db`` returns, called once per
+        component), each component evaluated at its own face centers; or
+        the raw MAC arrays ``u0_arrays``."""
         g, kw = self.grid, dict(dtype=self.dtype, device=self.device)
-        return INSState(u=tuple(torch.zeros(g.n, **kw) for _ in range(g.dim)),
+        if u0_arrays is not None:
+            u = tuple(torch.as_tensor(c, **kw) for c in u0_arrays)
+        elif u0 is not None:
+            def eval_comp(d):
+                coords = g.face_centers(d, self.dtype, self.device)
+                val = u0(coords, 0.0)[d] if callable(u0) \
+                    else u0[d](coords, 0.0)
+                return torch.broadcast_to(torch.as_tensor(val, **kw),
+                                          g.n).clone()
+
+            u = tuple(eval_comp(d) for d in range(g.dim))
+        else:
+            u = tuple(torch.zeros(g.n, **kw) for _ in range(g.dim))
+        return INSState(u=u,
                         p=torch.zeros(g.n, **kw),
                         n_prev=tuple(torch.zeros(g.n, **kw)
                                      for _ in range(g.dim)),

@@ -8,9 +8,12 @@ beams, in a periodic unit box of incompressible fluid, IB_4 delta.
 Transfer engines: ``"pallas_packed"`` (the packed chunk layout driven by
 the packed CUDA spread/interp kernels, ``ops/cuda_interaction.py``),
 ``"pallas"`` (the per-tile layout driven by the tile kernels),
-``"packed"`` and ``"packed_bf16"`` (the reference's XLA engine on the
-packed layout in torch ops, ``ops/interaction_packed.py``) and
-``"scatter"`` (the scatter/gather oracle). An absent or ``"auto"`` engine
+``"hybrid_bf16"`` (alias ``"hybrid_packed_bf16"``) and
+``"hybrid_packed"`` (the packed spread kernel with the ``packed``
+interp, bf16 operands for ``*_bf16``), ``"packed"`` and ``"packed_bf16"``
+(the reference's XLA engine on the packed layout in torch ops,
+``ops/interaction_packed.py``) and ``"scatter"`` (the scatter/gather
+oracle). An absent or ``"auto"`` engine
 resolves through ``models/engine_resolver.py`` as in the reference. The
 other engines of the reference registry are not ported yet and raise; the
 reference's build-failure fallback chain is not carried over: the port
@@ -97,16 +100,17 @@ def shell_volume(X: torch.Tensor, center: Tuple[float, float, float]):
 # of the reference registry's engine names (RESOLVED_ENGINES), the ones
 # the port builds
 PORTED_ENGINES = ("scatter", "pallas", "pallas_packed", "packed",
-                  "packed_bf16")
+                  "packed_bf16", "hybrid_bf16", "hybrid_packed_bf16",
+                  "hybrid_packed")
 
 
 def construct_transfer_engine(name, grid: StaggeredGrid, vertices,
                               kernel: str, device="cuda"):
     """Build the named transfer engine for markers at ``vertices`` with
     the reference's sizing: ``"pallas"`` (tile capacity 1.2 x the fullest
-    tile, at most 1024), ``"pallas_packed"``, ``"packed"`` and
-    ``"packed_bf16"`` (1.3 x the chunk demand) or ``"scatter"`` (None: the
-    scatter path). Another registry name raises ``NotImplementedError``;
+    tile, at most 1024), ``"pallas_packed"``, the hybrid engines,
+    ``"packed"`` and ``"packed_bf16"`` (1.3 x the chunk demand) or
+    ``"scatter"`` (None: the scatter path). Another registry name raises ``NotImplementedError``;
     a name outside the registry ``ValueError``."""
     name = normalize_engine_name(name)
     if name == "scatter":
@@ -118,7 +122,8 @@ def construct_transfer_engine(name, grid: StaggeredGrid, vertices,
             f"transfer engine {name!r} is not ported yet; use one of "
             f"{PORTED_ENGINES}")
     from ibamr_tpu_torch.ops.cuda_interaction import (
-        PackedKernelInteraction, TileKernelInteraction)
+        HybridKernelInteraction, PackedKernelInteraction,
+        TileKernelInteraction)
     from ibamr_tpu_torch.ops.interaction_fast import suggest_cap
     from ibamr_tpu_torch.ops.interaction_packed import (PackedInteraction,
                                                         suggest_chunks)
@@ -138,6 +143,13 @@ def construct_transfer_engine(name, grid: StaggeredGrid, vertices,
         return PackedKernelInteraction(
             grid, kernel=kernel, tile=8, chunk=128, nchunks=Q,
             overflow_cap=overflow_cap, device=device)
+    if name in ("hybrid_bf16", "hybrid_packed_bf16", "hybrid_packed"):
+        return HybridKernelInteraction(
+            grid, kernel=kernel, tile=8, chunk=128, nchunks=Q,
+            overflow_cap=overflow_cap,
+            compute_dtype=(torch.bfloat16 if name.endswith("_bf16")
+                           else None),
+            device=device)
     return PackedInteraction(
         grid, kernel=kernel, tile=8, chunk=128, nchunks=Q,
         overflow_cap=overflow_cap,
@@ -166,9 +178,8 @@ def build_shell_example(
     """Assemble the ex4-equivalent simulation (3D periodic box) on
     ``device`` (the GPU unless ``device="cpu"``).
 
-    ``use_fast_interaction`` names the transfer engine (``"pallas"``,
-    ``"pallas_packed"``, ``"packed"``, ``"packed_bf16"``, ``"scatter"`` or
-    False); None is ``"auto"``. ``input_db`` (an ``InputDatabase``)
+    ``use_fast_interaction`` names the transfer engine (one of
+    ``PORTED_ENGINES`` or False for ``"scatter"``); None is ``"auto"``. ``input_db`` (an ``InputDatabase``)
     overrides the keyword arguments as the reference reads it:
     ``CartesianGeometry``, ``INSStaggeredHierarchyIntegrator``,
     ``IBMethod`` (``delta_fcn``, ``transfer_engine``) and ``Shell``; the

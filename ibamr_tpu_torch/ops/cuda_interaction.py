@@ -1,7 +1,9 @@
-"""The ``pallas_packed`` and ``pallas`` transfer engines on CUDA, each
-driven by two hand-written kernels (port of
-``ibamr_tpu/ops/pallas_interaction.py``: ``PallasPackedInteraction`` and
-``PallasInteraction`` with ``PallasSpread3D``).
+"""The ``pallas_packed``, ``pallas`` and hybrid transfer engines on CUDA,
+driven by hand-written kernels (port of
+``ibamr_tpu/ops/pallas_interaction.py``: ``PallasPackedInteraction``,
+``PallasInteraction`` with ``PallasSpread3D``, and
+``HybridPackedInteraction``: the packed spread kernel with the ``packed``
+engine's interp in torch ops, bf16 operands for ``hybrid_bf16``).
 
 Kernels (sources in ``csrc/``, notes on design and bound there):
 
@@ -24,7 +26,8 @@ Kernels (sources in ``csrc/``, notes on design and bound there):
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain PyTorch version beside it for CPU tensors; nothing falls back
-from the GPU. ``LAUNCHES`` counts the kernel launches. The plain
+from the GPU. The kernels evaluate IB_4 only: every engine here raises
+``NotImplementedError`` for another delta. ``LAUNCHES`` counts the kernel launches. The plain
 versions are the reference's dense weight preamble with a batched
 contraction and, for the packed spread, an ``index_add_`` over
 ``tile_of_chunk``; the spread versions compose the reference's program
@@ -50,7 +53,9 @@ from ibamr_tpu_torch.ops.interaction_fast import (
     BucketGeometry, _extract_tiles, _overlap_add, bucket_markers,
     bucketed_channel, make_geometry, spread_overflow_fallbacks, tile_weights,
     unbucket_with_overflow)
-from ibamr_tpu_torch.ops.interaction_packed import (pack_markers,
+from ibamr_tpu_torch.ops.delta import is_ib4
+from ibamr_tpu_torch.ops.interaction_packed import (PackedInteraction,
+                                                    pack_markers,
                                                     refresh_packed)
 
 # kernel launches since the last reset_launch_counts(), by kernel name
@@ -383,7 +388,15 @@ def tile_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
     return out
 
 
-# -- the engine -------------------------------------------------------------------
+# -- the engines ------------------------------------------------------------------
+
+def _require_ib4(engine: str, kernel) -> None:
+    if not is_ib4(kernel):
+        raise NotImplementedError(
+            f"{engine}: its CUDA kernels evaluate IB_4 only; the delta "
+            f"{kernel!r} is not ported to them yet (the scatter and packed "
+            "engines take it)")
+
 
 class _KernelEngine:
     """Spread and interp of a MAC velocity through one pair of kernels:
@@ -445,6 +458,7 @@ class PackedKernelInteraction(_KernelEngine):
                  overflow_cap: Optional[int] = None, device="cuda"):
         if grid.dim != 3:
             raise ValueError("PackedKernelInteraction is 3D-only")
+        _require_ib4("PackedKernelInteraction", kernel)
         resolve_device(device)   # raises for a GPU request without one
         self.grid = grid
         self.kernel = kernel
@@ -487,6 +501,7 @@ class TileKernelInteraction(_KernelEngine):
                  device="cuda"):
         if grid.dim != 3:
             raise ValueError("TileKernelInteraction is 3D-only")
+        _require_ib4("TileKernelInteraction", kernel)
         resolve_device(device)   # raises for a GPU request without one
         self.grid = grid
         self.kernel = kernel
@@ -504,3 +519,55 @@ class TileKernelInteraction(_KernelEngine):
     def _interp_slots(self, offs, b, Xb, f):
         return tile_interp(self.geom, self.grid, offs, Xb, f.contiguous(),
                            b.counts)
+
+
+class HybridKernelInteraction:
+    """The ``hybrid_bf16`` (alias ``hybrid_packed_bf16``) and
+    ``hybrid_packed`` engines: the ``packed_spread`` kernel for the spread
+    and the ``packed`` engine's interp in torch ops, over one shared
+    ``PackedBuckets`` context that the ``packed`` twin packs and refreshes.
+    ``compute_dtype=torch.bfloat16`` rounds the interp contraction's
+    operands to bf16 (f32 sum); the spread stays f32. 3 spread launches
+    per transfer of a MAC velocity, no interp kernel; overflow markers go
+    through the exact scatter fallback in both directions."""
+
+    def __init__(self, grid: StaggeredGrid, kernel="IB_4", tile: int = 8,
+                 chunk: int = 128, nchunks: int = 1024,
+                 overflow_cap: Optional[int] = None, compute_dtype=None,
+                 device="cuda"):
+        self._spread = PackedKernelInteraction(
+            grid, kernel=kernel, tile=tile, chunk=chunk, nchunks=nchunks,
+            overflow_cap=overflow_cap, device=device)
+        self._packed = PackedInteraction(
+            grid, kernel=kernel, tile=tile, chunk=chunk, nchunks=nchunks,
+            overflow_cap=overflow_cap, compute_dtype=compute_dtype,
+            device=device)
+        self.grid = grid
+        self.kernel = kernel
+        self.geom = self._packed.geom
+        self.nchunks = int(nchunks)
+        self.overflow_cap = overflow_cap
+        self.compute_dtype = compute_dtype
+
+    def buckets(self, X: torch.Tensor,
+                weights: Optional[torch.Tensor] = None):
+        return self._packed.buckets(X, weights)
+
+    def refresh(self, b, X: torch.Tensor,
+                weights: Optional[torch.Tensor] = None):
+        """One slot-preserving refresh of the shared context serves both
+        directions; returns ``(buckets, hit)``."""
+        return self._packed.refresh(b, X, weights)
+
+    def spread_vel(self, F: torch.Tensor, X: torch.Tensor,
+                   weights: Optional[torch.Tensor] = None, b=None) -> tuple:
+        if b is None:
+            b = self.buckets(X, weights)
+        return self._spread.spread_vel(F, X, weights=weights, b=b)
+
+    def interpolate_vel(self, u, X: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None,
+                        b=None) -> torch.Tensor:
+        if b is None:
+            b = self.buckets(X, weights)
+        return self._packed.interpolate_vel(u, X, weights=weights, b=b)

@@ -4,8 +4,9 @@ oracle (port of ``ibamr_tpu/ops/interaction.py``):
   spread:      f(x_g) += sum_m F_m prod_d phi((x_g - X_m)/h) / h^dim
   interpolate: U_m     = sum_g u(x_g) prod_d phi((x_g - X_m)/h)
 
-Markers are an ``(N, dim)`` tensor; the ``s^dim`` stencil weights of each
-marker are tensor products of per-axis weights, and the grid exchange is
+Markers are an ``(N, dim)`` tensor; the ``prod_d s_d`` stencil weights of
+each marker are tensor products of per-axis weights (a composite B-spline
+takes another support along the face-normal axis), and the grid exchange is
 one flattened gather (interp) or one accumulating scatter (spread).
 Spread and interp use the same weights, so they are exact adjoints.
 
@@ -25,7 +26,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ibamr_tpu_torch.grid import StaggeredGrid
-from ibamr_tpu_torch.ops.delta import get_kernel
+from ibamr_tpu_torch.ops.delta import get_kernel_axes
 
 Vel = Tuple[torch.Tensor, ...]
 
@@ -40,27 +41,49 @@ def _centering_offsets(grid: StaggeredGrid, centering) -> Tuple[float, ...]:
     return tuple(centering)
 
 
+def _axis_weights_indices(xi: torch.Tensor, n: int, support: int, phi):
+    """Per-axis stencil indices (wrapped periodically) and delta weights of
+    markers at grid-unit coordinate ``xi`` (N,) -> ``j, w`` (N, support)."""
+    j = (torch.floor(xi - 0.5 * support).to(torch.int64) + 1)[:, None] \
+        + torch.arange(support, dtype=torch.int64, device=xi.device)[None, :]
+    w = phi(xi[:, None] - j.to(xi.dtype))
+    return torch.remainder(j, n), w
+
+
 def _stencil(grid: StaggeredGrid, X: torch.Tensor, centering, kernel):
-    """Flattened linear grid indices (N, s^dim) int64 and tensor-product
-    weights (N, s^dim)."""
-    support, phi = get_kernel(kernel)
+    """Flattened linear grid indices (N, prod(s_d)) int64 and tensor-product
+    weights. Kernels may be anisotropic (composite B-splines pick another
+    order along the face-normal axis, ``delta.get_kernel_axes``)."""
+    specs = get_kernel_axes(kernel, centering, grid.dim)
     offsets = _centering_offsets(grid, centering)
-    N = X.shape[0]
-    offs = torch.arange(support, dtype=torch.int64, device=X.device)
-    lin = w = None
+    idxs, ws = [], []
     for d in range(grid.dim):
+        support_d, phi_d = specs[d]
         xi = (X[:, d] - grid.x_lo[d]) / grid.dx[d] - offsets[d]
-        j = (torch.floor(xi - 0.5 * support).to(torch.int64) + 1)[:, None] \
-            + offs[None, :]
-        wd = phi(xi[:, None] - j.to(xi.dtype))
-        jd = torch.remainder(j, grid.n[d])
-        if lin is None:
-            lin, w = jd, wd
-        else:
-            shape = (N,) + (1,) * (lin.ndim - 1) + (support,)
-            lin = lin[..., None] * grid.n[d] + jd.reshape(shape)
-            w = w[..., None] * wd.reshape(shape)
-    return lin.reshape(N, -1), w.reshape(N, -1)
+        idx, w = _axis_weights_indices(xi, grid.n[d], support_d, phi_d)
+        idxs.append(idx)
+        ws.append(w)
+    N = X.shape[0]
+    return (_combine_linear(idxs, specs, grid, N),
+            _combine_tensor(ws, specs, N))
+
+
+def _combine_linear(idxs, specs, grid: StaggeredGrid, N: int):
+    """Tensor-product linear grid index per stencil point -> (N, S)."""
+    lin = idxs[0]
+    for d in range(1, len(idxs)):
+        lin = lin[..., :, None] * grid.n[d] + idxs[d].reshape(
+            (N,) + (1,) * (lin.dim() - 1) + (specs[d][0],))
+    return lin.reshape(N, -1)
+
+
+def _combine_tensor(factors, specs, N: int):
+    """Tensor-product combine of per-axis (N, s_d) factors -> (N, S)."""
+    t = factors[0]
+    for d in range(1, len(factors)):
+        t = t[..., :, None] * factors[d].reshape(
+            (N,) + (1,) * (t.dim() - 1) + (specs[d][0],))
+    return t.reshape(N, -1)
 
 
 @contextlib.contextmanager

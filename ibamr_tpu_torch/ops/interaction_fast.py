@@ -220,12 +220,14 @@ def _phi_safe(phi, support):
 
 
 def tile_weights(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                 tid: torch.Tensor, Xb: torch.Tensor):
+                 tid: torch.Tensor, Xb: torch.Tensor, kernel="IB_4"):
     """The weight preamble of the kernels for every chunk (or tile row)
-    ``q`` of tile ``tid[q]``: per-axis IB_4 weights ``wx (Q, W0, c)``,
+    ``q`` of tile ``tid[q]``: per-axis weights ``wx (Q, W0, c)``,
     ``wy (Q, W1, c)``, ``wz (Q, nz, c)`` of its markers over the tile's
-    footprint, wrapped periodically by rounding half to even."""
-    support, phi0 = get_kernel("IB_4")
+    footprint, wrapped periodically by rounding half to even. The CUDA
+    kernels evaluate IB_4, the default; the ``packed`` engine passes its
+    own (isotropic) kernel."""
+    support, phi0 = get_kernel(kernel)
     phi = _phi_safe(phi0, support)
     dtype, dev = Xb.dtype, Xb.device
     t = tid.to(torch.int64)

@@ -181,14 +181,15 @@ def refresh_packed(geom: BucketGeometry, grid: StaggeredGrid,
 # -- the packed engine ---------------------------------------------------------
 
 def _chunk_weights(geom: BucketGeometry, grid: StaggeredGrid,
-                   b: PackedBuckets, centering):
+                   b: PackedBuckets, centering, kernel):
     """Each chunk's weights over its tile's footprint: the blocked axes
     combined, ``A (Q, P, c)`` with p = a * W1 + b, and the last axis
     ``Wz (Q, nz, c)``."""
     if grid.dim != 3:
         raise NotImplementedError("the packed engine is ported for 3D only")
     offs = _centering_offsets(grid, centering)
-    wx, wy, wz = tile_weights(geom, grid, offs, b.tile_of_chunk, b.Xb)
+    wx, wy, wz = tile_weights(geom, grid, offs, b.tile_of_chunk, b.Xb,
+                              kernel)
     Q, _, c = wx.shape
     return (wx[:, :, None, :] * wy[:, None, :, :]).reshape(Q, -1, c), wz
 
@@ -202,7 +203,7 @@ def spread_packed(geom: BucketGeometry, grid: StaggeredGrid,
     bf16 (f32 sum). The reference's ``_spread_raw``: its custom VJP is
     not ported."""
     inv_vol = 1.0 / math.prod(grid.dx)
-    A, Wz = _chunk_weights(geom, grid, b, centering)
+    A, Wz = _chunk_weights(geom, grid, b, centering, kernel)
     A = A * (bucketed_channel(b, F) * b.wb * inv_vol)[:, None, :]
     Tq = contract_compressed("qpm,qzm->qpz", A, Wz, compute_dtype)
     # tile_of_chunk is nondecreasing: the chunks of a tile are one
@@ -220,7 +221,7 @@ def interpolate_packed(geom: BucketGeometry, grid: StaggeredGrid,
                        compute_dtype=None) -> torch.Tensor:
     """Interpolate the grid component ``f`` at the markers -> (N,), the
     adjoint of :func:`spread_packed` (the reference's ``_interp_raw``)."""
-    A, Wz = _chunk_weights(geom, grid, b, centering)
+    A, Wz = _chunk_weights(geom, grid, b, centering, kernel)
     Tq = _extract_tiles(geom, grid, f)[b.tile_of_chunk.to(torch.int64)]
     D = contract_compressed("qpz,qzm->qpm", Tq, Wz, compute_dtype)
     Ub = torch.sum(A * D, dim=1) * b.wb                   # (Q, c)

@@ -93,7 +93,7 @@ def test_build_from_input_db_matches_reference():
 
 def test_input_db_engine_knob_errors():
     for knob, err in (('"warp_drive"', ValueError),
-                      ('"hybrid_bf16"', NotImplementedError)):
+                      ('"mxu"', NotImplementedError)):
         db = t_parse(SHELL_INPUT.replace('"pallas"', knob))
         with pytest.raises(err, match="warp_drive|not ported"):
             tbuild(input_db=db, device="cpu")

@@ -506,12 +506,12 @@ def test_auto_build_follows_env_and_database(tmp_path, monkeypatch):
     integ, _ = tbuild(use_fast_interaction="pallas", **shell)
     assert integ.ib.engine_name == "pallas"
     # engines still unported raise, from the override or from a database
-    for name in ("hybrid_bf16", "mxu", "packed3"):
+    for name in ("mxu_bf16", "mxu", "packed3"):
         monkeypatch.setenv(tres.ENV_ENGINE, name)
         with pytest.raises(NotImplementedError, match="not ported"):
             tbuild(**shell)
     monkeypatch.delenv(tres.ENV_ENGINE)
-    env = _db(tmp_path, [{"engine": "hybrid_packed",
+    env = _db(tmp_path, [{"engine": "packed3_bf16",
                           "provenance": {"platform": "cpu"}}])
     monkeypatch.setenv(tres.ENV_TUNING_DB, env[tres.ENV_TUNING_DB])
     with pytest.raises(NotImplementedError, match="not ported"):

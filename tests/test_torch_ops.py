@@ -57,8 +57,14 @@ def test_ib4_weights():
 
 
 def test_other_delta_kernels_not_ported():
-    with pytest.raises(NotImplementedError):
-        tdelta.get_kernel("IB_6")
+    # every delta runs through the scatter oracle; the CUDA kernels, and so
+    # the engines that launch them, evaluate IB_4 only
+    from ibamr_tpu_torch.ops.cuda_interaction import PackedKernelInteraction
+
+    assert tdelta.get_kernel("IB_6")[0] == 6
+    with pytest.raises(NotImplementedError, match="IB_4 only"):
+        PackedKernelInteraction(tgrid.StaggeredGrid(n=N, **BOX),
+                                kernel="IB_6", device="cpu")
 
 
 @pytest.mark.parametrize("op", ["divergence", "gradient", "laplacian",

@@ -76,7 +76,7 @@ def test_forward_euler_scatter_step_matches_reference():
 
 def test_flagship_options_not_ported_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        tbuild(use_fast_interaction="hybrid_bf16", device="cpu", **SHELL)
+        tbuild(use_fast_interaction="mxu", device="cpu", **SHELL)
     with pytest.raises(NotImplementedError, match="spectral_dtype"):
         tbuild(spectral_dtype="bf16", device="cpu", **SHELL)
     with pytest.raises(NotImplementedError):
