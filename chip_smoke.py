@@ -48,6 +48,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the step-200 checkpoint bitwise equal to the straight run, the first
    20 steps on the GPU against the CPU, and the steps/s of the restarted
    (warm) leg.
+9. walls   -- the lid-driven cavity driver, ``ibamr_tpu_torch.examples.
+   navier_stokes_cavity2d.run``, on the committed ``examples/
+   navier_stokes/cavity2d/input2d`` as it is (64^2, PPM, no-slip walls
+   and a moving lid, 6000 steps to t = 30, f32; the 2D path runs no hand
+   kernel): the final centerline against Ghia et al. at the bounds of
+   ``tests/test_ins_ppm_walls.py``, the divergence, the first 20 steps on
+   the GPU against the CPU, and the warm steps/s.
+10. open   -- the channel driver, ``navier_stokes_channel2d.run``, on the
+   committed ``examples/navier_stokes/channel2d/input2d`` as it is (32x16,
+   150 steps of the FGMRES + multigrid saddle solve, f32): the developed
+   profile's error against Poiseuille, a constant outflow flux, the
+   divergence, and the first 10 steps on the GPU against the CPU (FGMRES
+   restarts per step equal); then the cylinder driver,
+   ``ib_explicit_cylinder2d.run``, on ``examples/IB/explicit/cylinder2d/
+   input2d`` (128x64, 64 target markers, f32) with ``num_steps`` cut to
+   ``CYL_STEPS``: finite drag and lift, the markers near their anchors,
+   the viz files, the first 10 steps on the GPU against the CPU, and the
+   steps/s of each driver; and ``CYL_F64_STEPS`` of the cylinder at f64,
+   past the step where the f32 example diverges in the reference and in
+   the port. The solves (and the cavity's steps) replay as
+   CUDA graphs; one leg of each checks them bitwise against eager.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -96,6 +117,32 @@ EX0_INPUT = "examples/IB/explicit/ex0/input2d"
 EX0_RESTART = 200        # ex0: the checkpoint step restarted from
 EX0_PARITY_STEPS = 20    # ex0: steps of the GPU-vs-CPU check
 EX0_AREA_DRIFT = 0.02    # |area - area0| / area0: tests/test_ib_membrane.py
+CAVITY_INPUT = "examples/navier_stokes/cavity2d/input2d"
+# Ghia, Ghia & Shin (1982), Re = 100: u through the vertical centerline,
+# and the bounds of tests/test_ins_ppm_walls.py (never widened)
+GHIA_Y = np.array([0.0547, 0.0625, 0.0703, 0.1016, 0.1719, 0.2813, 0.4531,
+                   0.5000, 0.6172, 0.7344, 0.8516, 0.9531, 0.9609, 0.9688,
+                   0.9766])
+GHIA_U = np.array([-0.03717, -0.04192, -0.04775, -0.06434, -0.10150,
+                   -0.15662, -0.21090, -0.20581, -0.13641, 0.00332, 0.23151,
+                   0.68717, 0.73722, 0.78871, 0.84123])
+GHIA_PROFILE_TOL, GHIA_UMIN_TOL = 1.2e-2, 4e-3
+CAVITY_DIV_BOUND = 1e-5   # the f32 run reaches max|div u| = 3.815e-06 on the CPU
+WALLS_PARITY_STEPS = 20
+WARM_STEPS = 200
+CHANNEL_INPUT = "examples/navier_stokes/channel2d/input2d"
+# the reference's channel driver prints "developed-profile error vs
+# Poiseuille: 2.17e-02" after its 150 steps (JAX's 32-bit mode on the CPU:
+# 0.021731913089752197, pinned by tests/test_torch_walls_drivers.py)
+CHANNEL_PROFILE_ERR = 0.021731913089752197
+CYL_INPUT = "examples/IB/explicit/cylinder2d/input2d"
+# of the input's 2000: the reference's own example diverges after step
+# ~110 (JAX 32-bit on the CPU; ROADMAP C), and the port with it
+CYL_STEPS = 100
+CYL_F64_STEPS = 200       # the f64 leg: past where the f32 example diverges
+OPEN_PARITY_STEPS = 10
+OPEN_DIV_BOUND = 1e-4     # f32 solver floor (tol 1e-5 relative)
+TOL_OPEN_FIELDS = 1e-4    # GPU vs CPU after 10 f32 steps, rel. to max|.|
 DEVICE = "cuda"
 # the TPU kernel each CUDA kernel replaces, and its source
 KERNELS = {
@@ -733,6 +780,336 @@ def phase_ex0(breakdown: bool = False) -> dict:
     return launches
 
 
+def _in_tmp(fn):
+    """``fn()`` in a temporary working directory (the drivers' output
+    paths are relative); returns ``(fn(), {file name: text})`` of the
+    JSONL logs and the names of everything written."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            files = {}
+            for root, _, names in os.walk("."):
+                for name in names:
+                    path = os.path.join(root, name)
+                    files[os.path.relpath(path)] = (
+                        open(path).read() if name.endswith(".jsonl")
+                        else None)
+        finally:
+            os.chdir(cwd)
+    return out, files
+
+
+def _records(files, name):
+    return [json.loads(ln) for ln in files[name].splitlines()]
+
+
+def _rel(a, b) -> float:
+    """max|a - b| / max|b| with ``a`` on the card and ``b`` on the CPU."""
+    return float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def phase_walls(breakdown: bool = False) -> None:
+    """The cavity driver on the committed input as it is, on the card, in
+    a temporary working directory; the Ghia bounds, the divergence, the
+    first steps against the CPU and the warm steps/s."""
+    from ibamr_tpu_torch.examples import navier_stokes_cavity2d as cav
+    from ibamr_tpu_torch.integrators.ins import advance
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+
+    db = parse_input_file(os.path.join(ROOT, CAVITY_INPUT))
+    idb = db.get_database("INSStaggeredHierarchyIntegrator")
+    steps, dt = idb.get_int("num_steps"), idb.get_float("dt")
+    timer = TimerManager.instance()
+    timer.reset()
+    state, files = _in_tmp(lambda: cav.run(db, device=DEVICE))
+    run_s = timer.get("advance").total
+    records = _records(files, db.get_database("Main").get_string(
+        "log_jsonl"))
+    integ, _ = cav.build(db, DEVICE)
+    n = integ.grid.n
+    # the graphed steps equal the eager loop of integ.step bitwise (and the
+    # graph is captured before the warm timing)
+    a = state
+    for _ in range(5):
+        a = integ.step(a, dt)
+    b = advance(integ, state, dt, 5)
+    graphed_bitwise = all(torch.equal(x, y)
+                          for x, y in zip(a.u + (a.p,), b.u + (b.p,)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    advance(integ, state, dt, WARM_STEPS)
+    torch.cuda.synchronize()
+    warm_ms = 1e3 * (time.perf_counter() - t0) / WARM_STEPS
+    uc = np.asarray(records[-1]["centerline_u"])
+    yc = (np.arange(n[1]) + 0.5) / n[1]
+    ghia = float(np.max(np.abs(np.interp(GHIA_Y, yc, uc) - GHIA_U)))
+    umin = float(uc.min())
+    divs = [r["max_div"] for r in records if "max_div" in r]
+    finite = all(bool(torch.isfinite(c).all()) for c in (*state.u, state.p))
+    # the first steps on the card against the CPU, from the same build
+    gi, gs = cav.build(db, DEVICE)
+    ci_, cs = cav.build(db, "cpu")
+    gs = advance(gi, gs, dt, WALLS_PARITY_STEPS)
+    cs = advance(ci_, cs, dt, WALLS_PARITY_STEPS)
+    eu = max(_rel(a, b) for a, b in zip(gs.u, cs.u))
+    ep = _rel(gs.p, cs.p)
+    log(f"[walls] {CAVITY_INPUT} on {torch.cuda.get_device_name(0)}: grid "
+        f"{n}, PPM, lid U=1, {steps} steps of dt={dt:g} to t="
+        f"{float(state.t):.4f}, f32: {steps / run_s:.3f} steps/s over the "
+        f"run (metrics every {records[0]['step']} steps included), warm "
+        f"{1e3 / warm_ms:.3f} steps/s, {warm_ms:.3f} ms/step ({WARM_STEPS} "
+        f"steps from the end state, host clock and a synchronize; the step "
+        f"replayed as a CUDA graph, 5 steps bitwise equal to eager: "
+        f"{graphed_bitwise})")
+    log(f"[walls] Ghia Re=100 centerline max|u - u_Ghia|={ghia:.4e} (bound "
+        f"{GHIA_PROFILE_TOL}); u_min={umin:.5f}, |u_min + 0.21090|="
+        f"{abs(umin + 0.21090):.4e} (bound {GHIA_UMIN_TOL}); max|div u| "
+        f"per record {['%.3e' % v for v in divs]} (bound "
+        f"{CAVITY_DIV_BOUND:g}); finite={finite}")
+    log(f"[walls] first {WALLS_PARITY_STEPS} steps GPU vs CPU: max_d "
+        f"|u_gpu-u_cpu|/max|u|={eu:.3e}, |p_gpu-p_cpu|/max|p|={ep:.3e} "
+        f"(tol {TOL_PARITY_U:g})")
+    if not (finite and len(records) == steps // records[0]["step"] + 1):
+        raise AssertionError("walls: state not finite or run incomplete")
+    if not (ghia < GHIA_PROFILE_TOL and abs(umin + 0.21090) < GHIA_UMIN_TOL):
+        raise AssertionError("walls: the cavity misses the Ghia bounds")
+    if not max(divs) < CAVITY_DIV_BOUND:
+        raise AssertionError("walls: the velocity is not divergence-free")
+    if not (eu <= TOL_PARITY_U and ep <= TOL_PARITY_U and graphed_bitwise):
+        raise AssertionError("walls: GPU and CPU steps (or graphed and "
+                             "eager ones) disagree")
+    if breakdown:
+        ins = integ
+        u, p = state.u, state.p
+        rhs = tuple(c / dt for c in u)
+        ustar = ins.helmholtz_vel_solve(rhs, integ.grid.dx, 1.0 / dt,
+                                        -0.5 * ins.mu)
+        _, phi = ins.project(ustar, integ.grid.dx)
+        stages = [
+            ("convection", lambda: ins._convective(u, integ.grid.dx)),
+            ("laplacian+grad", lambda: (ins.laplacian_vel(u, integ.grid.dx),
+                                        ins.pressure_gradient(
+                                            p, integ.grid.dx))),
+            ("helmholtz", lambda: ins.helmholtz_vel_solve(
+                rhs, integ.grid.dx, 1.0 / dt, -0.5 * ins.mu)),
+            ("project", lambda: ins.project(ustar, integ.grid.dx)),
+            ("p update", lambda: ins.laplacian_cc(phi, integ.grid.dx)),
+        ]
+        _stage_breakdown("walls", stages,
+                         lambda: advance(integ, state, dt, 3), 3, warm_ms)
+
+
+def _stage_breakdown(label, stages, steps_fn, nsteps, step_ms):
+    """Each stage alone (host clock around a synchronize and the
+    profiler's device busy time), then whole steps: device busy, idle
+    share and the top kernels."""
+    for name, fn in stages:
+        host = _host_ms(fn, 5)
+        dev, kernels, _ = _device_ms(fn, 2)
+        log(f"[breakdown] {label} {name:14s}: host {host:.3f} ms, device "
+            f"busy {dev:.3f} ms in {kernels:.0f} kernels per call")
+    dev, kernels, prof = _device_ms(steps_fn, 1)
+    dev, kernels = dev / nsteps, kernels / nsteps
+    log(f"[breakdown] {label} whole step: device busy {dev:.3f} ms in "
+        f"{kernels:.0f} kernels, of {step_ms:.3f} ms/step (timed phase): "
+        f"idle share {1 - dev / step_ms:.3f}")
+    rows = sorted(prof.key_averages(), key=_self_device_us, reverse=True)
+    for e in rows[:8]:
+        us = _self_device_us(e)
+        if us <= 0:
+            break
+        log(f"[breakdown] {label} kernel {e.key[:70]:70s} calls/step "
+            f"{e.count / nsteps:7.1f} device {us / nsteps / 1e3:.3f} ms/step")
+
+
+def _graphed_solve_bitwise(ins, state) -> bool:
+    """The saddle solve at ``state``, its operator and preconditioner
+    replayed as CUDA graphs, against FGMRES on the eager flat operators:
+    the same restarts and bitwise the same fields."""
+    from ibamr_tpu_torch.solvers.krylov import fgmres_flat, flat_operators
+
+    s = ins.solver
+    rhs = s.make_rhs(f_u=tuple(ins.alpha * c for c in state.u),
+                     bdry=ins.bdry)
+    x0 = (state.u, state.p)
+    a = s.solve(rhs, x0=x0)
+    b = fgmres_flat(*flat_operators(s.operator, s.precondition, rhs), rhs,
+                    x0=x0, m=s.m, tol=s.tol, restarts=s.restarts)
+    u, p = b.x
+    if s.p_nullspace:
+        p = p - torch.mean(p)
+    return a.iters == b.iters and all(
+        torch.equal(x, y) for x, y in zip(a.u + (a.p,), u + (p,)))
+
+
+def _restarts(integ, state, steps, step):
+    """``steps`` steps by ``step(state)``; returns the state and the
+    FGMRES restarts of each step's saddle solve."""
+    its = []
+    for _ in range(steps):
+        state = step(state)
+        its.append(integ.solver.last_solve_stats["iters"])
+    return state, its
+
+
+def phase_open(breakdown: bool = False) -> None:
+    """The channel driver on the committed input as it is, then the
+    cylinder driver cut to ``CYL_STEPS``, each on the card in a temporary
+    working directory, with their first steps against the CPU."""
+    from ibamr_tpu_torch.examples import ib_explicit_cylinder2d as cyl
+    from ibamr_tpu_torch.examples import navier_stokes_channel2d as chan
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+
+    timer = TimerManager.instance()
+    db = parse_input_file(os.path.join(ROOT, CHANNEL_INPUT))
+    steps = db.get_database("INSOpenIntegrator").get_int("num_steps")
+    timer.reset()
+    state, files = _in_tmp(lambda: chan.run(db, device=DEVICE))
+    run_s = timer.get("step").total
+    records = _records(files, db.get_database("Main").get_string(
+        "log_jsonl"))
+    grid, _, _ = chan.build(db, "cpu")
+    flux_in = float(chan.poiseuille(db).sum() * grid.dx[1])
+    flux_err = max(abs(r["outflow_flux"] - flux_in) / flux_in
+                   for r in records)
+    divs = [r["max_div"] for r in records]
+    err = chan.profile_error(db, state)
+    vti = sorted(f for f in files if f.endswith(".vti"))
+    _, gi, gs = chan.build(db, DEVICE)
+    graphed_bitwise = _graphed_solve_bitwise(gi, state)
+    _, ci_, cs = chan.build(db, "cpu")
+    gs, g_its = _restarts(gi, gs, OPEN_PARITY_STEPS, gi.step)
+    cs, c_its = _restarts(ci_, cs, OPEN_PARITY_STEPS, ci_.step)
+    eu = max(_rel(a, b) for a, b in zip(gs.u, cs.u))
+    ep = _rel(gs.p, cs.p)
+    log(f"[open] {CHANNEL_INPUT} on {torch.cuda.get_device_name(0)}: grid "
+        f"{grid.n}, {steps} steps, f32: {steps / run_s:.3f} steps/s, "
+        f"{1e3 * run_s / steps:.3f} ms/step (host clock around each step; "
+        f"one host read per FGMRES restart)")
+    log(f"[open] developed-profile error vs Poiseuille: {err:.2e} ({err!r};"
+        f" the reference driver's {CHANNEL_PROFILE_ERR!r}); outflow "
+        f"flux {[r['outflow_flux'] for r in records]} vs inflow {flux_in:.8f}"
+        f" (max rel. error {flux_err:.3e}); max|div u| {divs} (bound "
+        f"{OPEN_DIV_BOUND:g}); viz {len(vti)} files; the saddle solve at "
+        f"the end state with its operator and preconditioner replayed as "
+        f"CUDA graphs bitwise equal to eager FGMRES: {graphed_bitwise}")
+    log(f"[open] first {OPEN_PARITY_STEPS} steps GPU vs CPU: FGMRES restarts "
+        f"per step GPU {g_its} CPU {c_its}; max_d |u_gpu-u_cpu|/max|u|="
+        f"{eu:.3e}, |p_gpu-p_cpu|/max|p|={ep:.3e} (tol {TOL_OPEN_FIELDS:g})")
+    if not (abs(err - CHANNEL_PROFILE_ERR) <= 1e-3 * CHANNEL_PROFILE_ERR
+            and flux_err < 1e-5
+            and max(divs) < OPEN_DIV_BOUND and len(vti) == len(records)):
+        raise AssertionError("open: channel profile, flux, divergence or "
+                             "viz files off")
+    if g_its != c_its or not (eu <= TOL_OPEN_FIELDS and ep <= TOL_OPEN_FIELDS
+                              and graphed_bitwise):
+        raise AssertionError("open: channel GPU and CPU steps disagree")
+    ch_ms = 1e3 * run_s / steps
+    if breakdown:
+        _open_breakdown("channel", gi, gs, ch_ms)
+
+    db = parse_input_file(os.path.join(ROOT, CYL_INPUT))
+    db.get_database("INSOpenIntegrator").put("num_steps", CYL_STEPS)
+    D = db.get_database("Cylinder").get_float("diameter")
+    timer.reset()
+    st, files = _in_tmp(lambda: cyl.run(db, device=DEVICE))
+    run_s = timer.get("advance").total
+    records = _records(files, db.get_database("Main").get_string(
+        "log_jsonl"))
+    integ, s0 = cyl.build(db, DEVICE)
+    drift = float((st.X - s0.X).norm(dim=1).max())
+    finite = all(math.isfinite(r[k]) for r in records
+                 for k in ("drag", "lift", "cd"))
+    viz = sorted(os.path.basename(f) for f in files
+                 if f.endswith((".vti", ".vtp", ".pvd")))
+    every = db.get_database("Main").get_int("viz_dump_interval")
+    dumps = sorted({min(k, CYL_STEPS)
+                    for k in range(every, CYL_STEPS + every, every)})
+    want = sorted([f"eul_{k:06d}.vti" for k in dumps]
+                  + [f"lag_{k:06d}.vtp" for k in dumps]
+                  + ["eulerian.pvd", "lagrangian.pvd"])
+    gi, gs = cyl.build(db, DEVICE)
+    ci_, cs = cyl.build(db, "cpu")
+    gs, g_its = _restarts(gi.ins, gs, OPEN_PARITY_STEPS, gi.step)
+    cs, c_its = _restarts(ci_.ins, cs, OPEN_PARITY_STEPS, ci_.step)
+    ex = float((gs.X.cpu() - cs.X).abs().max() / cs.X.abs().max())
+    eu = max(_rel(a, b) for a, b in zip(gs.fluid.u, cs.fluid.u))
+    log(f"[open] {CYL_INPUT} (num_steps cut to {CYL_STEPS}) on "
+        f"{torch.cuda.get_device_name(0)}: grid {integ.grid.n}, "
+        f"{s0.X.shape[0]} markers, f32: {CYL_STEPS / run_s:.3f} steps/s, "
+        f"{1e3 * run_s / CYL_STEPS:.3f} ms/step over the run")
+    log(f"[open] cylinder metrics {records}; max|X - X0|={drift:.4e} (bound "
+        f"0.2 D = {0.2 * D:g}); viz {viz}")
+    log(f"[open] cylinder first {OPEN_PARITY_STEPS} steps GPU vs CPU: FGMRES "
+        f"restarts GPU {g_its} CPU {c_its}; max|X_gpu-X_cpu|/max|X|={ex:.3e}"
+        f" (tol {TOL_PARITY_X:g}), max_d |u_gpu-u_cpu|/max|u|={eu:.3e} "
+        f"(tol {TOL_OPEN_FIELDS:g})")
+    # the same build at f64 holds its markers past the f32 divergence
+    from ibamr_tpu_torch.integrators.ib_open import advance_ib_open
+
+    i64, s64 = cyl.build(db, DEVICE, dtype=torch.float64)
+    X64 = s64.X
+    t0 = time.perf_counter()
+    s64 = advance_ib_open(i64, s64, CYL_F64_STEPS)
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    drift64 = float((s64.X - X64).norm(dim=1).max())
+    F64 = s64.F_net.cpu()
+    log(f"[open] cylinder at f64, {CYL_F64_STEPS} steps: drag "
+        f"{-float(F64[0]):.6f}, lift {-float(F64[1]):+.3e}, max|X - X0|="
+        f"{drift64:.4e}, {CYL_F64_STEPS / f64_s:.3f} steps/s")
+    if not (finite and drift < 0.2 * D and viz == want
+            and bool(torch.isfinite(F64).all()) and drift64 < 0.2 * D):
+        raise AssertionError("open: cylinder forces, markers or viz off")
+    if not (ex <= TOL_PARITY_X and eu <= TOL_OPEN_FIELDS):
+        raise AssertionError("open: cylinder GPU and CPU steps disagree")
+    if breakdown:
+        _open_breakdown("cylinder", gi, gs, 1e3 * run_s / CYL_STEPS)
+
+
+def _open_breakdown(label, integ, state, step_ms):
+    """Stages of one open-boundary step (IB transfers, convection, the
+    right-hand side, one saddle solve, and inside it the operator, the
+    preconditioner and its multigrid V-cycle), then whole steps."""
+    ins = getattr(integ, "ins", integ)
+    fluid = getattr(state, "fluid", state)
+    s = ins.solver
+    advect = (ins._advect_stabilized
+              if ins.convective_op_type == "stabilized_ppm" else ins._advect)
+    rhs = s.make_rhs(f_u=tuple(ins.alpha * c for c in fluid.u),
+                     bdry=ins.bdry)
+    x = (fluid.u, fluid.p)
+    stages = [("advection", lambda: advect(fluid.u)),
+              ("make_rhs", lambda: s.make_rhs(f_u=fluid.u, bdry=ins.bdry)),
+              ("saddle solve", lambda: s.solve(rhs, x0=x)),
+              ("operator", lambda: s.operator(x)),
+              # one by one; the solve replays these kernels as a graph
+              ("precondition", lambda: s.precondition(x)),
+              ("vcycle", lambda: s.p_mg.vcycle(fluid.p, fluid.p))]
+    if integ is not ins:
+        grid, ib = integ.grid, integ.ib
+        u_low = integ._to_lower(fluid.u)
+        F = ib.compute_force(state.X, state.U, fluid.t)
+        stages = [("interp", lambda: ib.interpolate_velocity(
+                      u_low, grid, state.X, state.mask)),
+                  ("spread", lambda: ib.spread_force(F, grid, state.X,
+                                                     state.mask))] + stages
+
+    def steps3():
+        st = state
+        for _ in range(3):
+            st = integ.step(st)
+
+    _stage_breakdown(label, stages, steps3, 3, step_ms)
+    log(f"[breakdown] {label} restarts of the last solve: "
+        f"{s.last_solve_stats}")
+
+
 def _device_ms(fn, reps: int):
     """Device busy time of one call: the profiler's sum of kernel (self
     device) time over ``reps`` calls."""
@@ -1018,12 +1395,13 @@ def phase_breakdown(integ, state, step_ms: float, label: str,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,parity,path,hybrid,driver,auto,ex0",
+                    default="kernels,parity,path,hybrid,driver,auto,ex0,"
+                    "walls,open",
                     help="comma-separated subset of kernels,parity,path,"
-                    "hybrid,driver,auto,ex0 (add 'breakdown' for a profile "
-                    "of the step of each of path, hybrid, driver, the "
-                    "flagship's auto leg and ex0 that runs; hybrid reads "
-                    "the path phase's time)")
+                    "hybrid,driver,auto,ex0,walls,open (add 'breakdown' for "
+                    "a profile of the step of each of path, hybrid, driver, "
+                    "the flagship's auto leg, ex0, walls and open that "
+                    "runs; hybrid reads the path phase's time)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1068,6 +1446,18 @@ def main(argv=None) -> int:
     if "ex0" in phases:
         ran = phase_ex0("breakdown" in phases)
         launches = {k: launches[k] + ran[k] for k in launches}
+    if "walls" in phases or "open" in phases:
+        # the 2D drivers run no hand kernel: count any launch in them
+        from ibamr_tpu_torch.ops import cuda_interaction as ci
+
+        before = dict(ci.LAUNCHES)
+        if "walls" in phases:
+            phase_walls("breakdown" in phases)
+        if "open" in phases:
+            phase_open("breakdown" in phases)
+        if dict(ci.LAUNCHES) != before:
+            raise AssertionError(f"walls/open: unexpected kernel launches "
+                                 f"{dict(ci.LAUNCHES)} (before {before})")
 
     table = [dict(name=k, route="cuda", source=KERNELS[k][0],
                   replaces=KERNELS[k][1], launches=launches[k], **v)

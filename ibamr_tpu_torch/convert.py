@@ -13,7 +13,9 @@ import torch
 
 from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.integrators.ib import IBState
+from ibamr_tpu_torch.integrators.ib_open import IBOpenState
 from ibamr_tpu_torch.integrators.ins import INSState
+from ibamr_tpu_torch.integrators.ins_open import OpenINSState
 from ibamr_tpu_torch.ops import forces
 from ibamr_tpu_torch.ops.interaction_fast import Buckets
 from ibamr_tpu_torch.ops.interaction_packed import PackedBuckets
@@ -26,7 +28,8 @@ def tensor(a, device="cuda", dtype=None) -> torch.Tensor:
 
 
 def ins_state(s, device="cuda") -> INSState:
-    """An ``INSState``'s leaves (u, p, n_prev, t, k)."""
+    """An ``INSState``'s leaves (u, p, n_prev, t, k); the periodic and the
+    walled (``wall_axes``) integrators share the state."""
     return INSState(u=tuple(tensor(c, device) for c in s.u),
                     p=tensor(s.p, device),
                     n_prev=tuple(tensor(c, device) for c in s.n_prev),
@@ -38,6 +41,20 @@ def ib_state(s, device="cuda") -> IBState:
     """An ``IBState``'s leaves (ins, X, U, mask)."""
     return IBState(ins=ins_state(s.ins, device), X=tensor(s.X, device),
                    U=tensor(s.U, device), mask=tensor(s.mask, device))
+
+
+def open_ins_state(s, device="cuda") -> OpenINSState:
+    """An ``OpenINSState``'s leaves (the face-complete u, p, t)."""
+    return OpenINSState(u=tuple(tensor(c, device) for c in s.u),
+                        p=tensor(s.p, device), t=tensor(s.t, device))
+
+
+def ib_open_state(s, device="cuda") -> IBOpenState:
+    """An ``IBOpenState``'s leaves (fluid, X, U, mask, F_net)."""
+    return IBOpenState(fluid=open_ins_state(s.fluid, device),
+                       X=tensor(s.X, device), U=tensor(s.U, device),
+                       mask=tensor(s.mask, device),
+                       F_net=tensor(s.F_net, device))
 
 
 def force_specs(specs, num_markers: int,

@@ -39,18 +39,23 @@ class IBState(NamedTuple):
 
 
 class IBMethod:
-    """Marker-IB structure: force specs, delta kernel and an optional
-    transfer engine (None = the scatter/gather oracle)."""
+    """Marker-IB structure: force specs, delta kernel, an optional custom
+    force ``force_fn(X, U, t)`` that replaces the specs' force, and an
+    optional transfer engine (None = the scatter/gather oracle). The
+    arguments are in the reference's order."""
 
     def __init__(self, specs: force_mod.ForceSpecs, kernel="IB_4",
-                 fast=None):
+                 force_fn=None, fast=None):
         self.specs = specs
         self.kernel = kernel
+        self.force_fn = force_fn
         self.fast = fast
         self.engine_name = None
 
     def compute_force(self, X: torch.Tensor, U: torch.Tensor,
                       t) -> torch.Tensor:
+        if self.force_fn is not None:
+            return self.force_fn(X, U, t)
         return force_mod.compute_lagrangian_force(X, U, self.specs)
 
     def prepare(self, X: torch.Tensor, mask: torch.Tensor):

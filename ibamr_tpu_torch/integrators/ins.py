@@ -1,5 +1,5 @@
-"""Incompressible Navier-Stokes on the periodic staggered grid (port of
-the periodic branch of ``ibamr_tpu/integrators/ins.py``).
+"""Incompressible Navier-Stokes on the staggered grid (port of
+``ibamr_tpu/integrators/ins.py``).
 
 Per step (pressure-increment projection, AB2 convection, CN diffusion):
   1. N* = 3/2 N(u^n) - 1/2 N(u^{n-1})          (forward Euler on step 0)
@@ -9,11 +9,17 @@ Per step (pressure-increment projection, AB2 convection, CN diffusion):
      rfftn/irfftn pair (``solvers/spectral_plan.py``)
   4. p^{n+1/2} = p^{n-1/2} + p_inc
 
-Only the fully periodic path with centered/upwind (or no) convection is
-ported; walls, PPM/CUI convection, divergence sources and the Krylov
-solvers are not ported yet and raise. The initial velocity comes from
-callables evaluated at each component's own face centers, or from raw
-MAC arrays, as in the reference.
+On the fully periodic path steps 3 and 4 are the fused spectral substep
+(``spectral_dtype`` picks its transform precision: None, bf16 operands,
+or the f64 twin plan). With no-slip walls (``wall_axes``, optionally
+moving: ``wall_tangential``) or with a divergence source ``q``, they are
+the separate Helmholtz solve, the exact projection and the pressure
+update, through the fast-diagonalization seams of
+``integrators/ins_walls.py`` or the periodic FFT solves. PPM and CUI
+convection, and any convection with walls, take the ghost-padded
+``convective_rate_bc``. The initial velocity comes from callables
+evaluated at each component's own face centers, or from raw MAC arrays,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -27,8 +33,11 @@ import torch
 from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.grid import StaggeredGrid
 from ibamr_tpu_torch.ops import stencils
-from ibamr_tpu_torch.ops.convection import convective_rate
-from ibamr_tpu_torch.solvers import fft
+from ibamr_tpu_torch.ops.convection import (convective_rate,
+                                            convective_rate_bc)
+from ibamr_tpu_torch.solvers import fft, spectral_plan
+from ibamr_tpu_torch.utils.cuda_graph import Graphed
+from ibamr_tpu_torch.utils.tree import tree_map
 
 Vel = Tuple[torch.Tensor, ...]
 
@@ -43,17 +52,21 @@ class INSState(NamedTuple):
 
 
 class INSStaggeredIntegrator:
-    """Projection-method INS integrator on a periodic uniform MAC grid.
-    ``convective_op_type`` in {"centered", "upwind", "none"}."""
+    """Projection-method INS integrator on a uniform MAC grid.
+    ``convective_op_type`` in {"centered", "upwind", "ppm", "cui", "none"}
+    (case-insensitive). ``wall_axes`` puts homogeneous no-slip walls on
+    both sides of the marked axes; ``wall_tangential[(d, e, side)]`` is
+    component d's tangential velocity on the side (0 = lo, 1 = hi) wall
+    of axis e (a moving lid). ``spectral_dtype`` ("bf16", "f64" or None)
+    is honored by the fully periodic fused path only."""
 
     def __init__(self, grid: StaggeredGrid, rho: float = 1.0,
                  mu: float = 0.01, convective_op_type: str = "centered",
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32,
+                 wall_axes: Optional[Tuple[bool, ...]] = None,
+                 wall_tangential=None, spectral_dtype=None, device="cuda"):
         op = convective_op_type.lower()
-        if op in ("ppm", "cui"):
-            raise NotImplementedError(
-                f"convective_op_type {op!r} is not ported yet")
-        if op not in ("centered", "upwind", "none"):
+        if op not in ("centered", "upwind", "ppm", "cui", "none"):
             raise ValueError(f"unknown convective_op_type {op!r}")
         self.grid = grid
         self.rho = float(rho)
@@ -61,8 +74,60 @@ class INSStaggeredIntegrator:
         self.convective_op_type = op
         self.dtype = dtype
         self.device = resolve_device(device)
-        self._convective = (None if op == "none"
-                            else partial(convective_rate, scheme=op))
+        self._step_graphs: dict = {}
+        self.wall_axes = (tuple(bool(w) for w in wall_axes)
+                          if wall_axes is not None else (False,) * grid.dim)
+        if len(self.wall_axes) != grid.dim:
+            raise ValueError(
+                f"wall_axes has {len(self.wall_axes)} entries for a "
+                f"{grid.dim}D grid")
+        self.spectral_dtype = spectral_plan.canonical_spectral_dtype(
+            spectral_dtype)
+        if self.spectral_dtype is not None and any(self.wall_axes):
+            raise ValueError(
+                "spectral_dtype requires the fully-periodic fused "
+                f"spectral path; wall_axes={self.wall_axes}")
+        self.wall_tangential = dict(wall_tangential or {})
+        for key in self.wall_tangential:
+            ok = (isinstance(key, tuple) and len(key) == 3
+                  and 0 <= key[0] < grid.dim and 0 <= key[1] < grid.dim
+                  and key[0] != key[1] and key[2] in (0, 1)
+                  and self.wall_axes[key[1]])
+            if not ok:
+                raise ValueError(
+                    f"wall_tangential key {key!r} must be (component d, "
+                    f"wall axis e != d, side in {{0, 1}}) with "
+                    f"wall_axes[e] set; wall_axes={self.wall_axes}")
+        # solver seams: fast diagonalization with walls, FFT without
+        self.fused_stokes = None
+        if any(self.wall_axes):
+            from ibamr_tpu_torch.integrators import ins_walls
+
+            ops = ins_walls.WallOps(grid, self.wall_axes,
+                                    tangential=self.wall_tangential,
+                                    device=self.device)
+            self.helmholtz_vel_solve = ops.helmholtz_vel
+            self.project = ops.project
+            self.laplacian_vel = ops.laplacian_vel
+            self.pressure_gradient = ops.pressure_gradient
+            self.laplacian_cc = ops.laplacian_cc
+        else:
+            self.helmholtz_vel_solve = fft.solve_helmholtz_periodic_vel
+            self.project = fft.project_divergence_free
+            self.laplacian_vel = stencils.laplacian_vel
+            self.pressure_gradient = stencils.gradient
+            self.laplacian_cc = stencils.laplacian
+            self.fused_stokes = fft.helmholtz_project_periodic
+        # walls or PPM/CUI take the ghost-padded convection; periodic
+        # centered/upwind keep the roll form
+        if op == "none":
+            self._convective = None
+        elif any(self.wall_axes) or op in ("ppm", "cui"):
+            self._convective = partial(
+                convective_rate_bc, scheme=op, wall_axes=self.wall_axes,
+                wall_tangential=self.wall_tangential)
+        else:
+            self._convective = partial(convective_rate, scheme=op)
 
     def initialize(self, u0=None, u0_arrays: Optional[Vel] = None
                    ) -> INSState:
@@ -94,10 +159,11 @@ class INSStaggeredIntegrator:
                         k=torch.zeros((), dtype=torch.int32,
                                       device=self.device))
 
-    def step(self, state: INSState, dt: float,
-             f: Optional[Vel] = None) -> INSState:
-        """Advance one timestep with an optional MAC body force ``f``
-        held fixed over the step."""
+    def step(self, state: INSState, dt: float, f: Optional[Vel] = None,
+             q: Optional[torch.Tensor] = None) -> INSState:
+        """Advance one timestep with an optional MAC body force ``f`` held
+        fixed over the step and an optional cell-centered divergence
+        source ``q`` (``div u^{n+1} = q``)."""
         g = self.grid
         rho, mu, dx = self.rho, self.mu, g.dx
         u, p = state.u, state.p
@@ -112,8 +178,8 @@ class INSStaggeredIntegrator:
             n_star = tuple(c1 * a + c2 * b
                            for a, b in zip(n_curr, state.n_prev))
 
-        lap_u = stencils.laplacian_vel(u, dx)
-        gp = stencils.gradient(p, dx)
+        lap_u = self.laplacian_vel(u, dx)
+        gp = self.pressure_gradient(p, dx)
         rhs = []
         for d in range(g.dim):
             r = (rho / dt) * u[d] + 0.5 * mu * lap_u[d] \
@@ -121,10 +187,27 @@ class INSStaggeredIntegrator:
             if f is not None:
                 r = r + f[d]
             rhs.append(r)
-        u_new, p_inc = fft.helmholtz_project_periodic(
-            tuple(rhs), dx, alpha=rho / dt, beta=-0.5 * mu,
-            pinc_coeffs=(rho / dt, -0.5 * mu))
-        return INSState(u=u_new, p=p + p_inc, n_prev=n_curr,
+        # the fused path holds only while the seams are the stock
+        # periodic FFT ones
+        use_fused = (
+            self.fused_stokes is not None and q is None
+            and self.helmholtz_vel_solve is fft.solve_helmholtz_periodic_vel
+            and self.project is fft.project_divergence_free)
+        if use_fused:
+            extra = ({"spectral_dtype": self.spectral_dtype}
+                     if self.spectral_dtype is not None else {})
+            u_new, p_inc = self.fused_stokes(
+                tuple(rhs), dx, alpha=rho / dt, beta=-0.5 * mu,
+                pinc_coeffs=(rho / dt, -0.5 * mu), **extra)
+            p_new = p + p_inc
+        else:
+            u_star = self.helmholtz_vel_solve(tuple(rhs), dx,
+                                              alpha=rho / dt, beta=-0.5 * mu)
+            u_new, phi0 = self.project(u_star, dx, q=q)
+            phi = (rho / dt) * phi0
+            p_new = p + phi \
+                - (0.5 * mu * dt / rho) * self.laplacian_cc(phi, dx)
+        return INSState(u=u_new, p=p_new, n_prev=n_curr,
                         t=state.t + dt, k=state.k + 1)
 
     def cfl_dt(self, state: INSState, cfl: float = 0.5) -> float:
@@ -142,3 +225,25 @@ class INSStaggeredIntegrator:
     def max_divergence(self, state: INSState) -> torch.Tensor:
         return torch.max(torch.abs(stencils.divergence(state.u,
                                                        self.grid.dx)))
+
+
+def advance(integrator: INSStaggeredIntegrator, state: INSState, dt: float,
+            num_steps: int, f: Optional[Vel] = None,
+            q: Optional[torch.Tensor] = None) -> INSState:
+    """Advance ``num_steps`` fixed-dt steps (a loop where the reference
+    scans). On the card, with no body force or source, the step is
+    captured once per dt as a CUDA graph and replayed (a walled 2D step is
+    ~650 kernels of ~1 µs; the result is bitwise the eager loop of
+    ``integrator.step``)."""
+    if (state.u[0].device.type != "cuda" or f is not None or q is not None
+            or num_steps < 2):
+        for _ in range(num_steps):
+            state = integrator.step(state, dt, f, q=q)
+        return state
+    graph = integrator._step_graphs.get(float(dt))
+    if graph is None:
+        graph = Graphed(lambda s: integrator.step(s, dt), state)
+        integrator._step_graphs[float(dt)] = graph
+    for _ in range(num_steps):
+        state = graph(state)
+    return tree_map(torch.clone, state)

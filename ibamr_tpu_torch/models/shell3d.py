@@ -227,14 +227,12 @@ def build_shell_example(
         rest_length_factor = sh.get_float("rest_length_factor",
                                           rest_length_factor)
         bend_rigidity = sh.get_float("bend_rigidity", bend_rigidity)
-    if spectral_dtype not in (None, "f32", "float32"):
-        raise NotImplementedError(
-            f"spectral_dtype={spectral_dtype!r} is not ported yet")
 
     grid = StaggeredGrid(n=n, x_lo=x_lo, x_up=x_up)
     ins = INSStaggeredIntegrator(grid, rho=rho, mu=mu,
                                  convective_op_type=convective_op_type,
-                                 dtype=dtype, device=device)
+                                 dtype=dtype, spectral_dtype=spectral_dtype,
+                                 device=device)
     center = tuple(0.5 * (lo + hi) for lo, hi in zip(x_lo, x_up))
     structure = make_spherical_shell(
         n_lat, n_lon, radius, center=center,

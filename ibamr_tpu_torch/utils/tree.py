@@ -7,6 +7,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
+import torch
+
 # one path entry: ("attr", field name) | ("idx", position) | ("key", dict key)
 PathEntry = Tuple[str, Any]
 
@@ -48,3 +50,35 @@ def keystr(path: Tuple[PathEntry, ...]) -> str:
     return "".join(f".{v}" if kind == "attr" else
                    f"[{v}]" if kind == "idx" else f"[{v!r}]"
                    for kind, v in path)
+
+
+def leaves(tree) -> list:
+    """The leaves in the reference's order."""
+    return [leaf for _, leaf in flatten_with_path(tree)]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``jax.tree_util.tree_map``: ``fn`` over the matching leaves of
+    ``tree`` and of each tree of ``rest`` (same structure)."""
+    others = [leaves(r) for r in rest]
+    n = len(leaves(tree))
+    if any(len(o) != n for o in others):
+        raise ValueError("tree_map: trees of different structure")
+    its = [iter(o) for o in others]
+    return map_with_path(lambda _, leaf: fn(leaf, *(next(i) for i in its)),
+                         tree)
+
+
+def ravel(tree):
+    """``jax.flatten_util.ravel_pytree``: the leaves as one flat vector,
+    and the function that rebuilds the tree from such a vector."""
+    ls = leaves(tree)
+    flat = torch.cat([leaf.reshape(-1) for leaf in ls])
+    sizes = [leaf.numel() for leaf in ls]
+
+    def unravel(v):
+        parts = iter(torch.split(v, sizes))
+        return map_with_path(
+            lambda _, leaf: next(parts).reshape(leaf.shape), tree)
+
+    return flat, unravel

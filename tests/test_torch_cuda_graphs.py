@@ -1,0 +1,81 @@
+"""CUDA-graph replay on the card (``utils/cuda_graph.py``): the walled
+INS ``advance`` loop and the Stokes solver's FGMRES operator and
+preconditioner, each replayed as a CUDA graph, give bitwise the results
+of launching their kernels one by one. Needs an NVIDIA GPU and skips
+without one. The file imports neither JAX nor the JAX package:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \
+        tests/test_torch_cuda_graphs.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ibamr_tpu_torch.grid import StaggeredGrid
+from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator, advance
+from ibamr_tpu_torch.solvers.krylov import fgmres_flat, flat_operators
+from ibamr_tpu_torch.solvers.stokes import StaggeredStokesSolver, channel_bc
+from ibamr_tpu_torch.utils.cuda_graph import Graphed
+
+
+def _needs_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs run only there")
+
+
+@pytest.mark.cuda
+def test_graphed_function_replays_on_new_inputs():
+    _needs_gpu()
+    x = torch.arange(6.0, device="cuda")
+    g = Graphed(lambda t: (t[0] * 2.0, t[0].sum()), (x,))
+    a, s = g((x + 1.0,))
+    assert torch.equal(a, (x + 1.0) * 2.0) and float(s) == 21.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ppm", "centered"])
+def test_walled_advance_graphed_equals_eager(op):
+    _needs_gpu()
+    grid = StaggeredGrid(n=(32, 32), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    kw = dict(mu=0.01, convective_op_type=op, wall_axes=(True, True),
+              wall_tangential={(0, 1, 1): 1.0})
+    integ = INSStaggeredIntegrator(grid, **kw)
+
+    def eager(state, steps):
+        for _ in range(steps):
+            state = integ.step(state, 0.005)
+        return state
+
+    a = advance(integ, integ.initialize(), 0.005, 12)
+    b = eager(integ.initialize(), 12)
+    for x, y in zip(a.u + (a.p, a.t, a.k), b.u + (b.p, b.t, b.k)):
+        assert torch.equal(x, y)
+    c = advance(integ, a, 0.005, 3)            # the cached graph again
+    d = eager(b, 3)
+    assert all(torch.equal(x, y) for x, y in zip(c.u, d.u))
+    assert list(integ._step_graphs) == [0.005]
+
+
+@pytest.mark.cuda
+def test_stokes_solve_graphed_equals_eager():
+    _needs_gpu()
+    n = (24, 12)
+    solver = StaggeredStokesSolver(n, (2.0 / 24, 1.0 / 12), channel_bc(2),
+                                   alpha=200.0, mu=0.05, tol=1e-5,
+                                   dtype=torch.float32)
+    y = (np.arange(n[1]) + 0.5) / n[1]
+    prof = torch.tensor(4.0 * y * (1.0 - y), dtype=torch.float32,
+                        device="cuda")[None, :]
+    rhs = solver.make_rhs(bdry={(0, 0, 0): prof, (1, 0, 0): 0.0})
+    for alpha in (None, 150.0):
+        a = solver.solve(rhs, alpha=alpha)
+        b = fgmres_flat(*flat_operators(
+            lambda x: solver.operator(x, alpha=alpha),
+            lambda r: solver.precondition(r, alpha=alpha), rhs), rhs,
+            m=solver.m, tol=solver.tol, restarts=solver.restarts)
+        u, p = b.x
+        assert not solver.p_nullspace and a.iters == b.iters
+        assert all(torch.equal(x, z) for x, z in zip(a.u + (a.p,),
+                                                     u + (p,)))
+    assert len(solver._graphs) == 2

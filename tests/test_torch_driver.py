@@ -97,10 +97,22 @@ def test_input_db_engine_knob_errors():
         db = t_parse(SHELL_INPUT.replace('"pallas"', knob))
         with pytest.raises(err, match="warp_drive|not ported"):
             tbuild(input_db=db, device="cpu")
-    db = t_parse(SHELL_INPUT.replace(
-        'convective_op_type = "upwind"', 'spectral_dtype = "bf16"'))
-    with pytest.raises(NotImplementedError, match="spectral_dtype"):
-        tbuild(input_db=db, device="cpu")
+    # the file's spectral_dtype is taken as the reference takes it (a
+    # typo raises in both)
+    for value, want in (('"bf16"', torch.bfloat16), ('"f64"', torch.float64),
+                        ('"f32"', None)):
+        text = SHELL_INPUT.replace('convective_op_type = "upwind"',
+                                   f"spectral_dtype = {value}")
+        tinteg, _ = tbuild(input_db=t_parse(text), device="cpu")
+        jinteg, _ = jbuild(input_db=j_parse(text))
+        assert tinteg.ins.spectral_dtype is want
+        assert (jinteg.ins.spectral_dtype is None) == (want is None)
+    text = SHELL_INPUT.replace('convective_op_type = "upwind"',
+                               'spectral_dtype = "fp8"')
+    for build, parse in ((tbuild, t_parse), (jbuild, j_parse)):
+        with pytest.raises(ValueError, match="spectral_dtype"):
+            build(input_db=parse(text), **({"device": "cpu"}
+                                           if build is tbuild else {}))
 
 
 @pytest.mark.parametrize("kw,err", [

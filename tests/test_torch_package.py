@@ -84,10 +84,43 @@ def test_gpu_entry_points_raise_without_a_gpu():
     from ibamr_tpu_torch.ops.interaction_packed import PackedInteraction
     from ibamr_tpu_torch.utils.input_db import parse_input_file
 
+    from ibamr_tpu_torch.bc import DomainBC
+    from ibamr_tpu_torch.examples import (ib_explicit_cylinder2d,
+                                          navier_stokes_cavity2d,
+                                          navier_stokes_channel2d)
+    from ibamr_tpu_torch.integrators.ins_open import INSOpenIntegrator
+    from ibamr_tpu_torch.integrators.ins_walls import WallOps
+    from ibamr_tpu_torch.solvers.fastdiag import FastDiagSolver
+    from ibamr_tpu_torch.solvers.multigrid import PoissonMultigrid
+    from ibamr_tpu_torch.solvers.spectral_plan import gaussian_filter_symbol
+    from ibamr_tpu_torch.solvers.stokes import (StaggeredStokesSolver,
+                                                channel_bc)
+
     grid = StaggeredGrid(n=(16,) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
+    g2 = StaggeredGrid(n=(8, 8), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
     db = parse_input_file(str(ROOT / "examples/IB/explicit/ex4/input3d"))
     db.get_database("IBMethod").put("transfer_engine", "pallas")
-    for call in (lambda: resolve_device(),
+    drivers = [(m, parse_input_file(str(ROOT / "examples" / ex / "input2d")))
+               for m, ex in ((navier_stokes_cavity2d,
+                              "navier_stokes/cavity2d"),
+                             (navier_stokes_channel2d,
+                              "navier_stokes/channel2d"),
+                             (ib_explicit_cylinder2d,
+                              "IB/explicit/cylinder2d"))]
+    new_calls = [
+        lambda: INSStaggeredIntegrator(g2, wall_axes=(True, True)),
+        lambda: INSStaggeredIntegrator(g2, convective_op_type="ppm"),
+        lambda: WallOps(g2, (True, False)),
+        lambda: FastDiagSolver(g2, DomainBC.periodic(2), ("cc", "cc")),
+        lambda: PoissonMultigrid((8, 8), DomainBC.periodic(2), (0.1, 0.1)),
+        lambda: StaggeredStokesSolver((8, 8), (0.1, 0.1), channel_bc(2),
+                                      alpha=1.0, mu=0.1),
+        lambda: INSOpenIntegrator((8, 8), (0.1, 0.1), channel_bc(2),
+                                  mu=0.1, dt=0.01),
+        lambda: gaussian_filter_symbol((8, 8), (0.1, 0.1), 0.2),
+    ] + [lambda m=m, d=d: m.build(d) for m, d in drivers] \
+        + [lambda m=m, d=d: m.run(d) for m, d in drivers]
+    for call in new_calls + [lambda: resolve_device(),
                  lambda: build_shell_example(n_cells=16, n_lat=8, n_lon=8),
                  lambda: build_shell_example(
                      n_cells=16, n_lat=8, n_lon=8,
@@ -97,7 +130,7 @@ def test_gpu_entry_points_raise_without_a_gpu():
                  lambda: PackedKernelInteraction(grid),
                  lambda: TileKernelInteraction(grid),
                  lambda: PackedInteraction(grid),
-                 lambda: ib_explicit_ex4.run(db)):
+                 lambda: ib_explicit_ex4.run(db)]:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     with pytest.raises(ValueError, match="unsupported device"):
@@ -118,6 +151,10 @@ def test_converters_default_to_the_gpu():
     z3 = np.zeros((2, 3))
     ins = NS(u=(z3,) * 3, p=z3, n_prev=(z3,) * 3, t=0.0, k=0)
     ib = NS(ins=ins, X=z3, U=z3, mask=np.ones(2))
+    fluid = NS(u=(np.zeros((3, 2)), np.zeros((2, 3))), p=np.zeros((2, 2)),
+               t=0.0)
+    ib_open = NS(fluid=fluid, X=z3, U=z3, mask=np.ones(2),
+                 F_net=np.zeros(3))
     specs = NS(targets=None, beams=None, springs=NS(
         idx0=[0], idx1=[1], stiffness=[1.0], rest_length=[0.5],
         enabled=[1.0]))
@@ -129,6 +166,10 @@ def test_converters_default_to_the_gpu():
     calls = {"tensor": lambda **kw: convert.tensor(z3, **kw),
              "ins_state": lambda **kw: convert.ins_state(ins, **kw),
              "ib_state": lambda **kw: convert.ib_state(ib, **kw),
+             "open_ins_state": lambda **kw: convert.open_ins_state(fluid,
+                                                                   **kw),
+             "ib_open_state": lambda **kw: convert.ib_open_state(ib_open,
+                                                                 **kw),
              "force_specs": lambda **kw: convert.force_specs(specs, 2, **kw),
              "buckets": lambda **kw: convert.buckets(b, **kw),
              "packed_buckets": lambda **kw: convert.packed_buckets(b, **kw)}

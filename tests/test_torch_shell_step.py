@@ -77,10 +77,23 @@ def test_forward_euler_scatter_step_matches_reference():
 def test_flagship_options_not_ported_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
         tbuild(use_fast_interaction="mxu", device="cpu", **SHELL)
-    with pytest.raises(NotImplementedError, match="spectral_dtype"):
-        tbuild(spectral_dtype="bf16", device="cpu", **SHELL)
-    with pytest.raises(NotImplementedError):
-        tbuild(convective_op_type="ppm", device="cpu", **SHELL)
+    # bf16 / f64 spectral transforms and PPM convection are ported: one
+    # step equals the reference's (f64 state; bf16 operands within the
+    # reference suite's bf16 class)
+    for kw, tol in ((dict(spectral_dtype="bf16"), 2e-2),
+                    (dict(spectral_dtype="f64"), 1e-10),
+                    (dict(convective_op_type="ppm"), 1e-10)):
+        tinteg, ts = tbuild(use_fast_interaction="scatter",
+                            dtype=torch.float64, device="cpu", **kw, **SHELL)
+        jinteg, js = jbuild(use_fast_interaction=False, dtype=jnp.float64,
+                            **kw, **SHELL)
+        ts = tinteg.step(ts, 5e-3)
+        js = jax.jit(jinteg.step, static_argnums=1)(js, 5e-3)
+        for a, b in zip(js.ins.u, ts.ins.u):
+            a = np.asarray(a)
+            assert np.max(np.abs(b.numpy() - a)) <= tol * np.max(np.abs(a))
+    with pytest.raises(ValueError, match="spectral_dtype"):
+        tbuild(spectral_dtype="fp8", device="cpu", **SHELL)
 
 
 def test_absent_or_auto_engine_resolves_like_reference(monkeypatch):
