@@ -68,7 +68,39 @@ Phases, in order; any failure raises and the exit code is non-zero:
    steps/s of each driver; and ``CYL_F64_STEPS`` of the cylinder at f64,
    past the step where the f32 example diverges in the reference and in
    the port. The solves (and the cavity's steps) replay as
-   CUDA graphs; one leg of each checks them bitwise against eager.
+   CUDA graphs; one leg of each checks them bitwise against eager. Then
+   the filament driver, ``ib_explicit_filament2d.run``, on ``examples/
+   IB/explicit/filament2d/input2d`` cut to ``FIL_STEPS`` f32 steps (at
+   f32 every saddle solve exhausts its restarts, in the reference too)
+   with its first steps against the CPU, and ``FIL_F64_STEPS`` of the
+   same build at f64: the tail downstream of the anchor, the length
+   within 5%.
+11. ibfe3d -- the hand kernels on an FE cloud: ``IBFESurfaceMethod`` on
+   a geodesic sphere membrane (4,098 nodes, 8,192 TRI3S facets, 24,576
+   quadrature points, unified coupling) in a 128^3 periodic box, on
+   ``pallas_packed`` and ``pallas``: one spread and one interp against
+   the scatter oracle on the card (twice, bitwise), then 5 coupled
+   midpoint steps against the same steps through the CPU's scatter
+   oracle, with the launches of each step (3 spread, 6 interp).
+12. ibfe   -- the IBFE ex0 driver, ``ibfe_explicit_ex0.run``, on the
+   committed ``examples/IBFE/explicit/ex0/input2d`` as it is (64^2, 8
+   rings, 400 steps): finite metrics, the area drift within 2% at every
+   logged step, the elastic energy falling, the first 20 steps on the
+   GPU against the CPU and a warm leg; then the beam2d driver on
+   ``examples/IBFE/explicit/beam2d/input2d`` as the filament above
+   (``BEAM_STEPS`` f32 steps, an f64 leg of ``BEAM_F64_STEPS`` whose
+   tip must bend downstream).
+13. rigid  -- the CIB ex0 driver on the committed ``examples/CIB/ex0/
+   input2d`` with its 40 steps cut to ``CIB_STEPS`` (U_y < 0 and the
+   centroid falling at every step; the first steps at f64 against the
+   CPU), the oscillating
+   cylinder on ``examples/CIB/oscillating_cylinder/input2d`` (walled,
+   f64) with its 80 steps cut to the first (fx and the CG's convergence
+   against the reference's, |fy| < 0.05 |fx|), then that step with the
+   markers cut to ``OSC_MARKERS`` (converged, GPU against CPU), and the eel2d driver on ``examples/
+   ConstraintIB/eel2d/input2d`` as it is (2000 steps: swim_dx < 0 at
+   the end, the first 20 steps against the CPU). The 2D structure
+   paths run no hand kernel; a launch in them fails.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -143,6 +175,40 @@ CYL_F64_STEPS = 200       # the f64 leg: past where the f32 example diverges
 OPEN_PARITY_STEPS = 10
 OPEN_DIV_BOUND = 1e-4     # f32 solver floor (tol 1e-5 relative)
 TOL_OPEN_FIELDS = 1e-4    # GPU vs CPU after 10 f32 steps, rel. to max|.|
+IBFE_EX0_INPUT = "examples/IBFE/explicit/ex0/input2d"
+IBFE_PARITY_STEPS = 20    # ibfe: steps of the GPU-vs-CPU check
+IBFE_WARM = 100           # ibfe: steps of the warm leg after them
+IBFE_AREA_DRIFT = 0.02    # |area - area0| / area0: tests/test_ibfe.py:176
+BEAM_INPUT = "examples/IBFE/explicit/beam2d/input2d"
+BEAM_STEPS = 5            # of the input's 1500 (f32: 12 restarts a step)
+BEAM_PARITY_STEPS = 2
+BEAM_F64_STEPS = 100
+# the ibfe3d leg: a geodesic sphere membrane (4,098 nodes, 8,192 TRI3S
+# facets, 24,576 quadrature points) pre-stretched in a 128^3 box
+IBFE3D = dict(n_cells=128, radius=0.25, n_subdiv=5,
+              stretch=(1.1, 1.0 / 1.1, 1.0), moduli=(1.0, 2.0), mu=0.05,
+              dt=5e-4, seed=3)
+IBFE3D_STEPS = 5
+CIB_INPUT = "examples/CIB/ex0/input2d"
+CIB_STEPS = 10            # of the input's 40 (8 s a step: 1,200 CG)
+CIB_PARITY_STEPS = 2      # at f64, GPU vs CPU
+TOL_RIGID_U = 1e-5        # max|U_gpu - U_cpu| / max|U|
+OSC_INPUT = "examples/CIB/oscillating_cylinder/input2d"
+# (fx, converged) of the input's first step (of 80): the first record of
+# its main.py with JAX_ENABLE_X64=1 on the CPU. The step's CG stops at
+# its 300 iterations of nested saddle solves, too slow for the port's
+# eager CPU path, so the GPU-vs-CPU check runs with the markers cut to
+# OSC_MARKERS, where the CG converges in 14
+OSC_REF = (25.621520152268545, False)
+OSC_MARKERS = 12
+TOL_RIGID_FX = 1e-4       # |fx_gpu - fx_cpu| / |fx_cpu|
+EEL_INPUT = "examples/ConstraintIB/eel2d/input2d"
+EEL_PARITY_STEPS = 20
+FIL_INPUT = "examples/IB/explicit/filament2d/input2d"
+FIL_STEPS = 5             # of the input's 4000 (f32: 12 restarts a step)
+FIL_PARITY_STEPS = 2
+FIL_F64_STEPS = 100
+FIL_LENGTH_STEPS = 300
 DEVICE = "cuda"
 # the TPU kernel each CUDA kernel replaces, and its source
 KERNELS = {
@@ -426,14 +492,13 @@ def check_hot_tile(grid, offs) -> None:
 
 
 def _to(s, dev):
-    """An IBState's tensors on ``dev``."""
-    from ibamr_tpu_torch.integrators.ib import IBState
-    from ibamr_tpu_torch.integrators.ins import INSState
-
-    return IBState(ins=INSState(*(tuple(x.to(dev) for x in v)
-                                  if isinstance(v, tuple) else v.to(dev)
-                                  for v in s.ins)),
-                   X=s.X.to(dev), U=s.U.to(dev), mask=s.mask.to(dev))
+    """A state's tensors (nested named tuples) on ``dev``."""
+    if isinstance(s, torch.Tensor):
+        return s.to(dev)
+    if isinstance(s, tuple):
+        vals = [_to(v, dev) for v in s]
+        return type(s)(*vals) if hasattr(s, "_fields") else tuple(vals)
+    return s
 
 
 # the kernels each engine launches (the packed engine is the reference's
@@ -1070,6 +1135,7 @@ def phase_open(breakdown: bool = False) -> None:
         raise AssertionError("open: cylinder GPU and CPU steps disagree")
     if breakdown:
         _open_breakdown("cylinder", gi, gs, 1e3 * run_s / CYL_STEPS)
+    _filament_leg(breakdown)
 
 
 def _open_breakdown(label, integ, state, step_ms):
@@ -1337,6 +1403,534 @@ def phase_auto(path_ms: float, breakdown: bool = False):
             phase_breakdown(integ, st, step_ms, "packed")
 
 
+def _warm_steps_per_s(step, state, steps):
+    """``steps`` more steps of ``step`` timed by the host clock around a
+    synchronize; returns (steps/s, the state reached)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = step(state)
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0), state
+
+
+def _assert_no_launches(label, fn):
+    """``fn()`` with the kernel counts reset; the 2D structure paths run no
+    hand kernel, so any launch fails."""
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+
+    ci.reset_launch_counts()
+    out = fn()
+    if any(ci.LAUNCHES.values()):
+        raise AssertionError(f"{label}: unexpected kernel launches "
+                             f"{dict(ci.LAUNCHES)}")
+    return out
+
+
+def phase_ibfe(breakdown: bool = False) -> None:
+    """The IBFE ex0 driver on the committed input as it is and the beam2d
+    driver with ``num_steps`` cut to ``BEAM_STEPS``, each on the card in a
+    temporary working directory, with their first steps against the CPU.
+    The 2D FE transfers run on the scatter oracle: no hand kernel."""
+    from ibamr_tpu_torch.examples import ibfe_explicit_beam2d as beam
+    from ibamr_tpu_torch.examples import ibfe_explicit_ex0 as ex0
+    from ibamr_tpu_torch.integrators.ib import advance_ib
+    from ibamr_tpu_torch.models.fe_disc2d import build_fe_disc_example
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+
+    timer = TimerManager.instance()
+    db = parse_input_file(os.path.join(ROOT, IBFE_EX0_INPUT))
+    ts = db.get_database("TimeStepping")
+    steps, dt = ts.get_int("num_steps"), ts.get_float("dt")
+    timer.reset()
+    state, files = _in_tmp(lambda: ex0.run(db, device=DEVICE))
+    run_s = timer.get("IBFE::step").total
+    records = _records(files, db.get_database("Main").get_string(
+        "log_file"))
+    npy = sorted(f for f in files if f.endswith(".npy"))
+    finite = all(math.isfinite(r[k]) for r in records
+                 for k in ("elastic_energy", "area", "area_drift"))
+    drift = max(abs(r["area_drift"]) for r in records)
+    e0, e1 = records[0]["elastic_energy"], records[-1]["elastic_energy"]
+    gi, gs = build_fe_disc_example(input_db=db, device=DEVICE)
+    ci_, cs = build_fe_disc_example(input_db=db, device="cpu")
+    gs = advance_ib(gi, gs, dt, IBFE_PARITY_STEPS)
+    cs = advance_ib(ci_, cs, dt, IBFE_PARITY_STEPS)
+    ex = _rel(gs.X, cs.X)
+    eu = max(_rel(a, b) for a, b in zip(gs.ins.u, cs.ins.u))
+    warm, gs = _warm_steps_per_s(lambda s: gi.step(s, dt), gs, IBFE_WARM)
+    fe = gi.ib
+    log(f"[ibfe] {IBFE_EX0_INPUT} on {torch.cuda.get_device_name(0)}: grid "
+        f"{gi.ins.grid.n}, {fe.mesh.n_nodes} nodes, {fe.mesh.n_elems} TRI3 "
+        f"elements ({fe.tasm.wdV.numel()} quadrature points, "
+        f"{fe.coupling} coupling), {steps} steps of dt={dt:g}, f32: "
+        f"{steps / run_s:.3f} steps/s over the run, {1e3 * run_s / steps:.3f}"
+        f" ms/step (host clock around each step and its synchronize); "
+        f"warm leg of {IBFE_WARM} steps {warm:.3f} steps/s")
+    log(f"[ibfe] ex0 metrics first {records[0]} last {records[-1]}; "
+        f"max|area_drift| {drift:.3e} (bound {IBFE_AREA_DRIFT}); elastic "
+        f"energy {e0:.6g} -> {e1:.6g}; node dumps {len(npy)}")
+    log(f"[ibfe] ex0 first {IBFE_PARITY_STEPS} steps GPU vs CPU: "
+        f"max|X_gpu-X_cpu|/max|X|={ex:.3e} (tol {TOL_PARITY_X:g}) max_d "
+        f"|u_gpu-u_cpu|/max|u|={eu:.3e} (tol {TOL_PARITY_U:g})")
+    if not (finite and len(records) == steps // 10 + 1
+            and int(state.ins.k) == steps):
+        raise AssertionError("ibfe: ex0 metrics not finite or the run "
+                             "incomplete")
+    if not (drift < IBFE_AREA_DRIFT and e1 < e0):
+        raise AssertionError("ibfe: ex0 area not conserved or the energy "
+                             "did not fall")
+    if not (ex <= TOL_PARITY_X and eu <= TOL_PARITY_U):
+        raise AssertionError("ibfe: ex0 GPU and CPU steps disagree")
+    if breakdown:
+        phase_breakdown(gi, gs, 1e3 / warm, "ibfe_ex0", dt)
+
+    db = parse_input_file(os.path.join(ROOT, BEAM_INPUT))
+    db.get_database("INSOpenIntegrator").put("num_steps", BEAM_STEPS)
+    db.get_database("Main").put("log_interval", BEAM_STEPS)
+    ok, ms = _open_f32_and_f64("beam2d", BEAM_INPUT, db, beam, BEAM_STEPS,
+                               BEAM_F64_STEPS, BEAM_PARITY_STEPS,
+                               breakdown)
+    g64, s64, tip, X0 = ok
+    defl = float(s64.X[tip, 0] - X0[tip, 0])
+    E = float(g64.ib.energy(s64.X))
+    log(f"[ibfe] beam2d at f64 after {BEAM_F64_STEPS} steps: tip deflection "
+        f"{defl:+.6e} (downstream: > 0), tip y {float(s64.X[tip, 1]):.6f}, "
+        f"elastic energy {E:.6e}")
+    if not (defl > 0.0 and math.isfinite(E)):
+        raise AssertionError("ibfe: the f64 beam did not bend downstream")
+
+
+def _open_f32_and_f64(label, path, db, mod, steps, f64_steps, par_steps,
+                      breakdown):
+    """An open-boundary structure driver (beam2d, filament2d) on the card:
+    the driver as the reference runs it (f32) for ``steps`` steps with
+    the FGMRES restarts of its first ``par_steps`` equal on GPU and CPU,
+    then ``f64_steps`` of the same build at f64, where the saddle solve
+    converges (at f32 it exhausts its restarts every step, in the
+    reference too: ROADMAP C), its first ``par_steps`` against the CPU. Returns ((integrator, state, tip, X0) of
+    the f64 leg, ms per f32 step); ``tip`` is None for the filament."""
+    from ibamr_tpu_torch.integrators.ib_open import advance_ib_open
+    from ibamr_tpu_torch.utils.timers import TimerManager
+
+    timer = TimerManager.instance()
+    timer.reset()
+    st, files = _in_tmp(lambda: mod.run(db, device=DEVICE))
+    run_s = timer.get("advance").total
+    records = _records(files, db.get_database("Main").get_string(
+        "log_jsonl"))
+    finite = all(math.isfinite(v) for r in records for v in r.values()) \
+        and bool(torch.isfinite(st.X).all())
+
+    def build(dev, dtype=torch.float32):
+        out = mod.build(db, dev, dtype)
+        return out if len(out) == 3 else (*out, None)
+
+    gi, gs, _ = build(DEVICE)
+    ci_, cs, _ = build("cpu")
+    gs, g_its = _restarts(gi.ins, gs, par_steps, gi.step)
+    cs, c_its = _restarts(ci_.ins, cs, par_steps, ci_.step)
+    # the unconverged f32 solve leaves only roundoff in u (max ~1e-7):
+    # the fields are held GPU against CPU on the f64 leg
+    noise = max(float(c.abs().max()) for c in gs.fluid.u)
+    ms = 1e3 * run_s / steps
+    g64, s64, tip = build(DEVICE, torch.float64)
+    c64, cs64, _ = build("cpu", torch.float64)
+    X0 = s64.X
+    s64, its64 = _restarts(g64.ins, s64, par_steps, g64.step)
+    cs64, cits64 = _restarts(c64.ins, cs64, par_steps, c64.step)
+    ex = _rel(s64.X, cs64.X)
+    eu = max(_rel(a, b) for a, b in zip(s64.fluid.u, cs64.fluid.u))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s64 = advance_ib_open(g64, s64, f64_steps - par_steps)
+    torch.cuda.synchronize()
+    ms64 = 1e3 * (time.perf_counter() - t0) / (f64_steps - par_steps)
+    log(f"[{label}] {path} (num_steps cut to {steps}) on "
+        f"{torch.cuda.get_device_name(0)}: grid {gi.grid.n}, "
+        f"{gs.X.shape[0]} nodes, f32: {1e3 / ms:.3f} steps/s, {ms:.3f} "
+        f"ms/step over the run; metrics {records}")
+    log(f"[{label}] f32 first {par_steps} steps: FGMRES restarts GPU "
+        f"{g_its} CPU {c_its}; max|u| {noise:.3e}, inflow face max|u| "
+        f"{float(gs.fluid.u[0][0].abs().max()):.3e} (the f32 solve does "
+        f"not converge)")
+    log(f"[{label}] f64 leg: {f64_steps} steps; first {par_steps} GPU vs "
+        f"CPU: restarts GPU {its64} CPU {cits64}, max|X_gpu-X_cpu|/max|X|="
+        f"{ex:.3e} (tol {TOL_PARITY_X:g}), max_d |u_gpu-u_cpu|/max|u|="
+        f"{eu:.3e} (tol {TOL_OPEN_FIELDS:g}); {1e3 / ms64:.3f} steps/s "
+        f"({ms64:.3f} ms/step after them); inflow face max|u| "
+        f"{float(s64.fluid.u[0][0].abs().max()):.6f}")
+    if not finite:
+        raise AssertionError(f"{label}: the f32 run is not finite")
+    if g_its != c_its or its64 != cits64 or not (
+            ex <= TOL_PARITY_X and eu <= TOL_OPEN_FIELDS):
+        raise AssertionError(f"{label}: GPU and CPU steps disagree")
+    if breakdown:
+        _open_breakdown(f"{label}_f64", g64, s64, ms64)
+    return (g64, s64, tip, X0), ms
+
+
+def _ibfe3d(engine: str, device):
+    """The 3D FE membrane of the ``ibfe3d`` leg on ``device``: the
+    integrator with ``engine`` (None: the scatter oracle), its state and
+    the FE strategy."""
+    from ibamr_tpu_torch.fe.surface import (neo_hookean_membrane,
+                                            sphere_surface_mesh,
+                                            surface_quad_positions)
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ib import IBExplicitIntegrator
+    from ibamr_tpu_torch.integrators.ibfe import IBFESurfaceMethod
+    from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator
+    from ibamr_tpu_torch.models.shell3d import construct_transfer_engine
+
+    n = IBFE3D["n_cells"]
+    grid = StaggeredGrid(n=(n,) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
+    mesh = sphere_surface_mesh(center=(0.5,) * 3, radius=IBFE3D["radius"],
+                               n_subdiv=IBFE3D["n_subdiv"])
+    c = np.asarray((0.5,) * 3)
+    X0 = c + (mesh.nodes - c) * np.asarray(IBFE3D["stretch"])
+    W = neo_hookean_membrane(*IBFE3D["moduli"])
+    plain = IBFESurfaceMethod(mesh, W, coupling="unified",
+                              dtype=torch.float32, device=device)
+    fast = None
+    if engine is not None:
+        xq = surface_quad_positions(plain.asm, torch.as_tensor(
+            X0, dtype=torch.float32, device=device))
+        fast = construct_transfer_engine(engine, grid, xq.cpu().numpy(),
+                                         "IB_4", device=device)
+    fe = IBFESurfaceMethod(mesh, W, coupling="unified", dtype=torch.float32,
+                           fast=fast, device=device)
+    ins = INSStaggeredIntegrator(grid, rho=1.0, mu=IBFE3D["mu"],
+                                 dtype=torch.float32, device=device)
+    integ = IBExplicitIntegrator(ins, fe)
+    return integ, integ.initialize(X0), fe
+
+
+def phase_ibfe3d(breakdown: bool = False) -> dict:
+    """The hand kernels on an FE cloud: the TRI3S quadrature points of a
+    geodesic sphere membrane in a 128^3 periodic box. For each kernel
+    engine: one spread of a seeded nodal force and one interp of a seeded
+    MAC field against the scatter oracle on the card (twice, bitwise),
+    then ``IBFE3D_STEPS`` coupled midpoint steps on the GPU (kernels)
+    against the same steps on the CPU through the scatter oracle, with the
+    launches per step.
+    Returns the launches of the coupled steps."""
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+
+    rng = np.random.default_rng(IBFE3D["seed"])
+    launches = dict.fromkeys(KERNELS, 0)
+    oi, s_or, oracle = _ibfe3d(None, DEVICE)
+    g = oi.ins.grid
+    grid = g.n
+    N = oracle.mesh.n_nodes
+    F = torch.tensor(rng.standard_normal((N, 3)), dtype=torch.float32,
+                     device=DEVICE)
+    u = tuple(torch.tensor(rng.standard_normal(grid), dtype=torch.float32,
+                           device=DEVICE) for _ in range(3))
+    X, mask = s_or.X, s_or.mask
+    f_ref = oracle.spread_force(F, g, X, mask)
+    U_ref = oracle.interpolate_velocity(u, g, X, mask)
+    nq = oracle.asm.wdA.numel()
+    log(f"[ibfe3d] sphere_surface_mesh(n_subdiv={IBFE3D['n_subdiv']}, "
+        f"radius={IBFE3D['radius']}): {N} nodes, {oracle.mesh.elems.shape[0]}"
+        f" TRI3S facets, {nq} quadrature points (unified coupling), "
+        f"stretched by {IBFE3D['stretch']}, neo_hookean_membrane"
+        f"{IBFE3D['moduli']}, {grid} periodic grid, f32")
+    # the CPU leg: the scatter oracle (the engines' plain versions
+    # evaluate every slot's weights over its whole tile column, minutes
+    # per 128^3 step on the CPU)
+    ci_, cs, _ = _ibfe3d(None, "cpu")
+    s_cpu0 = cs
+    for _ in range(IBFE3D_STEPS):
+        cs = ci_.step(cs, IBFE3D["dt"])
+    for engine, kernels in (("pallas_packed", ("packed_spread",
+                                               "packed_interp")),
+                            ("pallas", ("tile_spread", "tile_interp"))):
+        gi, gs, fe = _ibfe3d(engine, DEVICE)
+        b = fe.prepare(gs.X, gs.mask)
+        cap = (f"{fe.fast.nchunks} chunks of 128" if engine == "pallas_packed"
+               else f"tile cap {b.Xb.shape[1]}")
+        ci.reset_launch_counts()
+        f1, f2 = (fe.spread_force(F, g, X, mask, ctx=b) for _ in range(2))
+        U1, U2 = (fe.interpolate_velocity(u, g, X, mask, ctx=b)
+                  for _ in range(2))
+        torch.cuda.synchronize()
+        once = dict(ci.LAUNCHES)
+        ef = max(float((a - r).abs().max() / r.abs().max())
+                 for a, r in zip(f1, f_ref))
+        eU = float((U1 - U_ref).abs().max() / U_ref.abs().max())
+        bitwise = (all(torch.equal(p, q) for p, q in zip(f1, f2))
+                   and torch.equal(U1, U2))
+        log(f"[ibfe3d] {engine} ({cap}; overflow {b.any_overflow}): spread "
+            f"vs oracle max|.|/max|oracle| {ef:.3e}, interp {eU:.3e} (tol "
+            f"{TOL_KERNEL:g}), bitwise run-to-run {bitwise}, launches of "
+            f"two spreads and two interps {once}")
+        if b.any_overflow:
+            raise AssertionError(f"ibfe3d: the FE cloud overflows {engine}")
+        if not (ef <= TOL_KERNEL and eU <= TOL_KERNEL and bitwise):
+            raise AssertionError(f"ibfe3d: {engine} disagrees with the "
+                                 "oracle or is not run-to-run bitwise")
+        if not all(once[k] == 6 for k in kernels):
+            raise AssertionError(f"ibfe3d: {engine} did not launch its "
+                                 f"kernels {kernels}")
+        gs = _to(s_cpu0, DEVICE)
+        per_step = []
+        ci.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(IBFE3D_STEPS):
+            before = dict(ci.LAUNCHES)
+            gs = gi.step(gs, IBFE3D["dt"])
+            per_step.append({n: ci.LAUNCHES[n] - before[n] for n in before
+                             if ci.LAUNCHES[n] != before[n]})
+            if k == 0:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ran = dict(ci.LAUNCHES)
+        launches = {k: launches[k] + ran[k] for k in launches}
+        ex = _rel(gs.X, cs.X)
+        eu = max(_rel(a, b_) for a, b_ in zip(gs.ins.u, cs.ins.u))
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (gs.X, *gs.ins.u, gs.ins.p))
+        ms = 1e3 * (t2 - t1) / (IBFE3D_STEPS - 1)
+        log(f"[ibfe3d] {engine}: {IBFE3D_STEPS} midpoint steps dt="
+            f"{IBFE3D['dt']:g}: {ms:.3f} ms/step after the first "
+            f"({1e3 * (t1 - t0):.3f} ms); vs the CPU oracle: "
+            f"max|X_gpu-X_cpu|/max|X|={ex:.3e} "
+            f"(tol {TOL_PARITY_X:g}) max_d |u_gpu-u_cpu|/max|u|={eu:.3e} "
+            f"(tol {TOL_PARITY_U:g}) finite={finite}; kernel launches per "
+            f"step {per_step}")
+        if not (ex <= TOL_PARITY_X and eu <= TOL_PARITY_U and finite):
+            raise AssertionError(f"ibfe3d: GPU and CPU steps disagree on "
+                                 f"{engine}")
+        want = {kernels[0]: 3, kernels[1]: 6}
+        if any(p != want for p in per_step):
+            raise AssertionError(f"ibfe3d: {engine} launched {per_step}, "
+                                 f"not {want} per step")
+        if breakdown:
+            phase_breakdown(gi, gs, ms, f"ibfe3d_{engine}", IBFE3D["dt"])
+    return launches
+
+
+def phase_rigid(breakdown: bool = False) -> None:
+    """The CIB ex0 driver on the committed input cut to ``CIB_STEPS``, the
+    oscillating cylinder's committed input cut to its first constraint
+    solves at f64, and the eel2d driver on the committed
+    input, each on the card, with their first steps against the CPU.
+    The rigid-body transfers run on the scatter oracle: no hand kernel."""
+    from ibamr_tpu_torch.examples import cib_ex0
+    from ibamr_tpu_torch.examples import cib_oscillating_cylinder as osc
+    from ibamr_tpu_torch.examples import constraint_ib_eel2d as eel
+    from ibamr_tpu_torch.integrators.cib import body_centroids
+    from ibamr_tpu_torch.integrators.constraint_ib import \
+        advance_constraint_ib
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+
+    timer = TimerManager.instance()
+    db = parse_input_file(os.path.join(ROOT, CIB_INPUT))
+    db.get_database("TimeStepping").put("num_steps", CIB_STEPS)
+    steps = db.get_database("TimeStepping").get_int("num_steps")
+    dt = db.get_database("TimeStepping").get_float("dt")
+    timer.reset()
+    _, files = _in_tmp(lambda: cib_ex0.run(db, device=DEVICE))
+    run_s = timer.get("CIB::step").total
+    records = _records(files, db.get_database("Main").get_string(
+        "log_file"))
+    ys = [r["centroid"][1] for r in records]
+    Uy = [r["U"][1] for r in records]
+    iters = [r["cg_iters"] for r in records]
+    conv = [r["cg_converged"] for r in records]
+    finite = all(math.isfinite(v) for r in records
+                 for v in r["U"] + r["centroid"])
+    # GPU vs CPU: CIB_PARITY_STEPS steps at f64 (at f32 the CG ends on
+    # the f32 floor, where roundoff sets the last digits of U)
+    par = {}
+    for dev in (DEVICE, "cpu"):
+        m, X, bodies, FT = cib_ex0.build(db, dev, torch.float64)
+        Us, its = [], []
+        for _ in range(CIB_PARITY_STEPS):
+            X, U, info = m.step(X, FT, dt)
+            Us.append(U.cpu())
+            its.append((info.max_iters, bool(info.converged)))
+        par[dev] = (torch.stack(Us), its)
+    eU = _rel(par[DEVICE][0], par["cpu"][0])
+    n_cells = db.get_database("CartesianGeometry").get_int_array("n_cells")
+    log(f"[rigid] {CIB_INPUT} (num_steps cut to {CIB_STEPS}) on "
+        f"{torch.cuda.get_device_name(0)}: "
+        f"{n_cells} periodic, "
+        f"{db.get_database('Body').get_int('num_markers')} "
+        f"markers, {steps} steps of dt={dt:g}, f32: {steps / run_s:.3f} "
+        f"steps/s, {1e3 * run_s / steps:.3f} ms/step (3 CG solves per step,"
+        f" {sum(iters) * 3 / run_s:.1f} CG iterations/s, one host read "
+        f"each); CG iterations per step {sorted(set(iters))}, converged "
+        f"{sorted(set(conv))} (the reference's: 400, False in both of "
+        f"JAX's modes)")
+    log(f"[rigid] cib_ex0 centroid y {ys[0]:.7f} -> {ys[-1]:.7f}, U_y "
+        f"{min(Uy):.7f} .. {max(Uy):.7f}; first {CIB_PARITY_STEPS} steps at "
+        f"f64 GPU vs CPU: max|U_gpu-U_cpu|/max|U|={eU:.3e} (tol "
+        f"{TOL_RIGID_U:g}), CG (iterations, converged) GPU "
+        f"{par[DEVICE][1]} CPU {par['cpu'][1]}")
+    if not (finite and len(records) == steps and max(Uy) < 0.0
+            and all(b < a for a, b in zip(ys, ys[1:]))):
+        raise AssertionError("cib_ex0: not finite, incomplete, or the disc "
+                             "did not fall at every step")
+    if not (eU <= TOL_RIGID_U and par[DEVICE][1] == par["cpu"][1]):
+        raise AssertionError("cib_ex0: GPU and CPU steps disagree")
+
+    def osc_step1(db, dev):
+        """The oscillation's first constraint solve: (fx, fy, CG
+        iterations, converged, seconds)."""
+        method, X = osc.build(db, dev)
+        t, u, xoff = osc.phase(db, 0)
+        Xk = X + torch.tensor([xoff, 0.0], dtype=X.dtype, device=X.device)
+        U = torch.tensor([[u, 0.0, 0.0]], dtype=X.dtype, device=X.device)
+        t0 = time.perf_counter()
+        _, FT, info = method.solve_constraint(Xk, U)
+        fx, fy, _ = FT[0].tolist()
+        return (fx, fy, info.max_iters, bool(info.converged),
+                time.perf_counter() - t0)
+
+    db = parse_input_file(os.path.join(ROOT, OSC_INPUT))
+    fx, fy, its, conv, sec = osc_step1(db, DEVICE)
+    efx = abs(fx - OSC_REF[0]) / abs(OSC_REF[0])
+    log(f"[rigid] {OSC_INPUT} (the committed body, its 80 steps cut to the "
+        f"first, f64) on {torch.cuda.get_device_name(0)}: {sec:.3f} s per "
+        f"constraint solve (walled: a saddle FGMRES in every CG iteration),"
+        f" CG iterations {its}, converged {conv} (the reference's: "
+        f"{OSC_REF[1]}); fx {fx!r} against the reference's {OSC_REF[0]!r}: "
+        f"rel {efx:.3e} (tol {TOL_RIGID_FX:g}); |fy| {abs(fy):.3e} (bound "
+        f"0.05 |fx| = {0.05 * abs(fx):.3e})")
+    db.get_database("Body").put("n_markers", OSC_MARKERS)
+    g12, c12 = (osc_step1(db, dev) for dev in (DEVICE, "cpu"))
+    e12 = abs(g12[0] - c12[0]) / abs(c12[0])
+    log(f"[rigid] oscillating cylinder, markers cut 48 -> {OSC_MARKERS}, "
+        f"step 1 GPU vs CPU: fx {g12[0]!r} vs {c12[0]!r}, |dfx|/|fx|="
+        f"{e12:.3e} (tol {TOL_RIGID_FX:g}); CG (iterations, converged) GPU "
+        f"{g12[2:4]} CPU {c12[2:4]}; s per solve GPU {g12[4]:.3f} CPU "
+        f"{c12[4]:.3f}")
+    if not (conv == OSC_REF[1] and efx <= TOL_RIGID_FX
+            and abs(fy) < 0.05 * abs(fx)):
+        raise AssertionError("oscillating cylinder: the committed body's "
+                             "solve disagrees with the reference's, or "
+                             "the transverse force is large")
+    if not (g12[3] and e12 <= TOL_RIGID_FX and g12[2:4] == c12[2:4]):
+        raise AssertionError("oscillating cylinder: GPU and CPU disagree")
+    osc_gpu = osc.build(db, DEVICE) if breakdown else None
+
+    db = parse_input_file(os.path.join(ROOT, EEL_INPUT))
+    idb = db.get_database("INSStaggeredHierarchyIntegrator")
+    steps, dt = idb.get_int("num_steps"), idb.get_float("dt")
+    timer.reset()
+    st, files = _in_tmp(lambda: eel.run(db, device=DEVICE))
+    run_s = timer.get("advance").total
+    records = _records(files, db.get_database("Main").get_string(
+        "log_jsonl"))
+    dxs = [r["swim_dx"] for r in records]
+    finite = all(math.isfinite(v) for r in records for v in r["U_body"])
+    gm, gs = eel.build(db, DEVICE)
+    cm, cs = eel.build(db, "cpu")
+    gs = advance_constraint_ib(gm, gs, dt, EEL_PARITY_STEPS)
+    cs = advance_constraint_ib(cm, cs, dt, EEL_PARITY_STEPS)
+    ex = _rel(gs.X, cs.X)
+    eu = max(_rel(a, b) for a, b in zip(gs.ins.u, cs.ins.u))
+    log(f"[rigid] {EEL_INPUT} on {torch.cuda.get_device_name(0)}: grid "
+        f"{gm.ins.grid.n}, {st.X.shape[0]} markers, {steps} steps of "
+        f"dt={dt:g}, f32: {steps / run_s:.3f} steps/s, "
+        f"{1e3 * run_s / steps:.3f} ms/step over the run; swim_dx every "
+        f"{db.get_database('Main').get_int('log_interval')} steps "
+        f"{[round(v, 5) for v in dxs]}; final U_body "
+        f"{records[-1]['U_body']}; centroid "
+        f"{body_centroids(st.X, gm.bodies)[0].tolist()}")
+    log(f"[rigid] eel2d first {EEL_PARITY_STEPS} steps GPU vs CPU: "
+        f"max|X_gpu-X_cpu|/max|X|={ex:.3e} (tol {TOL_PARITY_X:g}) max_d "
+        f"|u_gpu-u_cpu|/max|u|={eu:.3e} (tol {TOL_PARITY_U:g})")
+    if not (finite and dxs[-1] < 0.0 and int(st.ins.k) == steps):
+        raise AssertionError("eel2d: not finite, incomplete, or the "
+                             "swimmer did not move against the wave")
+    if not (ex <= TOL_PARITY_X and eu <= TOL_PARITY_U):
+        raise AssertionError("eel2d: GPU and CPU steps disagree")
+    if breakdown:
+        _rigid_breakdown(*osc_gpu, gm, gs, dt, 1e3 * run_s / steps)
+
+
+def _rigid_breakdown(cib_method, X, eel_method, eel_state, dt, eel_ms):
+    """Stages of the walled mobility apply (one nested saddle solve) and
+    of one eel step (fluid, interp, rigid projection, imposition,
+    projection), then whole eel steps."""
+    from ibamr_tpu_torch.integrators.constraint_ib import project_rigid
+    from ibamr_tpu_torch.ops import interaction
+
+    lam = torch.ones_like(X)
+    _stage_breakdown("oscillating_cylinder", [
+        ("mobility apply", lambda: cib_method.mobility_apply(X, lam))],
+        lambda: cib_method.mobility_apply(X, lam), 1, float("nan"))
+    m, s = eel_method, eel_state
+    g = m.ins.grid
+    U = interaction.interpolate_vel(s.ins.u, g, s.X)
+    stages = [("fluid", lambda: m.ins.step(s.ins, dt)),
+              ("interp", lambda: interaction.interpolate_vel(s.ins.u, g,
+                                                             s.X)),
+              ("project_rigid", lambda: project_rigid(s.X, m.bodies, U)),
+              ("impose", lambda: m._impose(s.ins.u, s.X, U)),
+              ("projection", lambda: m.ins.project(s.ins.u, g.dx))]
+
+    def steps3():
+        st = s
+        for _ in range(3):
+            st = m.step(st, dt)
+
+    _stage_breakdown("eel2d", stages, steps3, 3, eel_ms)
+
+
+def _filament_leg(breakdown: bool = False) -> None:
+    """The filament2d driver cut to ``FIL_STEPS`` at f32 against the CPU,
+    then ``FIL_F64_STEPS`` at f64 (finite, the tail downstream of the
+    anchor), and the length held within 5% on the configuration of
+    ``tests/test_examples_r5.py:78``, which sets that bound."""
+    from ibamr_tpu_torch.examples import ib_explicit_filament2d as fil
+    from ibamr_tpu_torch.integrators.ib_open import advance_ib_open
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    db = parse_input_file(os.path.join(ROOT, FIL_INPUT))
+    db.get_database("INSOpenIntegrator").put("num_steps", FIL_STEPS)
+    (g64, s64, _, X0), _ = _open_f32_and_f64(
+        "open", FIL_INPUT, db, fil, FIL_STEPS, FIL_F64_STEPS,
+        FIL_PARITY_STEPS, breakdown)
+
+    def length(X):
+        return float(torch.linalg.norm(X[1:] - X[:-1], dim=1).sum())
+
+    L0, L1 = length(X0), length(s64.X)
+    ax = db.get_database("Filament").get_float_array("anchor")[0]
+    tail = s64.X[-1].tolist()
+    # the length bound on the configuration of the test that sets it
+    # (tests/test_examples_r5.py:78-120: 64x32, 24 markers, dt 2e-3,
+    # tol 1e-8, 300 steps, f64; the reference measured +4.0% there)
+    db.get_database("CartesianGeometry").put("n", [64, 32])
+    idb = db.get_database("INSOpenIntegrator")
+    for key, val in (("mu", 0.01), ("dt", 2e-3), ("tol", 1e-8),
+                     ("convective_op_type", "upwind")):
+        idb.put(key, val)
+    db.get_database("Filament").put("n_markers", 24)
+    t_integ, t_st = fil.build(db, DEVICE, torch.float64)
+    T0 = t_st.X
+    t_st = advance_ib_open(t_integ, t_st, FIL_LENGTH_STEPS)
+    T1 = length(t_st.X) / length(T0) - 1.0
+    log(f"[open] filament at f64 after {FIL_F64_STEPS} steps: tail {tail} "
+        f"(anchor x {ax}), length {L0:.6f} -> {L1:.6f} "
+        f"({(L1 - L0) / L0:+.3e}), drag {-float(s64.F_net[0]):.6f}; on the "
+        f"configuration of tests/test_examples_r5.py:78 after "
+        f"{FIL_LENGTH_STEPS} steps the length changes by {T1:+.4e} (bound "
+        f"0 < . < 0.05; the reference: +4.0%)")
+    if not (math.isfinite(L1) and tail[0] > ax and 0.0 < T1 < 0.05):
+        raise AssertionError("open: filament not finite, the tail not "
+                             "downstream, or the length not held")
+
+
 def phase_breakdown(integ, state, step_ms: float, label: str,
                     dt: float = DT_FLAGSHIP) -> None:
     """Where a step's time goes: each stage of ``step_with_stats`` alone
@@ -1349,7 +1943,7 @@ def phase_breakdown(integ, state, step_ms: float, label: str,
     ctx = ib.prepare(s.X, s.mask)
     U = ib.interpolate_velocity(s.ins.u, grid, s.X, s.mask, ctx=ctx)
     Xh = s.X + 0.5 * dt * U
-    refresh = hasattr(ib.fast, "refresh")
+    refresh = hasattr(ib, "refresh") and hasattr(ib.fast, "refresh")
     ctx_h = ib.refresh(ctx, Xh, s.mask)[0] if refresh else \
         ib.prepare(Xh, s.mask)
     F = ib.compute_force(Xh, U, s.ins.t)
@@ -1392,16 +1986,28 @@ def phase_breakdown(integ, state, step_ms: float, label: str,
             f"{e.count / 3:6.1f} device {us / 3e3:.3f} ms/step")
 
 
+class _PhaseClock:
+    """Seconds of each phase, logged as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] {name}: {now - self.t:.1f} s")
+        self.t = now
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,parity,path,hybrid,driver,auto,ex0,"
-                    "walls,open",
+                    "ibfe3d,walls,open,ibfe,rigid",
                     help="comma-separated subset of kernels,parity,path,"
-                    "hybrid,driver,auto,ex0,walls,open (add 'breakdown' for "
-                    "a profile of the step of each of path, hybrid, driver, "
-                    "the flagship's auto leg, ex0, walls and open that "
-                    "runs; hybrid reads the path phase's time)")
+                    "hybrid,driver,auto,ex0,ibfe3d,walls,open,ibfe,rigid "
+                    "(add 'breakdown' for a profile of the step of each "
+                    "that runs, the flagship's auto leg included; hybrid "
+                    "reads the path phase's time)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1416,10 +2022,13 @@ def main(argv=None) -> int:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    clock = _PhaseClock()
     phase_build()
     rows = phase_kernels() if "kernels" in phases else {}
+    clock.lap("build, kernels")
     if "parity" in phases:
         phase_parity()
+        clock.lap("parity")
     launches = dict.fromkeys(KERNELS, 0)
     path_ms = float("nan")
     if "path" in phases:
@@ -1428,9 +2037,11 @@ def main(argv=None) -> int:
         if "breakdown" in phases:
             phase_breakdown(integ, state, path_ms, "pallas_packed")
         del integ, state
+        clock.lap("path")
     if "hybrid" in phases:
         ran = phase_hybrid(path_ms, "breakdown" in phases)
         launches = {k: launches[k] + ran[k] for k in launches}
+        clock.lap("hybrid")
     if "driver" in phases:
         ran, step_ms, db, state = phase_driver(DRIVER_STEPS)
         launches = {k: launches[k] + ran[k] for k in launches}
@@ -1441,23 +2052,24 @@ def main(argv=None) -> int:
             integ, _ = build_shell_example(input_db=db, dtype=torch.float32,
                                            device=DEVICE)
             phase_breakdown(integ, state, step_ms, "pallas")
+        clock.lap("driver")
     if "auto" in phases:
         phase_auto(path_ms, "breakdown" in phases)
+        clock.lap("auto")
     if "ex0" in phases:
         ran = phase_ex0("breakdown" in phases)
         launches = {k: launches[k] + ran[k] for k in launches}
-    if "walls" in phases or "open" in phases:
-        # the 2D drivers run no hand kernel: count any launch in them
-        from ibamr_tpu_torch.ops import cuda_interaction as ci
-
-        before = dict(ci.LAUNCHES)
-        if "walls" in phases:
-            phase_walls("breakdown" in phases)
-        if "open" in phases:
-            phase_open("breakdown" in phases)
-        if dict(ci.LAUNCHES) != before:
-            raise AssertionError(f"walls/open: unexpected kernel launches "
-                                 f"{dict(ci.LAUNCHES)} (before {before})")
+        clock.lap("ex0")
+    if "ibfe3d" in phases:
+        ran = phase_ibfe3d("breakdown" in phases)
+        launches = {k: launches[k] + ran[k] for k in launches}
+        clock.lap("ibfe3d")
+    # the 2D drivers run no hand kernel: any launch in them fails
+    for name, fn in (("walls", phase_walls), ("open", phase_open),
+                     ("ibfe", phase_ibfe), ("rigid", phase_rigid)):
+        if name in phases:
+            _assert_no_launches(name, lambda: fn("breakdown" in phases))
+            clock.lap(name)
 
     table = [dict(name=k, route="cuda", source=KERNELS[k][0],
                   replaces=KERNELS[k][1], launches=launches[k], **v)

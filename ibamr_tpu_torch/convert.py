@@ -3,7 +3,8 @@ compute from the same inputs. Every leaf goes through ``np.asarray``;
 this module imports neither JAX nor ``ibamr_tpu`` and works on any
 objects with the reference's field names. Like every entry point of the
 port, each converter places its tensors on ``cuda`` unless it is passed
-``device="cpu"``, and raises without a GPU.
+``device="cpu"``, and raises without a GPU; the FE meshes stay host
+arrays, as in both packages.
 """
 
 from __future__ import annotations
@@ -12,6 +13,11 @@ import numpy as np
 import torch
 
 from ibamr_tpu_torch.device import resolve_device
+from ibamr_tpu_torch.fe.fem import FEAssembly
+from ibamr_tpu_torch.fe.mesh import FEMesh
+from ibamr_tpu_torch.fe.surface import SurfaceMesh
+from ibamr_tpu_torch.integrators.cib import RigidBodies
+from ibamr_tpu_torch.integrators.constraint_ib import ConstraintIBState
 from ibamr_tpu_torch.integrators.ib import IBState
 from ibamr_tpu_torch.integrators.ib_open import IBOpenState
 from ibamr_tpu_torch.integrators.ins import INSState
@@ -115,3 +121,37 @@ def packed_buckets(b, device="cuda") -> PackedBuckets:
     return PackedBuckets(**fields,
                          tile_of_chunk=tensor(b.tile_of_chunk, device,
                                               torch.int32))
+
+
+def fe_mesh(m) -> FEMesh:
+    """An ``FEMesh`` (host arrays: nodes, connectivity, element type)."""
+    return FEMesh(nodes=np.array(m.nodes), elems=np.array(m.elems),
+                  elem_type=str(m.elem_type))
+
+
+def surface_mesh(m) -> SurfaceMesh:
+    """A ``SurfaceMesh`` (host arrays: nodes, connectivity, type)."""
+    return SurfaceMesh(nodes=np.array(m.nodes), elems=np.array(m.elems),
+                       elem_type=str(m.elem_type))
+
+
+def fe_assembly(a, device="cuda") -> FEAssembly:
+    """An ``FEAssembly``'s tables (connectivity as int64)."""
+    return FEAssembly(elems=tensor(a.elems, device, torch.int64),
+                      shape=tensor(a.shape, device),
+                      dNdX=tensor(a.dNdX, device), wdV=tensor(a.wdV, device),
+                      lumped_mass=tensor(a.lumped_mass, device),
+                      n_nodes=int(a.n_nodes), dim=int(a.dim))
+
+
+def rigid_bodies(b, device="cuda") -> RigidBodies:
+    """A ``RigidBodies`` (body ids as int64)."""
+    return RigidBodies(body_id=tensor(b.body_id, device, torch.int64),
+                       n_bodies=int(b.n_bodies))
+
+
+def constraint_ib_state(s, device="cuda") -> ConstraintIBState:
+    """A ``ConstraintIBState``'s leaves (ins, X, U_body)."""
+    return ConstraintIBState(ins=ins_state(s.ins, device),
+                             X=tensor(s.X, device),
+                             U_body=tensor(s.U_body, device))

@@ -38,6 +38,23 @@ class IBState(NamedTuple):
     mask: torch.Tensor    # (N,) 0/1 active-slot mask
 
 
+def check_fast_grid(fast, grid: StaggeredGrid) -> None:
+    """The guard every IB strategy shares: a transfer engine bakes in its
+    grid at construction, and calling it against another grid (a regrid,
+    or the fine window of a composite hierarchy whose shape equals the
+    engine's) must fail loudly instead of transferring with the wrong
+    dx or origin. The message prints the full geometry of both."""
+    eg = getattr(fast, "grid", None)
+    if eg is not None and (tuple(eg.n) != tuple(grid.n)
+                           or eg.x_lo != grid.x_lo
+                           or eg.x_up != grid.x_up):
+        raise ValueError(
+            f"fast engine grid (n={tuple(eg.n)}, x_lo={eg.x_lo}, "
+            f"x_up={eg.x_up}) != call grid (n={tuple(grid.n)}, "
+            f"x_lo={grid.x_lo}, x_up={grid.x_up}); rebuild the "
+            "engine for this grid")
+
+
 class IBMethod:
     """Marker-IB structure: force specs, delta kernel, an optional custom
     force ``force_fn(X, U, t)`` that replaces the specs' force, and an
@@ -76,17 +93,11 @@ class IBMethod:
             return None, None
         return r(ctx, X, weights=mask)
 
-    def _check_grid(self, grid: StaggeredGrid) -> None:
-        eg = self.fast.grid
-        if (eg.n, eg.x_lo, eg.x_up) != (grid.n, grid.x_lo, grid.x_up):
-            raise ValueError(f"fast engine grid {eg} != call grid {grid}; "
-                             "rebuild the engine for this grid")
-
     def interpolate_velocity(self, u: Vel, grid: StaggeredGrid,
                              X: torch.Tensor, mask: torch.Tensor,
                              ctx=None) -> torch.Tensor:
         if self.fast is not None:
-            self._check_grid(grid)
+            check_fast_grid(self.fast, grid)
             return self.fast.interpolate_vel(u, X, weights=mask, b=ctx)
         return interaction.interpolate_vel(u, grid, X, kernel=self.kernel,
                                            weights=mask)
@@ -95,7 +106,7 @@ class IBMethod:
                      X: torch.Tensor, mask: torch.Tensor,
                      ctx=None) -> Vel:
         if self.fast is not None:
-            self._check_grid(grid)
+            check_fast_grid(self.fast, grid)
             return self.fast.spread_vel(F, X, weights=mask, b=ctx)
         return interaction.spread_vel(F, grid, X, kernel=self.kernel,
                                       weights=mask)
@@ -137,14 +148,24 @@ class IBExplicitIntegrator:
         ib = self.ib
         u_n, X_n = state.ins.u, state.X
 
-        ctx_n = ib.prepare(X_n, state.mask)
+        # a strategy may lack the transfer context (prepare) or its
+        # half-step refresh (the FE strategies)
+        prep = getattr(ib, "prepare", None)
+        refresh = getattr(ib, "refresh", None)
+
+        def ctx_at(X):
+            return prep(X, state.mask) if prep is not None else None
+
+        ctx_n = ctx_at(X_n)
         U_n = ib.interpolate_velocity(u_n, grid, X_n, state.mask, ctx=ctx_n)
         refresh_hit = None
         if self.scheme == "midpoint":
             X_half = X_n + 0.5 * dt * U_n
-            ctx_h, refresh_hit = ib.refresh(ctx_n, X_half, state.mask)
+            ctx_h = None
+            if refresh is not None and ctx_n is not None:
+                ctx_h, refresh_hit = refresh(ctx_n, X_half, state.mask)
             if ctx_h is None:
-                ctx_h = ib.prepare(X_half, state.mask)
+                ctx_h = ctx_at(X_half)
         else:
             X_half, ctx_h = X_n, ctx_n
 

@@ -120,6 +120,7 @@ def test_gpu_entry_points_raise_without_a_gpu():
         lambda: gaussian_filter_symbol((8, 8), (0.1, 0.1), 0.2),
     ] + [lambda m=m, d=d: m.build(d) for m, d in drivers] \
         + [lambda m=m, d=d: m.run(d) for m, d in drivers]
+    new_calls += _structure_calls()
     for call in new_calls + [lambda: resolve_device(),
                  lambda: build_shell_example(n_cells=16, n_lat=8, n_lon=8),
                  lambda: build_shell_example(
@@ -135,6 +136,52 @@ def test_gpu_entry_points_raise_without_a_gpu():
             call()
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def _structure_calls():
+    """The structure models' entry points (IBFE, CIB, ConstraintIB and
+    their drivers), each called without ``device``."""
+    import numpy as np
+
+    from ibamr_tpu_torch.examples import (cib_ex0, cib_oscillating_cylinder,
+                                          constraint_ib_eel2d,
+                                          ib_explicit_filament2d,
+                                          ibfe_explicit_beam2d,
+                                          ibfe_explicit_ex0)
+    from ibamr_tpu_torch.fe import fem, mesh, surface
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators import cib, constraint_ib, ibfe
+    from ibamr_tpu_torch.models.fe_disc2d import build_fe_disc_example
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    disc = mesh.disc_mesh(n_rings=2)
+    sph = surface.sphere_surface_mesh(n_subdiv=1)
+    g2 = StaggeredGrid(n=(8, 8), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    bodies = cib.RigidBodies(body_id=torch.zeros(4, dtype=torch.int64),
+                             n_bodies=1)
+    W = fem.neo_hookean(1.0, 1.0)
+    calls = [
+        lambda: fem.build_assembly(disc),
+        lambda: fem.build_transfer_assembly(disc, 1),
+        lambda: surface.build_surface_assembly(sph),
+        lambda: ibfe.IBFEMethod(disc, W),
+        lambda: ibfe.IBFESurfaceMethod(sph,
+                                       surface.neo_hookean_membrane(1, 1)),
+        lambda: build_fe_disc_example(n_cells=8, n_rings=2),
+        lambda: cib.CIBMethod(g2, bodies),
+        lambda: cib.make_disc((0.5, 0.5), 0.2, 4),
+        lambda: cib.make_sphere((0.5,) * 3, 0.2, 2, 2),
+        lambda: constraint_ib.fill_disc((0.5, 0.5), 0.1, 0.05),
+    ]
+    for m in (cib_ex0, cib_oscillating_cylinder, constraint_ib_eel2d,
+              ib_explicit_filament2d, ibfe_explicit_beam2d,
+              ibfe_explicit_ex0):
+        db = parse_input_file(m.DEFAULT_INPUT)
+        calls.append(lambda m=m, db=db: m.run(db))
+        if hasattr(m, "build"):
+            calls.append(lambda m=m, db=db: m.build(db))
+    assert np.isfinite(disc.volume())
+    return calls
 
 
 def test_converters_default_to_the_gpu():
@@ -163,6 +210,11 @@ def test_converters_default_to_the_gpu():
            o_idx=np.array([1]), o_w=np.zeros(1), any_overflow=True,
            exceeded=False, x0=(np.zeros(4), np.zeros(4)),
            tile_of_chunk=np.zeros(4))
+    asm = NS(elems=np.zeros((1, 3), int), shape=np.ones((3, 3)),
+             dNdX=np.zeros((1, 3, 3, 2)), wdV=np.ones((1, 3)),
+             lumped_mass=np.ones(3), n_nodes=3, dim=2)
+    bodies = NS(body_id=np.zeros(2, int), n_bodies=1)
+    cib_state = NS(ins=ins, X=z3, U_body=np.zeros((1, 6)))
     calls = {"tensor": lambda **kw: convert.tensor(z3, **kw),
              "ins_state": lambda **kw: convert.ins_state(ins, **kw),
              "ib_state": lambda **kw: convert.ib_state(ib, **kw),
@@ -172,7 +224,11 @@ def test_converters_default_to_the_gpu():
                                                                  **kw),
              "force_specs": lambda **kw: convert.force_specs(specs, 2, **kw),
              "buckets": lambda **kw: convert.buckets(b, **kw),
-             "packed_buckets": lambda **kw: convert.packed_buckets(b, **kw)}
+             "packed_buckets": lambda **kw: convert.packed_buckets(b, **kw),
+             "fe_assembly": lambda **kw: convert.fe_assembly(asm, **kw),
+             "rigid_bodies": lambda **kw: convert.rigid_bodies(bodies, **kw),
+             "constraint_ib_state": lambda **kw: convert.constraint_ib_state(
+                 cib_state, **kw)}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
