@@ -101,6 +101,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ConstraintIB/eel2d/input2d`` as it is (2000 steps: swim_dx < 0 at
    the end, the first 20 steps against the CPU). The 2D structure
    paths run no hand kernel; a launch in them fails.
+14. adv    -- the IB + advection-diffusion driver, ``adv_diff_ex0.run``, on
+   the committed ``examples/adv_diff/ex0/input2d`` as it is (64^2, 128
+   markers, 100 steps, upwind scalar, f32): the scalar's total against
+   the time integral of the markers' sources, the area, the divergence,
+   the first 20 steps on the GPU against the CPU (X, u and the scalar),
+   and the warm steps/s.
+15. amr    -- the AMR drivers on their committed inputs as they are:
+   ``ib_explicit_ex0_amr.run`` (64^2, 400 steps, a regrid every 20) and
+   ``ib_explicit_ex4_amr.run`` (64^3, 120 steps, every 10): steps/s,
+   FGMRES restarts per projection, the window origin of every chunk, the
+   divergence under the solver's tolerance, the area or volume drift, and
+   the first steps on the GPU against the CPU (cut to ``EX0_AMR_CPU_STEPS``
+   and ``EX4_AMR_CPU_STEPS``, each past a regrid) with equal origins; the
+   composite projection replayed as CUDA graphs bitwise equal to eager;
+   then the moving-window scalar advance of ``DYN`` on GPU and CPU: equal
+   origins at every regrid, the composite total conserved. Both paths run
+   the scatter oracle: a hand-kernel launch fails.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -209,6 +226,26 @@ FIL_STEPS = 5             # of the input's 4000 (f32: 12 restarts a step)
 FIL_PARITY_STEPS = 2
 FIL_F64_STEPS = 100
 FIL_LENGTH_STEPS = 300
+ADV_INPUT = "examples/adv_diff/ex0/input2d"
+ADV_PARITY_STEPS = 20     # adv: steps of the GPU-vs-CPU check
+ADV_WARM = 100            # adv: steps of the warm leg after the run
+TOL_PARITY_Q = 1e-4       # GPU vs CPU scalar, relative to max|Q|
+ADV_TOTAL_TOL = 1e-5      # |scalar total - N t| / (N t): f32 sums
+ADV_DIV_BOUND = 1e-5      # the f32 run reaches max|div u| ~1e-7 on the CPU
+EX0_AMR_INPUT = "examples/IB/explicit/ex0_amr/input2d"
+EX4_AMR_INPUT = "examples/IB/explicit/ex4_amr/input3d"
+# the CPU legs of the AMR drivers, cut in steps (each past a regrid)
+EX0_AMR_CPU_STEPS = 21    # of 400: the regrid at step 20 and one step
+EX4_AMR_CPU_STEPS = 11    # of 120: the regrid at step 10 and one step
+AMR_WARM = 20             # amr: steps of the warm legs at the last window
+# |volume drift| of the shell's radial-sample proxy, which moves ~2% as a
+# taut shell settles: the bound of tests/test_amr_ins.py:197
+AMR_VOLUME_DRIFT = 3e-2
+# the moving-window advance of tests/test_amr_dynamic.py:122 (48^2, a
+# 12^2 window, 64 steps with a regrid every 4), in f32
+DYN = dict(n=48, box=12, kappa=1e-4, u0=0.7, threshold=0.03, steps=64,
+           regrid=4)
+DYN_TOTAL_TOL = 1e-5      # composite total, relative: f32 roundoff
 DEVICE = "cuda"
 # the TPU kernel each CUDA kernel replaces, and its source
 KERNELS = {
@@ -966,6 +1003,325 @@ def phase_walls(breakdown: bool = False) -> None:
         ]
         _stage_breakdown("walls", stages,
                          lambda: advance(integ, state, dt, 3), 3, warm_ms)
+
+
+def phase_adv(breakdown: bool = False) -> None:
+    """The IB + advection-diffusion driver on the committed input as it
+    is, on the card, in a temporary working directory: the scalar's total
+    against the time integral of the markers' sources, the area, the
+    divergence, the first steps against the CPU and the warm steps/s."""
+    from ibamr_tpu_torch.examples import adv_diff_ex0
+    from ibamr_tpu_torch.integrators.ib import polygon_area
+    from ibamr_tpu_torch.ops import interaction
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+
+    db = parse_input_file(os.path.join(ROOT, ADV_INPUT))
+    idb = db.get_database("INSStaggeredHierarchyIntegrator")
+    steps, dt = idb.get_int("num_steps"), idb.get_float("dt")
+    strength = db.get_database(
+        "AdvDiffSemiImplicitHierarchyIntegrator").get_float(
+        "source_strength")
+    timer = TimerManager.instance()
+    timer.reset()
+    (state, ad), files = _in_tmp(lambda: adv_diff_ex0.run(db, device=DEVICE))
+    run_s = timer.get("IBAdvDiff::advanceHierarchy").total
+    records = _records(files, db.get_database("Main").get_string(
+        "log_file"))
+    coupled, s0, _ = adv_diff_ex0.build(db, DEVICE)
+    area0 = float(polygon_area(s0.X))
+    n_mk = s0.X.shape[0]
+    warm, _ = _warm_steps_per_s(lambda st: coupled.step(*st, dt),
+                                (state, ad), ADV_WARM)
+    last = records[-1]
+    src_total = n_mk * strength * last["t"]
+    total_err = abs(last["scalar_total"] - src_total) / src_total
+    drift = abs(last["area"] - area0) / area0
+    divs = [r["max_div"] for r in records]
+    finite = all(isinstance(v, (int, float)) and math.isfinite(v)
+                 for r in records for v in r.values())
+    # the first steps on the card against the CPU, from the same build
+    cpu, cs, ca = adv_diff_ex0.build(db, "cpu")
+    gs, ga = s0, coupled.adv.initialize()
+    for _ in range(ADV_PARITY_STEPS):
+        gs, ga = coupled.step(gs, ga, dt)
+        cs, ca = cpu.step(cs, ca, dt)
+    ex = _rel(gs.X, cs.X)
+    eu = max(float((a.cpu() - b).abs().max()) for a, b in
+             zip(gs.ins.u, cs.ins.u)) / max(float(b.abs().max())
+                                             for b in cs.ins.u)
+    eq = _rel(ga.Q[0], ca.Q[0])
+    log(f"[adv] {ADV_INPUT} on {torch.cuda.get_device_name(0)}: grid "
+        f"{tuple(s0.ins.u[0].shape)}, {n_mk} markers, {steps} steps of "
+        f"dt={dt:g}, f32, upwind scalar: {steps / run_s:.3f} steps/s over "
+        f"the run (first chunk's set-up included), warm {warm:.3f} steps/s "
+        f"({ADV_WARM} steps from the end state, host clock and a "
+        f"synchronize)")
+    for r in records:
+        log(f"[adv] metrics {json.dumps(r)}")
+    log(f"[adv] scalar total {last['scalar_total']:.9g} against the "
+        f"sources' integral {src_total:.9g}: {total_err:.3e} (bound "
+        f"{ADV_TOTAL_TOL:g}); area {area0:.9g} -> {last['area']:.9g}, "
+        f"drift {drift:.3e} (bound {EX0_AREA_DRIFT}); max|div u| per "
+        f"record {['%.3e' % v for v in divs]} (bound {ADV_DIV_BOUND:g})")
+    log(f"[adv] first {ADV_PARITY_STEPS} steps GPU vs CPU: max|X_gpu-X_cpu|"
+        f"/max|X|={ex:.3e} (tol {TOL_PARITY_X:g}), max_d|u_gpu-u_cpu|/"
+        f"max|u|={eu:.3e} (tol {TOL_PARITY_U:g}), max|Q_gpu-Q_cpu|/max|Q|"
+        f"={eq:.3e} (tol {TOL_PARITY_Q:g})")
+    if not (finite and len(records) * db.get_database("Main").get_int(
+            "viz_dump_interval") == steps and int(ad.k) == steps):
+        raise AssertionError("adv: metrics not finite or the run incomplete")
+    if not (total_err <= ADV_TOTAL_TOL and drift < EX0_AREA_DRIFT
+            and max(divs) < ADV_DIV_BOUND):
+        raise AssertionError("adv: scalar not conserved, area drifted or "
+                             "the velocity not divergence-free")
+    if not (ex <= TOL_PARITY_X and eu <= TOL_PARITY_U
+            and eq <= TOL_PARITY_Q):
+        raise AssertionError("adv: GPU and CPU steps disagree")
+    if breakdown:
+        integ, adv = coupled.integ, coupled.adv
+        grid = integ.ins.grid
+        src = interaction.spread(
+            torch.full((n_mk,), strength, device=DEVICE), grid, state.X,
+            centering="cell", kernel=integ.ib.kernel, weights=state.mask)
+
+        def steps3():
+            st = (state, ad)
+            for _ in range(3):
+                st = coupled.step(*st, dt)
+
+        stages = [
+            ("ib step", lambda: integ.step(state, dt)),
+            ("source spread", lambda: interaction.spread(
+                torch.full((n_mk,), strength, device=DEVICE), grid, state.X,
+                centering="cell", kernel=integ.ib.kernel,
+                weights=state.mask)),
+            ("scalar step", lambda: adv.step(ad, dt, u=state.ins.u,
+                                             sources=[src])),
+        ]
+        _stage_breakdown("adv", stages, steps3, 3, 1e3 / warm)
+
+
+def _amr_driver_leg(label, mod, path, cpu_steps, drift_key, its):
+    """One AMR driver on its committed input as it is, on the card, then
+    its first ``cpu_steps`` on the card and on the CPU from fresh builds:
+    returns (integ, state, records, run s, warm steps/s, restarts of the
+    run, the parity errors, the CPU leg's origins)."""
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+
+    db = parse_input_file(os.path.join(ROOT, path))
+    idb = db.get_database("INSStaggeredHierarchyIntegrator")
+    dt = idb.get_float("dt")
+    log_file = db.get_database("Main").get_string("log_file")
+    timer = TimerManager.instance()
+    timer.reset()
+    del its[:]
+    (integ, state), files = _in_tmp(lambda: mod.run(db, device=DEVICE))
+    run_s = timer.get("IB::advanceHierarchy").total
+    run_its = list(its)
+    records = _records(files, log_file)
+    warm, _ = _warm_steps_per_s(lambda s: integ.step(s, dt), state,
+                                AMR_WARM)
+    idb.put("num_steps", cpu_steps)
+    (gi, gs), gfiles = _in_tmp(lambda: mod.run(db, device=DEVICE))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            ci_, cs = mod.run(db, device="cpu")
+            crec = [json.loads(ln) for ln in open(log_file)]
+        finally:
+            os.chdir(cwd)
+    grec = _records(gfiles, log_file)
+    ex = _rel(gs.X, cs.X)
+    scale = max(float(c.abs().max()) for c in cs.fluid.uf)
+    eu = max(float((a.cpu() - b).abs().max()) for a, b in
+             zip(gs.fluid.uf + gs.fluid.uc, cs.fluid.uf + cs.fluid.uc)) / scale
+    origins = ([r["window_lo"] for r in grec], [r["window_lo"] for r in crec])
+    return dict(integ=integ, state=state, records=records, run_s=run_s,
+                warm=warm, its=run_its, ex=ex, eu=eu, origins=origins,
+                full_origins=[r["window_lo"] for r in records[:len(crec)]],
+                boxes=(gi.box, ci_.box), db=db, drift_key=drift_key,
+                label=label)
+
+
+def _dynamic_leg(device):
+    """The moving-window advance of ``DYN`` on ``device`` in f32; returns
+    (the origin after each regrid chunk, the final state, total drift,
+    steps/s of the advance)."""
+    from ibamr_tpu_torch.amr_dynamic import DynamicTwoLevelAdvDiff
+    from ibamr_tpu_torch.grid import StaggeredGrid
+
+    n = DYN["n"]
+    grid = StaggeredGrid(n=(n, n), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    sim = DynamicTwoLevelAdvDiff(
+        grid, (DYN["box"],) * 2, kappa=DYN["kappa"], scheme="upwind",
+        u_fn=lambda c, d: torch.full_like(c[0], DYN["u0"] if d == 0
+                                          else 0.0),
+        tag_threshold=DYN["threshold"], dtype=torch.float32, device=device)
+    state = sim.initialize(lambda c: torch.exp(
+        -((c[0] - 0.3) ** 2 + (c[1] - 0.5) ** 2) / 0.07 ** 2))
+    t0_total = float(sim.total(state))
+    dt = 0.25 * grid.dx[0] / DYN["u0"] / 2
+    los = [state.lo.tolist()]
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DYN["steps"] // DYN["regrid"]):
+        state = sim.advance(state, dt, DYN["regrid"],
+                            regrid_interval=DYN["regrid"])
+        los.append(state.lo.tolist())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    rate = DYN["steps"] / (time.perf_counter() - t0)
+    drift = abs(float(sim.total(state)) - t0_total) / abs(t0_total)
+    return los, state, drift, rate, t0_total
+
+
+def phase_amr(breakdown: bool = False) -> None:
+    """The two AMR drivers on their committed inputs as they are, on the
+    card (ex0_amr: 400 steps of the 2D membrane in a stream, a regrid
+    every 20; ex4_amr: 120 steps of the 3D shell, every 10), each with
+    its first steps on the CPU; then the moving-window scalar advance of
+    ``DYN`` on both. FGMRES restarts per projection, the window origins,
+    the divergence under the solver tolerance, the area or volume drift,
+    the scalar's composite total, and the warm steps/s."""
+    from ibamr_tpu_torch import amr_ins
+    from ibamr_tpu_torch.examples import (ib_explicit_ex0_amr,
+                                          ib_explicit_ex4_amr)
+
+    its = []
+    project = amr_ins.CompositeProjection.project
+
+    def counted(self, *a, **k):
+        out = project(self, *a, **k)
+        its.append(self.last_solve_stats["iters"])
+        return out
+
+    amr_ins.CompositeProjection.project = counted
+    try:
+        legs = [_amr_driver_leg("ex0_amr", ib_explicit_ex0_amr,
+                                EX0_AMR_INPUT, EX0_AMR_CPU_STEPS,
+                                "area_drift", its),
+                _amr_driver_leg("ex4_amr", ib_explicit_ex4_amr,
+                                EX4_AMR_INPUT, EX4_AMR_CPU_STEPS,
+                                "volume_drift", its)]
+    finally:
+        amr_ins.CompositeProjection.project = project
+    ok = True
+    for leg in legs:
+        r, integ = leg["records"], leg["integ"]
+        idb = leg["db"].get_database("INSStaggeredHierarchyIntegrator")
+        steps = r[-1]["step"]
+        proj = integ.core.proj
+        speed = max(float(c.abs().max()) for c in leg["state"].fluid.uf)
+        div_bound = proj.tol * speed / min(integ.core.dx_f)
+        divs = [x["max_div"] for x in r]
+        drifts = [abs(x[leg["drift_key"]]) for x in r]
+        drift_bound = EX0_AREA_DRIFT if leg["drift_key"] == "area_drift" \
+            else AMR_VOLUME_DRIFT
+        moves = sum(a["window_lo"] != b["window_lo"]
+                    for a, b in zip(r[:-1], r[1:]))
+        finite = all(math.isfinite(v) for x in r for k, v in x.items()
+                     if k != "window_lo")
+        log(f"[amr] {leg['label']} on {torch.cuda.get_device_name(0)}: "
+            f"coarse {integ.grid.n}, window {integ.box.shape} x2, "
+            f"{leg['state'].X.shape[0]} markers, {steps} steps of dt="
+            f"{idb.get_float('dt'):g}, f32: {steps / leg['run_s']:.3f} "
+            f"steps/s over the run (regrids, metrics and viz included), "
+            f"warm {leg['warm']:.3f} steps/s ({AMR_WARM} steps at the last "
+            f"window, host clock and a synchronize); FGMRES restarts per "
+            f"projection mean {np.mean(leg['its']):.3f} max "
+            f"{max(leg['its'])} over {len(leg['its'])} projections "
+            f"({steps} steps and the moved regrids)")
+        log(f"[amr] {leg['label']} window origins per chunk "
+            f"{[x['window_lo'] for x in r]} ({moves} moves); max|div u| "
+            f"max {max(divs):.3e} (bound tol*max|u|/dx_f = "
+            f"{div_bound:.3e}); |{leg['drift_key']}| max {max(drifts):.3e} "
+            f"(bound {drift_bound})")
+        log(f"[amr] {leg['label']} first {idb.get_int('num_steps')} "
+            f"steps GPU vs CPU: origins {leg['origins'][0]} / "
+            f"{leg['origins'][1]}, full run's {leg['full_origins']}; "
+            f"max|X_gpu-X_cpu|/max|X|={leg['ex']:.3e} (tol "
+            f"{TOL_PARITY_X:g}), max|u_gpu-u_cpu|/max|u|={leg['eu']:.3e} "
+            f"(tol {TOL_PARITY_U:g})")
+        ok &= (finite and max(divs) < div_bound
+               and max(drifts) < drift_bound
+               and leg["origins"][0] == leg["origins"][1]
+               == leg["full_origins"]
+               and leg["boxes"][0] == leg["boxes"][1]
+               and leg["ex"] <= TOL_PARITY_X and leg["eu"] <= TOL_PARITY_U
+               and int(leg["state"].fluid.k) == steps)
+    glos, gst, gdrift, grate, total0 = _dynamic_leg(DEVICE)
+    clos, cst, cdrift, crate, _ = _dynamic_leg("cpu")
+    eq = _rel(gst.Qf, cst.Qf)
+    log(f"[amr] DynamicTwoLevelAdvDiff {DYN['n']}^2, window "
+        f"{DYN['box']}^2, {DYN['steps']} steps, regrid every "
+        f"{DYN['regrid']}, f32: GPU {grate:.3f} steps/s, CPU {crate:.3f} "
+        f"(regrids included); origins GPU {glos} CPU {clos}; composite "
+        f"total {total0:.9g}, drift GPU {gdrift:.3e} CPU {cdrift:.3e} "
+        f"(bound {DYN_TOTAL_TOL:g}); fine field GPU vs CPU {eq:.3e} (tol "
+        f"{TOL_PARITY_Q:g})")
+    ok &= (glos == clos and glos[-1][0] > glos[0][0]
+           and gdrift <= DYN_TOTAL_TOL and eq <= TOL_PARITY_Q)
+    bitwise = _graphed_projection_bitwise(legs[0])
+    log(f"[amr] ex0_amr projection at the end state, operator and "
+        f"preconditioner replayed as CUDA graphs, bitwise equal to the "
+        f"eager flat operators with equal restarts: {bitwise}")
+    ok &= bitwise
+    if not ok:
+        raise AssertionError("amr: a check failed (see the [amr] lines)")
+    if breakdown:
+        _amr_breakdown(legs[0])
+
+
+def _graphed_projection_bitwise(leg) -> bool:
+    """The composite projection at a leg's end state through the graphed
+    operators against a fresh projection on the eager flat operators."""
+    from ibamr_tpu_torch.amr_ins import CompositeProjection
+    from ibamr_tpu_torch.solvers.krylov import flat_operators
+
+    integ, fl = leg["integ"], leg["state"].fluid
+    graphed = integ.core.proj
+    eager = CompositeProjection(integ.grid, integ.box, tol=graphed.tol,
+                                m=graphed.m, restarts=graphed.restarts,
+                                device=DEVICE)
+    eager.flat_ops = lambda t: flat_operators(eager.operator,
+                                              eager._precondition, t)
+    a = graphed.project(fl.uc, fl.uf)
+    b = eager.project(fl.uc, fl.uf)
+    return (graphed.last_solve_stats["iters"]
+            == eager.last_solve_stats["iters"]) and all(
+        torch.equal(x, y) for x, y in zip(a[0] + a[1] + a[2:],
+                                          b[0] + b[1] + b[2:]))
+
+
+def _amr_breakdown(leg):
+    """The stages of one two-level IB step at the state the ex0_amr run
+    reached: interp, force, spread, the two-level predictor and the
+    composite projection."""
+    integ, s = leg["integ"], leg["state"]
+    dt = leg["db"].get_database(
+        "INSStaggeredHierarchyIntegrator").get_float("dt")
+    core, fl = integ.core, s.fluid
+    U = integ._interp(fl.uf, s.X, s.mask)
+    F = integ.ib.compute_force(s.X, U, fl.t)
+    f_c, f_f = integ._spread_two_level(F, s.X, s.mask)
+    stages = [
+        ("interp", lambda: integ._interp(fl.uf, s.X, s.mask)),
+        ("force", lambda: integ.ib.compute_force(s.X, U, fl.t)),
+        ("spread", lambda: integ._spread_two_level(F, s.X, s.mask)),
+        ("projection", lambda: core.proj.project(fl.uc, fl.uf)),
+        ("fluid step", lambda: core.step(fl, dt, f_c=f_c, f_f=f_f)),
+    ]
+
+    def steps3():
+        st = s
+        for _ in range(3):
+            st = integ.step(st, dt)
+
+    _stage_breakdown("ex0_amr", stages, steps3, 3, 1e3 / leg["warm"])
 
 
 def _stage_breakdown(label, stages, steps_fn, nsteps, step_ms):
@@ -2002,9 +2358,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,parity,path,hybrid,driver,auto,ex0,"
-                    "ibfe3d,walls,open,ibfe,rigid",
+                    "ibfe3d,walls,open,ibfe,rigid,adv,amr",
                     help="comma-separated subset of kernels,parity,path,"
-                    "hybrid,driver,auto,ex0,ibfe3d,walls,open,ibfe,rigid "
+                    "hybrid,driver,auto,ex0,ibfe3d,walls,open,ibfe,rigid,"
+                    "adv,amr "
                     "(add 'breakdown' for a profile of the step of each "
                     "that runs, the flagship's auto leg included; hybrid "
                     "reads the path phase's time)")
@@ -2064,9 +2421,11 @@ def main(argv=None) -> int:
         ran = phase_ibfe3d("breakdown" in phases)
         launches = {k: launches[k] + ran[k] for k in launches}
         clock.lap("ibfe3d")
-    # the 2D drivers run no hand kernel: any launch in them fails
+    # the 2D drivers and the AMR paths (the scatter oracle) run no hand
+    # kernel: any launch in them fails
     for name, fn in (("walls", phase_walls), ("open", phase_open),
-                     ("ibfe", phase_ibfe), ("rigid", phase_rigid)):
+                     ("ibfe", phase_ibfe), ("rigid", phase_rigid),
+                     ("adv", phase_adv), ("amr", phase_amr)):
         if name in phases:
             _assert_no_launches(name, lambda: fn("breakdown" in phases))
             clock.lap(name)

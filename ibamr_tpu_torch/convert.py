@@ -12,10 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ibamr_tpu_torch.amr import FineBox
+from ibamr_tpu_torch.amr_dynamic import AMRState
+from ibamr_tpu_torch.amr_ins import TwoLevelIBState, TwoLevelINSState
 from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.fe.fem import FEAssembly
 from ibamr_tpu_torch.fe.mesh import FEMesh
 from ibamr_tpu_torch.fe.surface import SurfaceMesh
+from ibamr_tpu_torch.integrators.adv_diff import AdvDiffState
 from ibamr_tpu_torch.integrators.cib import RigidBodies
 from ibamr_tpu_torch.integrators.constraint_ib import ConstraintIBState
 from ibamr_tpu_torch.integrators.ib import IBState
@@ -155,3 +159,38 @@ def constraint_ib_state(s, device="cuda") -> ConstraintIBState:
     return ConstraintIBState(ins=ins_state(s.ins, device),
                              X=tensor(s.X, device),
                              U_body=tensor(s.U_body, device))
+
+
+def adv_diff_state(s, device="cuda") -> AdvDiffState:
+    """An ``AdvDiffState``'s leaves (Q, n_prev, t, k)."""
+    return AdvDiffState(Q=tuple(tensor(c, device) for c in s.Q),
+                        n_prev=tuple(tensor(c, device) for c in s.n_prev),
+                        t=tensor(s.t, device),
+                        k=tensor(s.k, device, torch.int32))
+
+
+def amr_state(s, device="cuda") -> AMRState:
+    """An ``AMRState``'s leaves (Qc, Qf, the int32 window origin lo)."""
+    return AMRState(Qc=tensor(s.Qc, device), Qf=tensor(s.Qf, device),
+                    lo=tensor(s.lo, device, torch.int32))
+
+
+def two_level_ins_state(s, device="cuda") -> TwoLevelINSState:
+    """A ``TwoLevelINSState``'s leaves (uc, uf, t, k)."""
+    return TwoLevelINSState(uc=tuple(tensor(c, device) for c in s.uc),
+                            uf=tuple(tensor(c, device) for c in s.uf),
+                            t=tensor(s.t, device),
+                            k=tensor(s.k, device, torch.int32))
+
+
+def two_level_ib_state(s, device="cuda") -> TwoLevelIBState:
+    """A ``TwoLevelIBState``'s leaves (fluid, X, U, mask)."""
+    return TwoLevelIBState(fluid=two_level_ins_state(s.fluid, device),
+                           X=tensor(s.X, device), U=tensor(s.U, device),
+                           mask=tensor(s.mask, device))
+
+
+def fine_box(b) -> FineBox:
+    """A ``FineBox`` (static host geometry: no device)."""
+    return FineBox(lo=tuple(int(v) for v in b.lo),
+                   shape=tuple(int(v) for v in b.shape), ratio=int(b.ratio))

@@ -43,8 +43,16 @@ class StaggeredGrid:
                      for lo, hi, nd in zip(self.x_lo, self.x_up, self.n))
 
     @property
+    def lengths(self) -> Tuple[float, ...]:
+        return tuple(hi - lo for lo, hi in zip(self.x_lo, self.x_up))
+
+    @property
     def cell_volume(self) -> float:
         return math.prod(self.dx)
+
+    @property
+    def num_cells(self) -> int:
+        return math.prod(self.n)
 
     def cell_coords_1d(self, axis: int, dtype, device) -> torch.Tensor:
         """Cell-center coordinates along one axis, shape (n[axis],)."""
@@ -63,6 +71,11 @@ class StaggeredGrid:
         shape[axis] = self.n[axis]
         return coords_1d.reshape(shape)
 
+    def cell_centers(self, dtype, device) -> Tuple[torch.Tensor, ...]:
+        """Broadcastable cell-center coordinate tensors, one per axis."""
+        return tuple(self._bcast(self.cell_coords_1d(a, dtype, device), a)
+                     for a in range(self.dim))
+
     def face_centers(self, comp: int, dtype, device) -> Tuple[torch.Tensor, ...]:
         """Broadcastable coordinates of velocity-component ``comp`` faces:
         face coordinate along axis ``comp``, cell-center along the others."""
@@ -70,3 +83,10 @@ class StaggeredGrid:
             self._bcast(self.face_coords_1d(a, dtype, device) if a == comp
                         else self.cell_coords_1d(a, dtype, device), a)
             for a in range(self.dim))
+
+    def position_to_index(self, x: torch.Tensor) -> torch.Tensor:
+        """Continuous cell index of physical position(s) x (..., dim):
+        cell i contains [i, i+1) in these units."""
+        lo = torch.as_tensor(self.x_lo, dtype=x.dtype, device=x.device)
+        dx = torch.as_tensor(self.dx, dtype=x.dtype, device=x.device)
+        return (x - lo) / dx

@@ -17,9 +17,10 @@ structure data they fill (port of ``ibamr_tpu/io/structures.py``):
 Indices are 0-based within the structure. Parsing is host-side numpy
 (the reference's Python parser; its C++ fast path waits for
 ``io/native.py``). ``StructureData.force_specs`` turns springs, beams and
-targets into device force specs; anchors become targets through
-``anchors_to_targets``. The rod, mass, source and instrument tables are
-read and written; their converters wait for the modules they feed.
+targets into device force specs, ``StructureData.source_specs`` the
+source table into point sources; anchors become targets through
+``anchors_to_targets``. The rod, mass and instrument tables are read and
+written; their converters wait for the modules they feed.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from ibamr_tpu_torch.ops import forces
+from ibamr_tpu_torch.ops import sources as source_mod
 
 
 def _read_table(path: str, min_cols: int, max_cols: int,
@@ -119,6 +121,16 @@ class StructureData:
                                           self.vertices[idx], damping, **kw)
         return forces.make_force_specs(springs, beams, targets,
                                        num_markers=off + self.num_markers)
+
+    def source_specs(self, dtype=torch.float32, device="cuda"):
+        """Device source specs from the .source table, indices shifted by
+        ``index_offset`` (None without sources)."""
+        if self.sources is None or not len(self.sources):
+            return None
+        s = self.sources
+        return source_mod.make_sources(
+            s[:, 0].astype(np.int64) + self.index_offset, s[:, 1],
+            dtype=dtype, device=device)
 
     def anchors_to_targets(self, stiffness: float) -> None:
         """Realize anchored nodes (.anchor) as stiff target points at

@@ -3,10 +3,10 @@ of ``ibamr_tpu/io/vtk.py``).
 
 ``.vti`` ImageData for cell fields (ascii, or inline base64 binary),
 ``.vtp`` PolyData for markers and fiber polylines, and ``.pvd``
-collections indexing a time series, byte for byte as the reference writes
-them. Fields come as numpy arrays (callers move tensors to the host once
-per dump). The AMR hierarchy (``.vtm``) and FE mesh (``.vtu``) writers
-wait for the AMR and FE modules.
+collections indexing a time series, and the ``.vtm`` multiblock index of
+an AMR hierarchy (one ``.vti`` per level), byte for byte as the reference
+writes them. Fields come as numpy arrays (callers move tensors to the host
+once per dump). The FE mesh (``.vtu``) writer is not ported.
 """
 
 from __future__ import annotations
@@ -181,6 +181,7 @@ class VizWriter:
         os.makedirs(viz_dir, exist_ok=True)
         self._eul: list = []
         self._lag: list = []
+        self._amr: list = []
 
     def dump(self, step: int, t: float,
              cell_fields: Optional[Dict] = None,
@@ -204,9 +205,20 @@ class VizWriter:
             self._lag.append((t, fname))
         self._write_pvd()
 
+    def dump_hierarchy(self, step: int, t: float, level_grids,
+                       level_fields, fmt: str = "ascii") -> None:
+        """AMR time-series dump: a .vtm multiblock (one ImageData per
+        level) per step, indexed by hierarchy.pvd."""
+        fname = f"amr_{step:06d}.vtm"
+        write_vtm_hierarchy(os.path.join(self.viz_dir, fname),
+                            level_grids, level_fields, fmt=fmt)
+        self._amr.append((t, fname))
+        self._write_pvd()
+
     def _write_pvd(self) -> None:
         for series, name in ((self._eul, "eulerian.pvd"),
-                             (self._lag, "lagrangian.pvd")):
+                             (self._lag, "lagrangian.pvd"),
+                             (self._amr, "hierarchy.pvd")):
             if not series:
                 continue
             rows = "\n".join(
@@ -217,3 +229,35 @@ class VizWriter:
                     + rows + '\n  </Collection>\n</VTKFile>\n')
             with open(os.path.join(self.viz_dir, name), "w") as f:
                 f.write(body)
+
+
+def write_vtm_hierarchy(path: str, level_grids, level_fields,
+                        fmt: str = "ascii") -> str:
+    """AMR hierarchy dump: one ``.vti`` ImageData per level (each with its
+    own origin and spacing) referenced from a ``.vtm``
+    vtkMultiBlockDataSet index. ``level_grids``: one StaggeredGrid per
+    level (level 0 the root, finer levels e.g. ``box.fine_grid(parent)``);
+    ``level_fields``: per-level dict for :func:`write_vti`."""
+    if len(level_grids) != len(level_fields):
+        raise ValueError(
+            f"{len(level_grids)} level grids vs {len(level_fields)} "
+            "field dicts — a level would be silently dropped")
+    base = os.path.splitext(os.path.basename(path))[0]
+    d = os.path.dirname(path) or "."
+    os.makedirs(d, exist_ok=True)
+    rows = []
+    for l, (g, fields) in enumerate(zip(level_grids, level_fields)):
+        fname = f"{base}_L{l}.vti"
+        write_vti(os.path.join(d, fname), g, fields, fmt=fmt)
+        rows.append(f'    <Block index="{l}" name="level_{l}">\n'
+                    f'      <DataSet index="0" file="{fname}"/>\n'
+                    f'    </Block>')
+    body = ('<?xml version="1.0"?>\n'
+            '<VTKFile type="vtkMultiBlockDataSet" version="1.0" '
+            'byte_order="LittleEndian">\n'
+            '  <vtkMultiBlockDataSet>\n'
+            + "\n".join(rows)
+            + '\n  </vtkMultiBlockDataSet>\n</VTKFile>\n')
+    with open(path, "w") as f:
+        f.write(body)
+    return path

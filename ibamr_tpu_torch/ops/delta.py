@@ -26,7 +26,11 @@ KernelSpec = Tuple[int, KernelFn]  # (support in grid points, phi(r))
 
 
 def _phi_piecewise_linear(r: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(1.0 - torch.abs(r), min=0.0)
+    # |r| by a select and the clamp by ``maximum``: at the kinks their
+    # derivatives are the reference's (+1 at r = 0 where torch.abs gives
+    # 0; the mean of both sides at the clamp, where torch.clamp gives 1)
+    return torch.maximum(1.0 - torch.where(r >= 0.0, r, -r),
+                         torch.zeros_like(r))
 
 
 def _phi_cosine(r: torch.Tensor) -> torch.Tensor:
@@ -74,18 +78,19 @@ def _phi_ib3(r: torch.Tensor) -> torch.Tensor:
 
 def _phi_ib4(r: torch.Tensor) -> torch.Tensor:
     a = torch.abs(r)
+    # the linear part first: autograd then sums the root's terms of the
+    # derivative before the linear one, so at r = +-1/2, where the root's
+    # terms cancel, the gradient is exact whatever the last bit of sqrt
+    lin_in = 3.0 - 2.0 * a
     s_in = _safe_sqrt(1.0 + 4.0 * a - 4.0 * a * a)
-    inner = 0.125 * (3.0 - 2.0 * a + s_in)
+    inner = 0.125 * (lin_in + s_in)
     s_out = _safe_sqrt(-7.0 + 12.0 * a - 4.0 * a * a)
     outer = 0.125 * (5.0 - 2.0 * a - s_out)
     return torch.where(a < 1.0, inner,
                        torch.where(a < 2.0, outer, torch.zeros_like(a)))
 
 
-def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
-    """``x ** y`` by binary exponentiation, the products in the order the
-    reference's integer power takes them (the B-splines' truncated
-    powers cancel, so their rounding shows)."""
+def _integer_pow_raw(x: torch.Tensor, y: int) -> torch.Tensor:
     acc = None
     while y > 0:
         if y & 1:
@@ -94,6 +99,49 @@ def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
         if y:
             x = x * x
     return torch.ones_like(x) if acc is None else acc
+
+
+class _IntegerPow(torch.autograd.Function):
+    """``x ** y`` with the reference's derivative rule, in both modes:
+    ``t * (y * x ** (y - 1))`` as one factor, where autograd through the
+    product chain would sum one term per factor in its own order."""
+
+    @staticmethod
+    def forward(x, y):
+        out = _integer_pow_raw(x, y)
+        # y = 1 returns x itself, which autograd cannot save and return
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, y = inputs
+        ctx.y = y
+        ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
+
+    @staticmethod
+    def _slope(x, y):
+        return y * _integer_pow_raw(x, y - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * _IntegerPow._slope(x, ctx.y), None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        (x,) = ctx.saved_tensors
+        return t * _IntegerPow._slope(x, ctx.y)
+
+
+def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
+    """``x ** y`` by binary exponentiation, the products in the order the
+    reference's integer power takes them (the B-splines' truncated
+    powers cancel, so their rounding shows), and its derivative by the
+    reference's rule."""
+    if y == 0:
+        return torch.ones_like(x)
+    return _IntegerPow.apply(x, y)
 
 
 def _make_bspline(order: int) -> KernelFn:
@@ -105,10 +153,13 @@ def _make_bspline(order: int) -> KernelFn:
             for j in range(k + 1)]
 
     def phi(r: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros_like(r)
+        zeros = torch.zeros_like(r)
+        out = zeros
         for j in range(k + 1):
+            # ``maximum``, not ``clamp``: at the knot its derivative is
+            # the mean of both sides, the reference's
             out = out + coef[j] * _integer_pow(
-                torch.clamp(r + 0.5 * k - j, min=0.0), k - 1)
+                torch.maximum(r + 0.5 * k - j, zeros), k - 1)
         return torch.where(torch.abs(r) < 0.5 * k, out, torch.zeros_like(r))
 
     return phi

@@ -79,3 +79,36 @@ def test_stokes_solve_graphed_equals_eager():
         assert all(torch.equal(x, z) for x, z in zip(a.u + (a.p,),
                                                      u + (p,)))
     assert len(solver._graphs) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_composite_projection_graphed_equals_eager(dim):
+    """The two-level composite projection with its FGMRES operator and
+    preconditioner replayed as CUDA graphs against the same projection on
+    the eager flat operators: equal restarts, bitwise equal fields."""
+    _needs_gpu()
+    from ibamr_tpu_torch.amr import FineBox
+    from ibamr_tpu_torch.amr_ins import CompositeProjection
+
+    n = (32, 24, 16)[:dim]
+    grid = StaggeredGrid(n=n, x_lo=(0.0,) * dim, x_up=(1.0,) * dim)
+    box = FineBox(lo=(4,) * dim, shape=(8,) * dim)
+    rng = np.random.default_rng(dim)
+    uc = tuple(torch.tensor(0.1 * rng.standard_normal(n), device="cuda",
+                            dtype=torch.float32) for _ in range(dim))
+    uf = tuple(torch.tensor(0.1 * rng.standard_normal(tuple(
+        m + (1 if a == d else 0) for a, m in enumerate(box.fine_n))),
+        device="cuda", dtype=torch.float32) for d in range(dim))
+    graphed = CompositeProjection(grid, box, tol=3e-6)
+    eager = CompositeProjection(grid, box, tol=3e-6)
+    eager.flat_ops = lambda t: flat_operators(eager.operator,
+                                              eager._precondition, t)
+    for _ in range(2):                       # the cached graphs again
+        a = graphed.project(uc, uf)
+        b = eager.project(uc, uf)
+        assert graphed.last_solve_stats["iters"] == \
+            eager.last_solve_stats["iters"]
+        for x, y in zip(a[0] + a[1] + a[2:], b[0] + b[1] + b[2:]):
+            assert torch.equal(x, y)
+    assert graphed._graphs is not None and eager._graphs is None

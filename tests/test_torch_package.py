@@ -41,6 +41,13 @@ def test_forbidden_name_check_tells_the_prefix_apart():
 def test_fresh_import_loads_neither_jax_nor_the_jax_package():
     mods = _port_modules()
     assert "ibamr_tpu_torch.ops.cuda_interaction" in mods
+    assert {"ibamr_tpu_torch.amr", "ibamr_tpu_torch.amr_dynamic",
+            "ibamr_tpu_torch.amr_ins", "ibamr_tpu_torch.ops.godunov",
+            "ibamr_tpu_torch.ops.sources",
+            "ibamr_tpu_torch.integrators.adv_diff",
+            "ibamr_tpu_torch.examples.adv_diff_ex0",
+            "ibamr_tpu_torch.examples.ib_explicit_ex0_amr",
+            "ibamr_tpu_torch.examples.ib_explicit_ex4_amr"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -120,7 +127,7 @@ def test_gpu_entry_points_raise_without_a_gpu():
         lambda: gaussian_filter_symbol((8, 8), (0.1, 0.1), 0.2),
     ] + [lambda m=m, d=d: m.build(d) for m, d in drivers] \
         + [lambda m=m, d=d: m.run(d) for m, d in drivers]
-    new_calls += _structure_calls()
+    new_calls += _structure_calls() + _transport_calls()
     for call in new_calls + [lambda: resolve_device(),
                  lambda: build_shell_example(n_cells=16, n_lat=8, n_lon=8),
                  lambda: build_shell_example(
@@ -184,6 +191,37 @@ def _structure_calls():
     return calls
 
 
+def _transport_calls():
+    """The scalar-transport and two-level AMR entry points and their
+    drivers, each called without ``device``."""
+    from ibamr_tpu_torch import amr, amr_dynamic, amr_ins
+    from ibamr_tpu_torch.examples import (adv_diff_ex0, ib_explicit_ex0_amr,
+                                          ib_explicit_ex4_amr)
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.adv_diff import (
+        AdvDiffSemiImplicitIntegrator, TransportedQuantity)
+    from ibamr_tpu_torch.ops.sources import make_sources
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    g = StaggeredGrid(n=(16, 16), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    box = amr.FineBox(lo=(4, 4), shape=(4, 4))
+    calls = [
+        lambda: AdvDiffSemiImplicitIntegrator(g, [TransportedQuantity("C")]),
+        lambda: make_sources([0], [1.0]),
+        lambda: amr.TwoLevelAdvDiff(g, box),
+        lambda: amr_dynamic.DynamicTwoLevelAdvDiff(g, (4, 4)),
+        lambda: amr_ins.CompositeProjection(g, box),
+        lambda: amr_ins.TwoLevelINS(g, box),
+    ]
+    for m, ex in ((adv_diff_ex0, "adv_diff/ex0/input2d"),
+                  (ib_explicit_ex0_amr, "IB/explicit/ex0_amr/input2d"),
+                  (ib_explicit_ex4_amr, "IB/explicit/ex4_amr/input3d")):
+        db = parse_input_file(str(ROOT / "examples" / ex))
+        calls += [lambda m=m, db=db: m.run(db),
+                  lambda m=m, db=db: m.build(db)]
+    return calls
+
+
 def test_converters_default_to_the_gpu():
     """Every ``convert`` function places its tensors on the card unless it
     is passed ``device="cpu"``, like every entry point of the port."""
@@ -215,6 +253,11 @@ def test_converters_default_to_the_gpu():
              lumped_mass=np.ones(3), n_nodes=3, dim=2)
     bodies = NS(body_id=np.zeros(2, int), n_bodies=1)
     cib_state = NS(ins=ins, X=z3, U_body=np.zeros((1, 6)))
+    ad = NS(Q=(z3,), n_prev=(z3,), t=0.0, k=3)
+    amr_s = NS(Qc=np.ones((8, 8)), Qf=np.ones((4, 4)), lo=np.array([2, 3]))
+    fluid2 = NS(uc=(z3, z3), uf=(np.zeros((3, 3)), np.zeros((2, 4))),
+                t=0.0, k=1)
+    ib2 = NS(fluid=fluid2, X=z3, U=z3, mask=np.ones(2))
     calls = {"tensor": lambda **kw: convert.tensor(z3, **kw),
              "ins_state": lambda **kw: convert.ins_state(ins, **kw),
              "ib_state": lambda **kw: convert.ib_state(ib, **kw),
@@ -228,13 +271,24 @@ def test_converters_default_to_the_gpu():
              "fe_assembly": lambda **kw: convert.fe_assembly(asm, **kw),
              "rigid_bodies": lambda **kw: convert.rigid_bodies(bodies, **kw),
              "constraint_ib_state": lambda **kw: convert.constraint_ib_state(
-                 cib_state, **kw)}
+                 cib_state, **kw),
+             "adv_diff_state": lambda **kw: convert.adv_diff_state(ad, **kw),
+             "amr_state": lambda **kw: convert.amr_state(amr_s, **kw),
+             "two_level_ins_state": lambda **kw:
+                 convert.two_level_ins_state(fluid2, **kw),
+             "two_level_ib_state": lambda **kw: convert.two_level_ib_state(
+                 ib2, **kw)}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
         leaves = list(_leaves(call(device="cpu")))
         assert leaves and all(t.device.type == "cpu" for t in leaves), name
     assert convert.buckets(b, device="cpu").counts.tolist() == [1, 0, 0, 0]
+    a = convert.amr_state(amr_s, device="cpu")
+    assert a.lo.dtype == torch.int32 and a.lo.tolist() == [2, 3]
+    assert convert.adv_diff_state(ad, device="cpu").k.dtype == torch.int32
+    box = convert.fine_box(NS(lo=np.array([2, 3]), shape=(4, 6), ratio=2))
+    assert (box.lo, box.shape, box.fine_n) == ((2, 3), (4, 6), (8, 12))
 
 
 def _leaves(obj):

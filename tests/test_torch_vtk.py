@@ -68,3 +68,34 @@ def test_viz_writer_series_bytes_equal(tmp_path):
 def test_base64_matches_the_reference_encoder():
     data = bytes(range(256)) * 3 + b"\x00\x01"
     assert tvtk._b64(data) == jvtk._b64(data)
+
+
+@pytest.mark.parametrize("fmt", ["ascii", "binary"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_vtm_hierarchy_bytes_equal(tmp_path, dim, fmt):
+    """The AMR hierarchy dump: the .vtm index, one .vti per level and the
+    hierarchy.pvd series, byte for byte."""
+    from ibamr_tpu.amr import FineBox as JBox
+    from ibamr_tpu_torch.amr import FineBox as TBox
+
+    jg, tg = _grids(dim)
+    lo, shape = (1,) * dim, (2,) * dim
+    jf, tf = JBox(lo, shape).fine_grid(jg), TBox(lo, shape).fine_grid(tg)
+    rng = np.random.default_rng(5)
+    jw = jvtk.VizWriter(str(tmp_path / "jax"), jg)
+    tw = tvtk.VizWriter(str(tmp_path / "port"), tg)
+    for step, t in ((50, 0.0125), (100, 0.025)):
+        fields = [{"u": tuple(rng.standard_normal(tg.n) for _ in range(dim))},
+                  {"u": tuple(rng.standard_normal(tf.n) for _ in range(dim)),
+                   "p": rng.standard_normal(tf.n)}]
+        jw.dump_hierarchy(step, t, [jg, jf], fields, fmt=fmt)
+        tw.dump_hierarchy(step, t, [tg, tf], fields, fmt=fmt)
+    names = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert "hierarchy.pvd" in names and "amr_000100_L1.vti" in names
+    for name in names:
+        assert (tmp_path / "jax" / name).read_bytes() == \
+            (tmp_path / "port" / name).read_bytes(), name
+    with pytest.raises(ValueError, match="dropped"):
+        tvtk.write_vtm_hierarchy(str(tmp_path / "x.vtm"), [tg, tf],
+                                 fields[:1])
