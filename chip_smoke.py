@@ -118,6 +118,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    then the moving-window scalar advance of ``DYN`` on GPU and CPU: equal
    origins at every regrid, the composite total conserved. Both paths run
    the scatter oracle: a hand-kernel launch fails.
+16. mlamr  -- the L-level hierarchy: the ex4_amr shell (its committed
+   input: 64^3, 576 markers, a 0.4 stream, f32) on a three-level
+   ``MultiLevelIBINS``, each window sized by the input's ``tag_buffer`` at
+   its level and placed by ``regrid_multilevel_ib``, dt the smaller of the
+   input's and ``stable_dt(cfl=0.5)``, ``ML_STEPS`` steps with a regrid
+   every ``ML_REGRID``, with the default preconditioner and with
+   ``FACMultilevelPoisson`` through ``precond_factory``: steps/s, restarts
+   per projection, the divergence under tol*max|u|/dx_finest, the box
+   chain; the reduced hierarchy ``ML_PARITY`` on the card and the CPU
+   (equal chains and restarts); ``MultiLevelAdvDiff`` with three levels
+   on adv_diff ex0's 64^2 grid (the composite total) and
+   ``MultiBoxDynamicAdvDiff`` with two windows, on both (equal origins).
+17. implicit -- ``IBImplicitIntegrator`` on the committed ex0 membrane
+   (f64): midpoint at 3x the input's dt and backward Euler at 14x,
+   ``IMP1_STEPS`` steps each, Newton iterations per step, steps/s, the
+   area drift, the first ``IMP1_CPU`` steps against the CPU (equal
+   Newton counts); ``TwoLevelIBImplicit`` on the committed ex0_amr at 10x
+   its dt with regrids; the IMP disc (128^2), the GIB twisted rod
+   (64^3), the penalty membrane (64^2) and an ``InstrumentPanel`` on the
+   cavity's flow (closed loops read ~0), each on the card and the CPU;
+   the implicit step refusing the ``pallas_packed`` engine. Both phases
+   run the scatter oracle: a hand-kernel launch fails.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -207,7 +229,8 @@ IBFE3D = dict(n_cells=128, radius=0.25, n_subdiv=5,
               dt=5e-4, seed=3)
 IBFE3D_STEPS = 5
 CIB_INPUT = "examples/CIB/ex0/input2d"
-CIB_STEPS = 10            # of the input's 40 (8 s a step: 1,200 CG)
+CIB_STEPS = 6             # of the input's 40 (8 s a step: 1,200 CG);
+# cut from 10 to make room for the mlamr and implicit phases
 CIB_PARITY_STEPS = 2      # at f64, GPU vs CPU
 TOL_RIGID_U = 1e-5        # max|U_gpu - U_cpu| / max|U|
 OSC_INPUT = "examples/CIB/oscillating_cylinder/input2d"
@@ -246,6 +269,37 @@ AMR_VOLUME_DRIFT = 3e-2
 DYN = dict(n=48, box=12, kappa=1e-4, u0=0.7, threshold=0.03, steps=64,
            regrid=4)
 DYN_TOTAL_TOL = 1e-5      # composite total, relative: f32 roundoff
+# mlamr: the ex4_amr shell on three levels, each window sized by the
+# input's tag_buffer at its level, a regrid every 10 steps
+ML_STEPS = 40
+ML_REGRID = 10
+ML_WARM = 10              # warm steps after the run
+# mlamr's GPU-vs-CPU leg: 64^3 with three levels takes ~190 s a step on
+# eight CPU cores, so the CPU leg runs the 3D set-up of
+# tests/test_amr_ins_multilevel.py:274 (24^3 root, the 10x10 shell), f32,
+# with 14^3 windows (the shell and its 3-cell margins need 13) and the
+# level-2 window placed off center, so that it moves at the first regrid
+ML_PARITY = dict(n=24, center=(0.5, 0.5, 0.5), shape=14,
+                 boxes=((5, 5, 5), (5, 7, 7)), steps=4, regrid=2, dt=5e-4)
+# mlamr's scalar legs: three levels on adv_diff ex0's grid (f32 total), and
+# K = 2 windows at the size of tests/test_amr_multibox.py's regrid run
+ML_ADV = dict(kappa=1e-3, steps=100, tol=1e-5)
+MB = dict(n=48, box=14, kappa=2e-3, amp=0.25, threshold=0.02, steps=60,
+          regrid=6, dt=2.5e-4)
+# implicit: the ex0 membrane (f64), the first IMP1_CPU steps also on the CPU
+IMP1_STEPS = 20
+IMP1_CPU = 3
+IMPLICIT_AREA_DRIFT = 0.02
+# implicit: ex0_amr at 10x its dt, a regrid every 2 steps (f64)
+IMP2 = dict(factor=10.0, steps=4, regrid=2)
+# implicit: the structure models, each on the card and the CPU (f32)
+IMPD = dict(n=128, steps=20, dt=5e-4)
+# the rod's dt of tests/test_rods.py (5e-4) is past the explicit limit at
+# 64^3: the energy grows 70x in 10 steps; half of it relaxes the twist
+GIB = dict(n=64, steps=20, dt=2.5e-4)
+PEN = dict(n=64, steps=20, dt=1e-3)
+PANEL_STEPS = 200
+PANEL_CLOSED_TOL = 1e-2   # |flux| of a closed loop / (max|u| x its length)
 DEVICE = "cuda"
 # the TPU kernel each CUDA kernel replaces, and its source
 KERNELS = {
@@ -1192,14 +1246,7 @@ def phase_amr(breakdown: bool = False) -> None:
                                           ib_explicit_ex4_amr)
 
     its = []
-    project = amr_ins.CompositeProjection.project
-
-    def counted(self, *a, **k):
-        out = project(self, *a, **k)
-        its.append(self.last_solve_stats["iters"])
-        return out
-
-    amr_ins.CompositeProjection.project = counted
+    project = _count_projections(amr_ins.CompositeProjection, its)
     try:
         legs = [_amr_driver_leg("ex0_amr", ib_explicit_ex0_amr,
                                 EX0_AMR_INPUT, EX0_AMR_CPU_STEPS,
@@ -1274,6 +1321,604 @@ def phase_amr(breakdown: bool = False) -> None:
         raise AssertionError("amr: a check failed (see the [amr] lines)")
     if breakdown:
         _amr_breakdown(legs[0])
+
+
+# -- the L-level hierarchy (mlamr) --------------------------------------------
+
+def _count_projections(cls, its):
+    """Wrap ``cls.project`` to append each projection's restart count to
+    ``its``; returns the original to restore."""
+    project = cls.project
+
+    def counted(self, *a, **k):
+        out = project(self, *a, **k)
+        its.append(self.last_solve_stats["iters"])
+        return out
+
+    cls.project = counted
+    return project
+
+
+def _ml_shell(device, fac: bool):
+    """The ex4_amr shell (its committed input as it is: 64^3, 576 markers,
+    a 0.4 stream, IB_4, f32) on a three-level ``MultiLevelIBINS``: each
+    window sized by ``box_from_markers`` with the input's ``tag_buffer``
+    at its level (level 1 is ex4_amr's own window) and placed by
+    ``regrid_multilevel_ib``'s rule; the stream seeded on every level."""
+    from ibamr_tpu_torch.amr_ins import box_from_markers
+    from ibamr_tpu_torch.amr_ins_multilevel import MultiLevelIBINS
+    from ibamr_tpu_torch.examples import ib_explicit_ex4_amr
+    from ibamr_tpu_torch.solvers.fac import FACMultilevelPoisson
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    db = parse_input_file(os.path.join(ROOT, EX4_AMR_INPUT))
+    pad = db.get_database("GriddingAlgorithm").get_int("tag_buffer")
+    idb = db.get_database("INSStaggeredHierarchyIntegrator")
+    u0 = db.get_database("Stream").get_float("u0")
+    two, st2, _ = ib_explicit_ex4_amr.build(db, device)
+    grid, X = two.grid, st2.X
+    b1 = two.box
+    b2 = box_from_markers(b1.fine_grid(grid), X.cpu().numpy(), pad=pad)
+    factory = (lambda lv: FACMultilevelPoisson(
+        lv, dtype=torch.float32, device=device).precondition) if fac \
+        else None
+    ml = MultiLevelIBINS(grid, [b1, b2], two.ib,
+                         rho=idb.get_float("rho", 1.0), mu=idb.get_float("mu"),
+                         proj_tol=two.core.proj.tol, precond_factory=factory,
+                         device=device)
+    state = ml.initialize(X, vel_fn=lambda d, mesh: (u0 if d == 0 else 0.0)
+                          + 0.0 * mesh[0])
+    dt = min(idb.get_float("dt"), float(ml.core.stable_dt(state.fluid,
+                                                          cfl=0.5)))
+    return ml, state, dt
+
+
+def _ml_run(device, fac: bool, steps: int, regrid: int):
+    """``_ml_shell`` advanced ``steps`` steps with a regrid every
+    ``regrid``: (integ, state, dt, seconds, restarts per projection, the
+    box chain after each chunk)."""
+    from ibamr_tpu_torch import amr_ins_multilevel as aml
+
+    its = []
+    ml, state, dt = _ml_shell(device, fac)
+    chain = [tuple(spec.box.lo for spec in ml.levels[1:])]
+    orig = _count_projections(aml.MultiLevelCompositeProjection, its)
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        ml, state = aml.advance_multilevel_ib_regridding(
+            ml, state, dt, steps, regrid_interval=regrid,
+            on_chunk=lambda i, s, done: chain.append(
+                tuple(spec.box.lo for spec in i.levels[1:])))
+        _sync(device)
+        secs = time.perf_counter() - t0
+    finally:
+        aml.MultiLevelCompositeProjection.project = orig
+    return ml, state, dt, secs, its, chain
+
+
+def _sync(device):
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def _ml_breakdown(ml, s, dt, warm):
+    """The stages of one three-level IB step: interp, force, the spread
+    restricted down the hierarchy, the predictor and the projection."""
+    core, fl = ml.core, s.fluid
+    uf = fl.us[-1]
+    U = ml._interp(uf, s.X, s.mask)
+    F = ml.ib.compute_force(s.X, U, fl.t)
+    fs = ml._spread_forces(F, s.X, s.mask)
+    stars = core._predict(fl.us, dt, fs=fs)
+    stages = [
+        ("interp", lambda: ml._interp(uf, s.X, s.mask)),
+        ("force", lambda: ml.ib.compute_force(s.X, U, fl.t)),
+        ("spread", lambda: ml._spread_forces(F, s.X, s.mask)),
+        ("predictor", lambda: core._predict(fl.us, dt, fs=fs)),
+        ("projection", lambda: core.proj.project(stars)),
+    ]
+
+    def steps3():
+        st = s
+        for _ in range(3):
+            st = ml.step(st, dt)
+
+    _stage_breakdown("mlamr", stages, steps3, 3, 1e3 / warm)
+
+
+def _graphed_ml_projection_bitwise(ml, state) -> bool:
+    """The L-level projection at ``state`` through the graphed operators
+    against a fresh projection on the eager flat operators."""
+    from ibamr_tpu_torch.amr_ins_multilevel import \
+        MultiLevelCompositeProjection
+    from ibamr_tpu_torch.solvers.krylov import flat_operators
+
+    graphed = ml.core.proj
+    eager = MultiLevelCompositeProjection(
+        ml.levels, tol=graphed.tol, m=graphed.m, restarts=graphed.restarts,
+        device=DEVICE)
+    eager.flat_ops = lambda t: flat_operators(eager.operator,
+                                              eager._precondition, t)
+    a, ia = graphed.project(state.fluid.us)
+    b, ib = eager.project(state.fluid.us)
+    return ia == ib and all(torch.equal(x, y) for ua, ub in zip(a, b)
+                            for x, y in zip(ua, ub))
+
+
+def _ml_parity_leg(device):
+    """The reduced hierarchy of the GPU-vs-CPU leg (``ML_PARITY``): the
+    3D shell of tests/test_amr_ins_multilevel.py:274 on its 24^3 root, in
+    a 0.4 stream, f32, with the window chain re-placed every ``regrid``
+    steps: (state, restarts, chain)."""
+    from ibamr_tpu_torch import amr_ins_multilevel as aml
+    from ibamr_tpu_torch.amr import FineBox
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ib import IBMethod
+    from ibamr_tpu_torch.models.shell3d import make_spherical_shell
+
+    p = ML_PARITY
+    g = StaggeredGrid(n=(p["n"],) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
+    s = make_spherical_shell(10, 10, 0.07, p["center"], 1.0,
+                             rest_length_factor=0.8)
+    ib = IBMethod(s.force_specs(dtype=torch.float32, device=device),
+                  kernel="IB_4")
+    boxes = [FineBox(lo=lo, shape=(p["shape"],) * 3) for lo in p["boxes"]]
+    ml = aml.MultiLevelIBINS(g, boxes, ib, mu=0.05, proj_tol=3e-6,
+                             device=device)
+    st = ml.initialize(torch.tensor(s.vertices, dtype=torch.float32,
+                                    device=device),
+                       vel_fn=lambda d, mesh: (0.4 if d == 0 else 0.0)
+                       + 0.0 * mesh[0])
+    its, chain = [], []
+    orig = _count_projections(aml.MultiLevelCompositeProjection, its)
+    try:
+        ml, st = aml.advance_multilevel_ib_regridding(
+            ml, st, p["dt"], p["steps"], regrid_interval=p["regrid"],
+            on_chunk=lambda i, s_, done: chain.append(
+                tuple(spec.box.lo for spec in i.levels[1:])))
+    finally:
+        aml.MultiLevelCompositeProjection.project = orig
+    return st, its, chain
+
+
+def _ml_scalar(device):
+    """``MultiLevelAdvDiff`` on adv_diff ex0's grid (``ML_ADV``), three
+    levels, f32: (the final fields, the relative drift of the composite
+    total, steps/s)."""
+    from ibamr_tpu_torch.amr import FineBox
+    from ibamr_tpu_torch.amr_multilevel import MultiLevelAdvDiff
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    geo = parse_input_file(os.path.join(ROOT, ADV_INPUT)).get_database(
+        "CartesianGeometry")
+    grid = StaggeredGrid(n=tuple(geo.get_int_array("n_cells")),
+                         x_lo=tuple(geo.get_float_array("x_lo")),
+                         x_up=tuple(geo.get_float_array("x_up")))
+    n = grid.n[0]
+    boxes = [FineBox(lo=(n // 4,) * 2, shape=(n // 2,) * 2)] * 2
+    sim = MultiLevelAdvDiff(grid, boxes, kappa=ML_ADV["kappa"],
+                            vel_fn=lambda m: (0.7 + 0.0 * m[0],
+                                              0.3 + 0.0 * m[1]),
+                            dtype=torch.float32, device=device)
+    Q = sim.initialize(lambda c: torch.exp(
+        -((c[0] - 0.4) ** 2 + (c[1] - 0.5) ** 2) / 0.02))
+    t0 = float(sim.total(Q))
+    dt = 0.2 * grid.dx[0]
+    _sync(device)
+    t = time.perf_counter()
+    for _ in range(ML_ADV["steps"]):
+        Q = sim.step(Q, dt)
+    _sync(device)
+    rate = ML_ADV["steps"] / (time.perf_counter() - t)
+    return Q, abs(float(sim.total(Q)) - t0) / abs(t0), rate
+
+
+def _multibox_leg(device):
+    """``MultiBoxDynamicAdvDiff`` with K = 2 windows at the size of
+    tests/test_amr_multibox.py's regrid-invariance run (``MB``), f32: the
+    origins at every regrid, the final state, steps/s."""
+    from ibamr_tpu_torch.amr_multibox import MultiBoxDynamicAdvDiff
+    from ibamr_tpu_torch.grid import StaggeredGrid
+
+    n = MB["n"]
+    grid = StaggeredGrid(n=(n, n), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+
+    def u_fn(c, d):
+        return -MB["amp"] * torch.sin(2.0 * math.pi * c[0]) if d == 0 \
+            else torch.zeros_like(c[0])
+
+    sim = MultiBoxDynamicAdvDiff(grid, (MB["box"],) * 2, K=2,
+                                 kappa=MB["kappa"], u_fn=u_fn,
+                                 tag_threshold=MB["threshold"],
+                                 dtype=torch.float32, device=device)
+    st = sim.initialize(lambda c: sum(torch.exp(
+        -((c[0] - x0) ** 2 + (c[1] - 0.5) ** 2) / 0.06 ** 2)
+        for x0 in (0.35, 0.65)))
+    t0 = float(sim.total(st))
+    los = [st.lo.tolist()]
+    _sync(device)
+    t = time.perf_counter()
+    for _ in range(MB["steps"] // MB["regrid"]):
+        st = sim.advance(sim.regrid_state(st), MB["dt"], MB["regrid"])
+        los.append(st.lo.tolist())
+    _sync(device)
+    rate = MB["steps"] / (time.perf_counter() - t)
+    return los, st, abs(float(sim.total(st)) - t0) / abs(t0), rate
+
+
+def phase_mlamr(breakdown: bool = False) -> None:
+    """The L-level hierarchy: the ex4_amr shell on three levels on the
+    card (``ML_STEPS`` steps, a regrid every ``ML_REGRID``) with the
+    default preconditioner and with ``FACMultilevelPoisson`` through
+    ``precond_factory``; the reduced hierarchy of ``ML_PARITY`` on the
+    card and on the CPU; the three-level scalar advance and the two-window
+    multi-box advance on both."""
+    ok = True
+    runs = {}
+    for fac in (False, True):
+        ml, st, dt, secs, its, chain = _ml_run(DEVICE, fac, ML_STEPS,
+                                               ML_REGRID)
+        fg = ml.finest_grid
+        speed = max(float(c.abs().max()) for c in st.fluid.us[-1])
+        div = float(ml.core.max_divergence(st.fluid))
+        bound = ml.core.proj.tol * speed / min(fg.dx)
+        warm, st = _warm_steps_per_s(lambda s: ml.step(s, dt), st, ML_WARM)
+        name = "FACMultilevelPoisson" if fac else "FFT + fast-diag"
+        runs[fac] = its
+        log(f"[mlamr] ex4_amr shell on 3 levels, preconditioner {name}, "
+            f"on {torch.cuda.get_device_name(0)}: root {ml.grid.n}, "
+            f"windows {[spec.box.shape for spec in ml.levels[1:]]} "
+            f"(finest {fg.n}, dx {fg.dx[0]:.6g}), {st.X.shape[0]} markers, "
+            f"dt {dt:.6g} = min(input dt, stable_dt(cfl=0.5)), f32: "
+            f"{ML_STEPS} steps in {secs:.3f} s ({ML_STEPS / secs:.3f} "
+            f"steps/s, regrids included), warm {warm:.3f} steps/s "
+            f"({ML_WARM} steps); FGMRES restarts per projection mean "
+            f"{np.mean(its):.3f} max {max(its)} over {len(its)}; box chain "
+            f"per chunk {chain}; max|div u| {div:.3e} (bound "
+            f"tol*max|u|/dx_finest {bound:.3e})")
+        ok &= (bool(torch.isfinite(st.X).all()) and div < bound
+               and int(st.fluid.k) == ML_STEPS + ML_WARM)
+        if breakdown and not fac:
+            _ml_breakdown(ml, st, dt, warm)
+        if not fac:
+            bitwise = _graphed_ml_projection_bitwise(ml, st)
+            log(f"[mlamr] L-level projection at the end state, operator "
+                f"and preconditioner replayed as CUDA graphs, bitwise "
+                f"equal to the eager flat operators with equal restarts: "
+                f"{bitwise}")
+            ok &= bitwise
+        del ml, st
+    gst, git, gch = _ml_parity_leg(DEVICE)
+    cst, cit, cch = _ml_parity_leg("cpu")
+    ex = _rel(gst.X, cst.X)
+    scale = max(float(c.abs().max()) for u in cst.fluid.us for c in u)
+    eu = max(float((a.cpu() - b).abs().max()) for ga, ca in
+             zip(gst.fluid.us, cst.fluid.us) for a, b in zip(ga, ca)) / scale
+    log(f"[mlamr] GPU vs CPU, {ML_PARITY['n']}^3 root with two "
+        f"{ML_PARITY['shape']}^3 windows, {ML_PARITY['steps']} steps, "
+        f"regrid every {ML_PARITY['regrid']}: chains {gch} / {cch}; restarts {git} / "
+        f"{cit}; max|X_gpu-X_cpu|/max|X|={ex:.3e} (tol {TOL_PARITY_X:g}), "
+        f"max|u_gpu-u_cpu|/max|u|={eu:.3e} (tol {TOL_PARITY_U:g})")
+    ok &= (gch == cch and git == cit and ex <= TOL_PARITY_X
+           and eu <= TOL_PARITY_U)
+    gQ, gdrift, grate = _ml_scalar(DEVICE)
+    cQ, cdrift, crate = _ml_scalar("cpu")
+    eq = max(_rel(a, b) for a, b in zip(gQ, cQ))
+    log(f"[mlamr] MultiLevelAdvDiff 3 levels on adv_diff ex0's "
+        f"{gQ[0].shape} grid, {ML_ADV['steps']} steps, f32: GPU {grate:.3f} "
+        f"steps/s, CPU {crate:.3f}; composite total drift GPU {gdrift:.3e} "
+        f"CPU {cdrift:.3e} (bound {ML_ADV['tol']:g}); GPU vs CPU {eq:.3e} "
+        f"(tol {TOL_PARITY_Q:g})")
+    ok &= gdrift <= ML_ADV["tol"] and eq <= TOL_PARITY_Q
+    glos, gmb, gmd, gmr = _multibox_leg(DEVICE)
+    clos, cmb, cmd, cmr = _multibox_leg("cpu")
+    emb = _rel(gmb.Qf, cmb.Qf)
+    log(f"[mlamr] MultiBoxDynamicAdvDiff K=2, {MB['n']}^2, windows "
+        f"{MB['box']}^2, {MB['steps']} steps, regrid every {MB['regrid']}, "
+        f"f32: GPU {gmr:.3f} steps/s, CPU {cmr:.3f}; origins GPU {glos} "
+        f"CPU {clos}; total drift GPU {gmd:.3e} CPU {cmd:.3e}; windows GPU "
+        f"vs CPU {emb:.3e}")
+    ok &= (glos == clos and gmd <= ML_ADV["tol"] and emb <= TOL_PARITY_Q)
+    if not ok:
+        raise AssertionError("mlamr: a check failed (see the [mlamr] lines)")
+
+
+# -- implicit coupling and the structure models (implicit) --------------------
+
+def _ex0_implicit(device, scheme, factor, steps):
+    """The committed ex0 membrane (64^2, 128 markers, scatter oracle) at
+    f64 under ``IBImplicitIntegrator`` at ``factor`` x the input's dt:
+    (state, Newton iterations per step, area drift, seconds, X after
+    ``IMP1_CPU`` steps, the step function)."""
+    from ibamr_tpu_torch.integrators.ib import polygon_area
+    from ibamr_tpu_torch.integrators.ib_implicit import IBImplicitIntegrator
+    from ibamr_tpu_torch.models.membrane2d import build_membrane_example
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    db = parse_input_file(os.path.join(ROOT, EX0_INPUT))
+    dt = factor * db.get_database("INSStaggeredHierarchyIntegrator") \
+        .get_float("dt")
+    integ, st = build_membrane_example(input_db=db, dtype=torch.float64,
+                                       device=device)
+    imp = IBImplicitIntegrator(integ.ins, integ.ib, scheme=scheme)
+    a0 = float(polygon_area(st.X))
+    its, X_mark = [], None
+    _sync(device)
+    t = time.perf_counter()
+    for k in range(steps):
+        st = imp.step(st, dt)
+        its.append(imp.last_solve_stats["iters"])
+        if k + 1 == IMP1_CPU:
+            X_mark = st.X.clone()
+    _sync(device)
+    secs = time.perf_counter() - t
+    return (st, its, abs(float(polygon_area(st.X)) - a0) / a0, secs, X_mark,
+            lambda s: imp.step(s, dt))
+
+
+def _ex0_amr_implicit(device):
+    """``TwoLevelIBImplicit`` (backward Euler, the class's projection
+    settings) on the committed ex0_amr membrane and stream at 10x its dt,
+    f64, with a regrid every ``IMP2["regrid"]`` steps: (integ, state,
+    Newton iterations per step, the window after each chunk, seconds,
+    dt)."""
+    from ibamr_tpu_torch.amr_ins import box_from_markers
+    from ibamr_tpu_torch.examples.ib_explicit_ex0_amr import add_stream
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators import ib_implicit as ii
+    from ibamr_tpu_torch.integrators.ib import IBMethod
+    from ibamr_tpu_torch.models.membrane2d import make_circle_membrane
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    db = parse_input_file(os.path.join(ROOT, EX0_AMR_INPUT))
+    idb = db.get_database("INSStaggeredHierarchyIntegrator")
+    mem = db.get_database("Membrane")
+    geo = db.get_database("CartesianGeometry")
+    grid = StaggeredGrid(n=tuple(geo.get_int_array("n_cells")),
+                         x_lo=tuple(geo.get_float_array("x_lo")),
+                         x_up=tuple(geo.get_float_array("x_up")))
+    struct = make_circle_membrane(
+        mem.get_int("num_markers"), mem.get_float("radius"),
+        tuple(mem.get_float_array("center")),
+        stiffness=mem.get_float("stiffness"),
+        rest_length_factor=mem.get_float("rest_length_factor"),
+        aspect=mem.get_float("aspect"))
+    ib = IBMethod(struct.force_specs(dtype=torch.float64, device=device),
+                  kernel="IB_4")
+    box = box_from_markers(grid, struct.vertices, pad=db.get_database(
+        "GriddingAlgorithm").get_int("tag_buffer"))
+    imp = ii.TwoLevelIBImplicit(grid, box, ib, rho=idb.get_float("rho"),
+                                mu=idb.get_float("mu"),
+                                scheme="backward_euler", device=device)
+    st = add_stream(imp.initialize(torch.tensor(
+        struct.vertices, dtype=torch.float64, device=device)),
+        db.get_database("Stream").get_float("u0"))
+    dt = IMP2["factor"] * idb.get_float("dt")
+    its, boxes = [], [imp.box.lo]
+
+    def chunk(integ, s, dt_, n):
+        for _ in range(n):
+            s = integ.step(s, dt_)
+            its.append(integ.last_solve_stats["iters"])
+        return s
+
+    _sync(device)
+    t = time.perf_counter()
+    imp, st = ii.advance_with_regrids(
+        imp, st, dt, IMP2["steps"], IMP2["regrid"], chunk,
+        ii.regrid_two_level_ib_implicit,
+        on_chunk=lambda i, s, done: boxes.append(i.box.lo))
+    _sync(device)
+    return imp, st, its, boxes, time.perf_counter() - t, dt
+
+
+def _imp_leg(device):
+    """The IMP elastic disc of ``material_disc`` on 128^2 (``IMPD``), f32:
+    (state, mean |det F - 1| before and after, seconds, max|u|)."""
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators import imp
+    from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator
+
+    n = IMPD["n"]
+    g = StaggeredGrid(n=(n, n), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    X0, V0 = imp.material_disc(g, (0.5, 0.5), 0.15, points_per_cell=2,
+                               dtype=torch.float32, device=device)
+    integ = imp.IMPExplicitIntegrator(
+        INSStaggeredIntegrator(g, mu=0.05, rho=1.0, device=device),
+        imp.IMPMethod(V0, imp.NeoHookean(5.0, 5.0), device=device))
+    st = integ.initialize(X0)
+    st = st._replace(F=st.F @ torch.tensor([[1.1, 0.0], [0.0, 1.0]],
+                                           device=device))
+    j0 = float((integ.jacobians(st) - 1.0).abs().mean())
+    _sync(device)
+    t = time.perf_counter()
+    for _ in range(IMPD["steps"]):
+        st = integ.step(st, IMPD["dt"])
+    _sync(device)
+    return st, j0, float((integ.jacobians(st) - 1.0).abs().mean()), \
+        time.perf_counter() - t, float(st.ins.u[0].abs().max())
+
+
+def _gib_leg(device):
+    """The twisted rod of tests/test_rods.py on 64^3 (``GIB``), f32:
+    (state, energy before and after, seconds)."""
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators import gib
+    from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator
+    from ibamr_tpu_torch.ops import rods
+
+    n, L = 12, 0.4
+    g = StaggeredGrid(n=(GIB["n"],) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
+    X, D = rods.straight_rod(n, L, origin=(0.5, 0.5, 0.3),
+                             dtype=torch.float32, device=device)
+    w = torch.zeros(n, 3, device=device)
+    w[:, 2] = 3.0 * torch.arange(n, device=device) * L / (n - 1)
+    idx = np.arange(n - 1)
+    specs = rods.make_rods(idx, idx + 1, 0.05, 0.0, 5.0, L / (n - 1),
+                           device=device)
+    m = gib.GeneralizedIBMethod(INSStaggeredIntegrator(
+        g, mu=0.1, convective_op_type="none", device=device), specs)
+    st = m.initialize(X, rods.rotate_frames(D, w))
+    e0 = float(m.energy(st))
+    _sync(device)
+    t = time.perf_counter()
+    st = gib.advance_gib(m, st, GIB["dt"], GIB["steps"])
+    _sync(device)
+    return st, e0, float(m.energy(st)), time.perf_counter() - t
+
+
+def _penalty_leg(device):
+    """The massive membrane of tests/test_aux_ib.py on 64^2 (``PEN``), f32:
+    (state, the mean height before and after, seconds)."""
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ib import IBMethod
+    from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator
+    from ibamr_tpu_torch.integrators.penalty_ib import PenaltyIBIntegrator
+    from ibamr_tpu_torch.models.membrane2d import make_circle_membrane
+
+    n = PEN["n"]
+    g = StaggeredGrid(n=(n, n), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    s = make_circle_membrane(48, 0.12, (0.5, 0.6), stiffness=2.0,
+                             rest_length_factor=1.0)
+    integ = PenaltyIBIntegrator(
+        INSStaggeredIntegrator(g, mu=0.1, convective_op_type="none",
+                               device=device),
+        IBMethod(s.force_specs(device=device)), mass=np.full(48, 0.05),
+        stiffness=200.0, gravity=(0.0, -1.0))
+    st = integ.initialize(s.vertices)
+    y0 = float(st.ib.X[:, 1].mean())
+    _sync(device)
+    t = time.perf_counter()
+    for _ in range(PEN["steps"]):
+        st = integ.step(st, PEN["dt"])
+    _sync(device)
+    return st, y0, float(st.ib.X[:, 1].mean()), time.perf_counter() - t
+
+
+def _panel_leg(device):
+    """An ``InstrumentPanel`` on the cavity's committed flow after
+    ``PANEL_STEPS`` steps: three closed marker loops (circles) and one
+    open chain across the centerline: (readings, max|u|, loop lengths)."""
+    from ibamr_tpu_torch.examples import navier_stokes_cavity2d
+    from ibamr_tpu_torch.instruments import InstrumentPanel, make_meters
+    from ibamr_tpu_torch.integrators.ins import advance
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    db = parse_input_file(os.path.join(ROOT, CAVITY_INPUT))
+    dt = db.get_database("INSStaggeredHierarchyIntegrator").get_float("dt")
+    integ, st = navier_stokes_cavity2d.build(db, device)
+    st = advance(integ, st, dt, PANEL_STEPS)
+    loops, X, lengths = [], [], []
+    for (cx, cy, r) in ((0.5, 0.65, 0.2), (0.3, 0.3, 0.12),
+                        (0.7, 0.4, 0.15)):
+        th = 2 * np.pi * np.arange(64) / 64
+        loops.append(list(range(len(X), len(X) + 64)))
+        X += list(zip(cx + r * np.cos(th), cy + r * np.sin(th)))
+        lengths.append(2 * np.pi * r)
+    loops.append(list(range(len(X), len(X) + 33)))
+    X += [(0.5, y) for y in np.linspace(0.1, 0.9, 33)]
+    meters = make_meters(loops, closed=[True, True, True, False],
+                         device=device)
+    panel = InstrumentPanel(integ.grid, meters)
+    out = panel.readings(st.u, st.p, torch.tensor(
+        np.asarray(X), dtype=torch.float32, device=device))
+    speed = max(float(c.abs().max()) for c in st.u)
+    return out, speed, lengths
+
+
+def phase_implicit(breakdown: bool = False) -> None:
+    """Implicit IB and the remaining structure models: the committed ex0
+    membrane under ``IBImplicitIntegrator`` (midpoint at 3x the input's
+    dt, backward Euler at 14x, ``IMP1_STEPS`` steps each, f64) on the card
+    and its first ``IMP1_CPU`` steps on the CPU (equal Newton counts);
+    ``TwoLevelIBImplicit`` on the committed ex0_amr at 10x its dt with
+    regrids; the IMP disc, the GIB rod, the penalty membrane and an
+    instrument panel on the cavity's flow, each on the card and the CPU;
+    and the kernel engines refusing the implicit step."""
+    from ibamr_tpu_torch.integrators.ib_implicit import IBImplicitIntegrator
+    from ibamr_tpu_torch.models.shell3d import build_shell_example
+
+    ok = True
+    for scheme, factor in (("midpoint", 3.0), ("backward_euler", 14.0)):
+        st, its, drift, secs, gX, step = _ex0_implicit(
+            DEVICE, scheme, factor, IMP1_STEPS)
+        cst, cits, _, csecs, _, _ = _ex0_implicit("cpu", scheme, factor,
+                                                  IMP1_CPU)
+        gits = its[:IMP1_CPU]
+        ex = _rel(gX, cst.X)
+        log(f"[implicit] ex0 membrane (64^2, 128 markers, f64), {scheme} at "
+            f"{factor:g}x the input's dt: {IMP1_STEPS} steps at "
+            f"{IMP1_STEPS / secs:.3f} steps/s on the card (CPU "
+            f"{IMP1_CPU / csecs:.3f}); Newton iterations per step {its}; "
+            f"area drift {drift:.3e} (bound {IMPLICIT_AREA_DRIFT:g}); first "
+            f"{IMP1_CPU} steps GPU vs CPU: Newton {gits} / {cits}, "
+            f"max|X_gpu-X_cpu|/max|X|={ex:.3e} (tol {TOL_PARITY_X:g})")
+        ok &= (bool(torch.isfinite(st.X).all())
+               and drift < IMPLICIT_AREA_DRIFT and gits == cits
+               and ex <= TOL_PARITY_X)
+        if breakdown:
+            _stage_breakdown(f"implicit ex0 {scheme}", [],
+                             lambda: step(st), 1, 1e3 * secs / IMP1_STEPS)
+    imp, st2, its2, boxes, secs2, dt2 = _ex0_amr_implicit(DEVICE)
+    proj = imp._expl.core.proj
+    log(f"[implicit] TwoLevelIBImplicit, ex0_amr (64^2 coarse, window "
+        f"{imp.box.shape} x2, f64), backward Euler at {IMP2['factor']:g}x "
+        f"the input's dt: {IMP2['steps']} steps at "
+        f"{IMP2['steps'] / secs2:.3f} steps/s, a regrid every "
+        f"{IMP2['regrid']}; Newton iterations per step {its2}; windows "
+        f"{boxes}; last projection {proj.last_solve_stats}")
+    ok &= bool(torch.isfinite(st2.X).all()) and all(
+        i <= imp.newton_maxiter for i in its2)
+    if breakdown:
+        _stage_breakdown("implicit ex0_amr", [],
+                         lambda: imp.step(st2, dt2), 1,
+                         1e3 * secs2 / IMP2["steps"])
+    for label, leg, check in (
+            # the prestress drives a flow (tests/test_imp.py:100)
+            ("IMP disc 128^2", _imp_leg,
+             lambda r: r[4] > 1e-4 and bool(torch.isfinite(r[0].F).all())),
+            ("GIB twisted rod 64^3", _gib_leg,
+             lambda r: r[2] < r[1]),
+            ("penalty membrane 64^2", _penalty_leg,
+             lambda r: r[2] < r[1])):
+        g, c = leg(DEVICE), leg("cpu")
+        ex = _rel(g[0].X if hasattr(g[0], "X") else g[0].ib.X,
+                  c[0].X if hasattr(c[0], "X") else c[0].ib.X)
+        passed = check(g) and check(c) and ex <= TOL_PARITY_X
+        log(f"[implicit] {label}, f32: {g[3]:.3f} s on the card, {c[3]:.3f} "
+            f"s on the CPU; before/after {g[1]:.6g} -> {g[2]:.6g} (CPU "
+            f"{c[2]:.6g}); max|X_gpu-X_cpu|/max|X|={ex:.3e} (tol "
+            f"{TOL_PARITY_X:g}); passed {passed}")
+        ok &= passed
+    gp, speed, lengths = _panel_leg(DEVICE)
+    cp, _, _ = _panel_leg("cpu")
+    closed = [abs(float(v)) / (speed * L) for v, L in
+              zip(gp["flux"][:3], lengths)]
+    ep = max(float((gp[k].cpu() - cp[k]).abs().max())
+             / max(float(cp[k].abs().max()), 1e-30)
+             for k in ("flux", "mean_pressure"))
+    log(f"[implicit] InstrumentPanel on the cavity's flow after "
+        f"{PANEL_STEPS} steps: fluxes {gp['flux'].tolist()}, mean "
+        f"pressures {gp['mean_pressure'].tolist()}; closed loops |flux| / "
+        f"(max|u| length) {closed} (bound {PANEL_CLOSED_TOL:g}); GPU vs CPU "
+        f"{ep:.3e} (tol {TOL_PARITY_U:g})")
+    ok &= max(closed) < PANEL_CLOSED_TOL and ep <= TOL_PARITY_U
+    integ, st = build_shell_example(n_cells=32, n_lat=16, n_lon=16,
+                                    use_fast_interaction="pallas_packed",
+                                    device=DEVICE)
+    try:
+        IBImplicitIntegrator(integ.ins, integ.ib).step(st, 1e-3)
+        refused = False
+    except NotImplementedError as e:
+        refused = "pallas_packed" in str(e)
+        log(f"[implicit] IBImplicitIntegrator on the 32^3 shell's "
+            f"pallas_packed engine: NotImplementedError ({e})")
+    ok &= refused
+    if not ok:
+        raise AssertionError("implicit: a check failed (see the "
+                             "[implicit] lines)")
 
 
 def _graphed_projection_bitwise(leg) -> bool:
@@ -2358,10 +3003,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,parity,path,hybrid,driver,auto,ex0,"
-                    "ibfe3d,walls,open,ibfe,rigid,adv,amr",
+                    "ibfe3d,walls,open,ibfe,rigid,adv,amr,mlamr,implicit",
                     help="comma-separated subset of kernels,parity,path,"
                     "hybrid,driver,auto,ex0,ibfe3d,walls,open,ibfe,rigid,"
-                    "adv,amr "
+                    "adv,amr,mlamr,implicit "
                     "(add 'breakdown' for a profile of the step of each "
                     "that runs, the flagship's auto leg included; hybrid "
                     "reads the path phase's time)")
@@ -2425,7 +3070,8 @@ def main(argv=None) -> int:
     # kernel: any launch in them fails
     for name, fn in (("walls", phase_walls), ("open", phase_open),
                      ("ibfe", phase_ibfe), ("rigid", phase_rigid),
-                     ("adv", phase_adv), ("amr", phase_amr)):
+                     ("adv", phase_adv), ("amr", phase_amr),
+                     ("mlamr", phase_mlamr), ("implicit", phase_implicit)):
         if name in phases:
             _assert_no_launches(name, lambda: fn("breakdown" in phases))
             clock.lap(name)

@@ -372,7 +372,8 @@ class CompositeProjection:
     """FGMRES solve of the two-level composite Poisson problem (module
     docstring), with velocity correction and interface sync.
     ``preconditioner`` replaces the default FFT + fast-diagonalization
-    level solves (a seam; the port has no FAC V-cycle yet)."""
+    level solves (a seam, e.g. ``solvers.fac.FACCompositePoisson``'s
+    ``precondition``)."""
 
     def __init__(self, grid: StaggeredGrid, box: FineBox,
                  tol: float = 1e-9, m: int = 24, restarts: int = 8,
@@ -450,11 +451,10 @@ class CompositeProjection:
                                  for g in graphed) + ops[len(graphed):]
         return self._graphs
 
-    def project(self, uc: Vel, uf: Vel,
-                q_c: Optional[torch.Tensor] = None,
-                q_f: Optional[torch.Tensor] = None
-                ) -> Tuple[Vel, Vel, torch.Tensor, torch.Tensor]:
-        box = self.box
+    def rhs(self, uc: Vel, uf: Vel, q_c: Optional[torch.Tensor] = None,
+            q_f: Optional[torch.Tensor] = None):
+        """The composite right-hand side (div u - q, zero on the covered
+        coarse cells), linear in (u, q)."""
         div_c = stencils.divergence(uc, self.dx)
         if q_c is not None:
             div_c = div_c - q_c
@@ -462,13 +462,29 @@ class CompositeProjection:
         if q_f is not None:
             div_f = div_f - q_f
         rhs_c = torch.where(self._covered, torch.zeros_like(div_c), div_c)
-        rhs = (rhs_c, div_f)
+        return (rhs_c, div_f)
+
+    def solve(self, rhs):
+        """The FGMRES solve of the composite Poisson problem."""
         sol = fgmres_flat(*self.flat_ops(rhs), rhs, m=self.m, tol=self.tol,
                           restarts=self.restarts)
         record_solve_stats(
             self, sol, solver="fgmres",
             mirrors=(getattr(self._external_precond, "__self__", None),))
-        phi_c, phi_f = sol.x
+        return sol.x
+
+    def project(self, uc: Vel, uf: Vel,
+                q_c: Optional[torch.Tensor] = None,
+                q_f: Optional[torch.Tensor] = None
+                ) -> Tuple[Vel, Vel, torch.Tensor, torch.Tensor]:
+        return self.correct(uc, uf, self.solve(self.rhs(uc, uf, q_c, q_f)))
+
+    def correct(self, uc: Vel, uf: Vel, phi
+                ) -> Tuple[Vel, Vel, torch.Tensor, torch.Tensor]:
+        """Both levels corrected with the gradients of the solution
+        ``phi = (phi_c, phi_f)``, then synchronized."""
+        box = self.box
+        phi_c, phi_f = phi
         phi_eff = self._phi_eff(phi_c, phi_f)
 
         # coarse correction (covered and interface faces are then
@@ -559,6 +575,16 @@ class TwoLevelINS:
              f_f: Optional[Vel] = None) -> TwoLevelINSState:
         """One composite step; ``f_c``/``f_f`` are per-level MAC body
         forces (``f_f`` in box layout, e.g. the spread IB force)."""
+        uc_new, uf_new, _, _ = self.proj.project(
+            *self.predict(state, dt, f_c=f_c, f_f=f_f))
+        return TwoLevelINSState(uc=uc_new, uf=uf_new,
+                                t=state.t + dt, k=state.k + 1)
+
+    def predict(self, state: TwoLevelINSState, dt: float,
+                f_c: Optional[Vel] = None,
+                f_f: Optional[Vel] = None) -> Tuple[Vel, Vel]:
+        """The explicit predictor of both levels, the covered coarse faces
+        slaved to the fine ones (the step before its projection)."""
         g = self.grid
         uc, uf = state.uc, state.uf
         rho, mu = self.rho, self.mu
@@ -588,9 +614,7 @@ class TwoLevelINS:
 
         uc_star = scatter_box_mac_to_coarse(
             tuple(uc_star), restrict_mac(tuple(uf_star)), self.box)
-        uc_new, uf_new, _, _ = self.proj.project(uc_star, tuple(uf_star))
-        return TwoLevelINSState(uc=uc_new, uf=uf_new,
-                                t=state.t + dt, k=state.k + 1)
+        return uc_star, tuple(uf_star)
 
     def stable_dt(self, state: TwoLevelINSState, cfl: float = 0.5):
         """Advisory dt bound of the explicit predictor: the minimum over

@@ -15,15 +15,25 @@ import torch
 from ibamr_tpu_torch.amr import FineBox
 from ibamr_tpu_torch.amr_dynamic import AMRState
 from ibamr_tpu_torch.amr_ins import TwoLevelIBState, TwoLevelINSState
+from ibamr_tpu_torch.amr_ins_multilevel import (MultiLevelIBState,
+                                                MultiLevelINSState)
+from ibamr_tpu_torch.amr_multibox import MultiBoxState
+from ibamr_tpu_torch.amr_multilevel import LevelSpec
 from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.fe.fem import FEAssembly
 from ibamr_tpu_torch.fe.mesh import FEMesh
 from ibamr_tpu_torch.fe.surface import SurfaceMesh
+from ibamr_tpu_torch.grid import StaggeredGrid
 from ibamr_tpu_torch.integrators.adv_diff import AdvDiffState
 from ibamr_tpu_torch.integrators.cib import RigidBodies
 from ibamr_tpu_torch.integrators.constraint_ib import ConstraintIBState
 from ibamr_tpu_torch.integrators.ib import IBState
 from ibamr_tpu_torch.integrators.ib_open import IBOpenState
+from ibamr_tpu_torch.integrators.gib import GIBState
+from ibamr_tpu_torch.integrators.imp import IMPState
+from ibamr_tpu_torch.integrators.penalty_ib import PenaltyIBState
+from ibamr_tpu_torch.instruments import MeterSpecs
+from ibamr_tpu_torch.ops.rods import RodSpecs
 from ibamr_tpu_torch.integrators.ins import INSState
 from ibamr_tpu_torch.integrators.ins_open import OpenINSState
 from ibamr_tpu_torch.ops import forces
@@ -194,3 +204,75 @@ def fine_box(b) -> FineBox:
     """A ``FineBox`` (static host geometry: no device)."""
     return FineBox(lo=tuple(int(v) for v in b.lo),
                    shape=tuple(int(v) for v in b.shape), ratio=int(b.ratio))
+
+
+def grid(g) -> StaggeredGrid:
+    """A ``StaggeredGrid`` (static host geometry: no device)."""
+    return StaggeredGrid(n=tuple(int(v) for v in g.n),
+                         x_lo=tuple(float(v) for v in g.x_lo),
+                         x_up=tuple(float(v) for v in g.x_up))
+
+
+def level_specs(levels) -> list:
+    """A ``build_hierarchy`` list of ``LevelSpec`` (static host geometry:
+    no device)."""
+    return [LevelSpec(box=None if spec.box is None else fine_box(spec.box),
+                      grid=grid(spec.grid)) for spec in levels]
+
+
+def multilevel_ins_state(s, device="cuda") -> MultiLevelINSState:
+    """A ``MultiLevelINSState``'s leaves (the per-level MAC fields us, t,
+    k)."""
+    return MultiLevelINSState(
+        us=tuple(tuple(tensor(c, device) for c in u) for u in s.us),
+        t=tensor(s.t, device), k=tensor(s.k, device, torch.int32))
+
+
+def multilevel_ib_state(s, device="cuda") -> MultiLevelIBState:
+    """A ``MultiLevelIBState``'s leaves (fluid, X, U, mask)."""
+    return MultiLevelIBState(fluid=multilevel_ins_state(s.fluid, device),
+                             X=tensor(s.X, device), U=tensor(s.U, device),
+                             mask=tensor(s.mask, device))
+
+
+def multibox_state(s, device="cuda") -> MultiBoxState:
+    """A ``MultiBoxState``'s leaves (Qc, the window pool Qf, the (K, dim)
+    int32 origins lo)."""
+    return MultiBoxState(Qc=tensor(s.Qc, device), Qf=tensor(s.Qf, device),
+                         lo=tensor(s.lo, device, torch.int32))
+
+
+def imp_state(s, device="cuda") -> IMPState:
+    """An ``IMPState``'s leaves (ins, X, the deformation gradients F,
+    mask)."""
+    return IMPState(ins=ins_state(s.ins, device), X=tensor(s.X, device),
+                    F=tensor(s.F, device), mask=tensor(s.mask, device))
+
+
+def gib_state(s, device="cuda") -> GIBState:
+    """A ``GIBState``'s leaves (ins, X, the director triads D)."""
+    return GIBState(ins=ins_state(s.ins, device), X=tensor(s.X, device),
+                    D=tensor(s.D, device))
+
+
+def rod_specs(r, device="cuda") -> RodSpecs:
+    """``RodSpecs`` (int64 edge indices, the moduli, ds, enabled)."""
+    return RodSpecs(idx0=tensor(r.idx0, device, torch.int64),
+                    idx1=tensor(r.idx1, device, torch.int64),
+                    b=tensor(r.b, device), kappa=tensor(r.kappa, device),
+                    s=tensor(r.s, device), ds=tensor(r.ds, device),
+                    enabled=tensor(r.enabled, device))
+
+
+def penalty_ib_state(s, device="cuda") -> PenaltyIBState:
+    """A ``PenaltyIBState``'s leaves (ib, the mass points Y and their
+    velocities V)."""
+    return PenaltyIBState(ib=ib_state(s.ib, device), Y=tensor(s.Y, device),
+                          V=tensor(s.V, device))
+
+
+def meter_specs(m, device="cuda") -> MeterSpecs:
+    """``MeterSpecs`` (int64 padded indices, valid, seg)."""
+    return MeterSpecs(idx=tensor(m.idx, device, torch.int64),
+                      valid=tensor(m.valid, device),
+                      seg=tensor(m.seg, device))

@@ -132,6 +132,53 @@ class StructureData:
             s[:, 0].astype(np.int64) + self.index_offset, s[:, 1],
             dtype=dtype, device=device)
 
+    def rod_specs(self, dtype=torch.float32, device="cuda"):
+        """Device rod specs from the .rod table, indices shifted by
+        ``index_offset`` (None without rods)."""
+        from ibamr_tpu_torch.ops import rods as rods_mod
+
+        if self.rods is None or not len(self.rods):
+            return None
+        r = self.rods
+        off = self.index_offset
+        return rods_mod.make_rods(
+            r[:, 0].astype(np.int64) + off, r[:, 1].astype(np.int64) + off,
+            b=r[:, 3:6], s=r[:, 6:9], kappa=r[:, 9:12], ds=r[:, 2],
+            dtype=dtype, device=device)
+
+    def meter_specs(self, closed=True, dtype=torch.float32, device="cuda"):
+        """Instrument meters from the .inst table: rows grouped by meter
+        index, nodes ordered by node index within a meter (None without
+        meters)."""
+        from ibamr_tpu_torch import instruments
+
+        if self.inst is None or not len(self.inst):
+            return None
+        tbl = self.inst
+        loops = []
+        for m in sorted(set(int(v) for v in tbl[:, 1])):
+            rows = tbl[tbl[:, 1] == m]
+            order = np.argsort(rows[:, 2])
+            loops.append([int(v) + self.index_offset
+                          for v in rows[order, 0]])
+        return instruments.make_meters(loops, closed=closed, dtype=dtype,
+                                       device=device)
+
+    def mass_arrays(self, dtype=np.float64):
+        """Host (mass (N,), penalty stiffness (N,)) arrays for the
+        penalty-IB integrator from the .mass table (None without
+        masses)."""
+        if self.masses is None or not len(self.masses):
+            return None
+        N = self.num_markers
+        mass = np.zeros(N, dtype=dtype)
+        kappa = np.zeros(N, dtype=dtype)
+        m = self.masses
+        idx = m[:, 0].astype(np.int64)
+        mass[idx] = m[:, 1]
+        kappa[idx] = m[:, 2] if m.shape[1] > 2 else 0.0
+        return mass, kappa
+
     def anchors_to_targets(self, stiffness: float) -> None:
         """Realize anchored nodes (.anchor) as stiff target points at
         their initial positions, appended to the .target table. The

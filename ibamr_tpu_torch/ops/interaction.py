@@ -8,7 +8,10 @@ Markers are an ``(N, dim)`` tensor; the ``prod_d s_d`` stencil weights of
 each marker are tensor products of per-axis weights (a composite B-spline
 takes another support along the face-normal axis), and the grid exchange is
 one flattened gather (interp) or one accumulating scatter (spread).
-Spread and interp use the same weights, so they are exact adjoints.
+Spread and interp use the same weights, so they are exact adjoints. The
+kernel-gradient transfers at the end (the IMP material points) take the
+derivative of each axis's ``phi`` by forward mode, which at the kernels'
+knots is the reference's ``jax.grad`` (``ops/delta.py``).
 
 This is the ``scatter`` engine and the overflow fallback of the packed
 engine. PyTorch's accumulating ``index_put_`` adds duplicates in a
@@ -26,7 +29,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ibamr_tpu_torch.grid import StaggeredGrid
-from ibamr_tpu_torch.ops.delta import get_kernel_axes
+from ibamr_tpu_torch.ops.delta import get_kernel_axes, validate_gradient_kernel
 
 Vel = Tuple[torch.Tensor, ...]
 
@@ -153,3 +156,96 @@ def spread_vel(F: torch.Tensor, grid: StaggeredGrid, X: torch.Tensor,
     return tuple(spread(F[:, d], grid, X, centering=d, kernel=kernel,
                         weights=weights)
                  for d in range(grid.dim))
+
+
+# -- kernel-gradient transfers (IMP material points: the velocity gradient
+# at the points, dF/dt = (grad u) F, and the divergence-form stress spread
+# f = -sum_p V_p P F^T grad(delta)) -------------------------------------------
+
+def _dphi(phi, r: torch.Tensor) -> torch.Tensor:
+    """phi'(r) elementwise (``phi`` acts elementwise, so the forward-mode
+    derivative along ones is its derivative)."""
+    return torch.func.jvp(phi, (r,), (torch.ones_like(r),))[1]
+
+
+def _stencil_with_grad(grid: StaggeredGrid, X: torch.Tensor, centering,
+                       kernel):
+    """:func:`_stencil` plus the gradient of each tensor-product weight
+    with respect to the marker position: lin (N, S), W (N, S), dW (N, S,
+    dim) with dW[..., j] = (phi_j'(r)/h_j) prod_{d != j} phi_d(r_d). Only
+    C^1 kernels (``delta.validate_gradient_kernel``)."""
+    validate_gradient_kernel(kernel)
+    specs = get_kernel_axes(kernel, centering, grid.dim)
+    offsets = _centering_offsets(grid, centering)
+    dim = grid.dim
+    idxs, ws, dws = [], [], []
+    for d in range(dim):
+        support_d, phi_d = specs[d]
+        xi = (X[:, d] - grid.x_lo[d]) / grid.dx[d] - offsets[d]
+        j = (torch.floor(xi - 0.5 * support_d).to(torch.int64) + 1)[:, None] \
+            + torch.arange(support_d, dtype=torch.int64,
+                           device=xi.device)[None, :]
+        r = xi[:, None] - j.to(xi.dtype)
+        idxs.append(torch.remainder(j, grid.n[d]))
+        ws.append(phi_d(r))
+        dws.append(_dphi(phi_d, r) / grid.dx[d])
+    N = X.shape[0]
+    lin = _combine_linear(idxs, specs, grid, N)
+    W = _combine_tensor(ws, specs, N)
+    dW = torch.stack([_combine_tensor([dws[d] if d == j else ws[d]
+                                       for d in range(dim)], specs, N)
+                      for j in range(dim)], dim=-1)
+    return lin, W, dW
+
+
+def interpolate_vel_and_gradient(u: Sequence[torch.Tensor],
+                                 grid: StaggeredGrid, X: torch.Tensor,
+                                 kernel="BSPLINE_3",
+                                 weights: Optional[torch.Tensor] = None):
+    """(U, grad u) at the markers from one stencil and one gather per
+    component: U (N, dim) and G (N, dim, dim) with G[:, i, j] =
+    du_i/dx_j."""
+    vals_rows, grad_rows = [], []
+    for i in range(grid.dim):
+        lin, W, dW = _stencil_with_grad(grid, X, i, kernel)
+        vals = u[i].reshape(-1)[lin]
+        vals_rows.append(torch.sum(vals * W, dim=-1))
+        grad_rows.append(torch.sum(vals[..., None] * dW, dim=1))
+    U = torch.stack(vals_rows, dim=-1)
+    G = torch.stack(grad_rows, dim=1)
+    if weights is not None:
+        U = U * weights[:, None]
+        G = G * weights[:, None, None]
+    return U, G
+
+
+def interpolate_gradient_vel(u: Sequence[torch.Tensor], grid: StaggeredGrid,
+                             X: torch.Tensor, kernel="BSPLINE_3",
+                             weights: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """The velocity gradient at the markers, G[:, i, j] = du_i/dx_j
+    (N, dim, dim), each component sampled at its own MAC centering."""
+    return interpolate_vel_and_gradient(u, grid, X, kernel=kernel,
+                                        weights=weights)[1]
+
+
+def spread_stress(PFt: torch.Tensor, V: torch.Tensor, grid: StaggeredGrid,
+                  X: torch.Tensor, kernel="BSPLINE_3",
+                  weights: Optional[torch.Tensor] = None) -> Vel:
+    """Divergence-form spread of the per-point stress ``PFt = P(F) F^T``
+    (N, dim, dim) with reference volumes V (N,):
+    f_i(x_g) = -(1/h^dim) sum_p V_p sum_j PFt[p, i, j] dW_g/dx_j.
+    The total spread force is zero to roundoff (sum_g dW = 0)."""
+    inv_vol = 1.0 / math.prod(grid.dx)
+    out = []
+    for i in range(grid.dim):
+        lin, _, dW = _stencil_with_grad(grid, X, i, kernel)
+        coeff = PFt[:, i, :] * V[:, None]
+        if weights is not None:
+            coeff = coeff * weights[:, None]
+        vals = -inv_vol * torch.sum(coeff[:, None, :] * dW, dim=-1)
+        flat = torch.zeros(math.prod(grid.n), dtype=vals.dtype,
+                           device=vals.device)
+        out.append(scatter_add(flat, lin.reshape(-1),
+                               vals.reshape(-1)).reshape(grid.n))
+    return tuple(out)

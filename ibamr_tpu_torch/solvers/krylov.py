@@ -208,6 +208,123 @@ def _fgmres_flat(Aop, b, x0, Mop, m, tol, atol, restarts):
     return x, rn, it
 
 
+def _svd_jvp(H: torch.Tensor, dH: torch.Tensor):
+    """The SVD of H (k = min shape) with its forward-mode tangents, by
+    JAX's rule (``jax._src.lax.linalg._svd_jvp_rule``, thin SVD): only
+    the diagonal of the singular-value difference matrix is guarded."""
+    u, s, vt = torch.linalg.svd(H, full_matrices=False)
+    v = vt.T
+    dS = u.T @ dH @ v
+    ds = torch.diagonal(dS)
+    sd = s[None, :]
+    s_diffs = (sd + sd.T) * (sd - sd.T)
+    eye = torch.eye(s.shape[0], dtype=H.dtype, device=H.device)
+    F = 1 / (s_diffs + eye) - eye
+    dSS = sd * dS
+    SdS = sd.T * dS
+    s_zeros = (s == 0).to(s.dtype)
+    s_inv = 1 / (s + s_zeros) - s_zeros
+    dU = u @ (F * (dSS + dSS.T) + 0.5 * (dS - dS.T) * torch.diag(s_inv))
+    dV = v @ (F * (SdS + SdS.T))
+    m, n = H.shape
+    if m > n:
+        dAV = dH @ v
+        dU = dU + (dAV - u @ (u.T @ dAV)) / sd
+    if n > m:
+        dAHU = dH.T @ u
+        dV = dV + (dAHU - v @ (vt @ dAHU)) / sd
+    return (u, s, vt), (dU, ds, dV.T)
+
+
+def _lstsq_eps_jvp(H, e1, dH, de1):
+    """:func:`_lstsq_eps` and its tangent, as JAX differentiates
+    ``jnp.linalg.lstsq(H, e1, rcond=eps)`` followed by the reference's
+    non-finite guard."""
+    eps = torch.finfo(H.dtype).eps
+    ok = torch.isfinite(H).all() & torch.isfinite(e1).all()
+    zero = torch.zeros((), dtype=H.dtype, device=H.device)
+    H, dH = torch.where(ok, H, zero), torch.where(ok, dH, zero)
+    e1, de1 = torch.where(ok, e1, zero), torch.where(ok, de1, zero)
+    (u, s, vt), (du, ds, dvt) = _svd_jvp(H, dH)
+    keep = (s > 0) & (s >= eps * s[0])
+    safe_s = torch.where(keep, s, torch.ones_like(s))
+    s_inv = torch.where(keep, 1.0 / safe_s, torch.zeros_like(s))
+    ds_inv = torch.where(keep, -torch.where(keep, ds, zero) / safe_s ** 2,
+                         torch.zeros_like(s))
+    uTb = u.T @ e1
+    duTb = du.T @ e1 + u.T @ de1
+    y = vt.T @ (s_inv * uTb)
+    dy = dvt.T @ (s_inv * uTb) + vt.T @ (ds_inv * uTb + s_inv * duTb)
+    fin = torch.isfinite(y)
+    return (torch.where(fin, y, torch.zeros_like(y)),
+            torch.where(fin, dy, torch.zeros_like(dy)))
+
+
+def _norm_jvp(v, dv):
+    n = _gnorm(v)
+    return n, torch.dot(v, dv) / n
+
+
+def fgmres_flat_jvp(Aop, Mop, b: torch.Tensor, db: torch.Tensor,
+                    m: int = 30, tol: float = 1e-6, atol: float = 0.0,
+                    restarts: int = 10):
+    """:func:`fgmres_flat` from x0 = 0 together with its forward-mode
+    tangent along ``db`` (flat vectors): the tangent of every Arnoldi
+    quantity is carried beside it, and the iteration count is the
+    primal's, as ``jax.jvp`` of the reference's loop. ``Aop`` and ``Mop``
+    must be linear maps (their tangents are themselves applied to the
+    tangents), so they may be CUDA-graph replays. Returns
+    ``(SolveResult, dx)``; the primal is the plain solve's bitwise."""
+    n = b.shape[0]
+    kw = dict(dtype=b.dtype, device=b.device)
+    stop = _stop(tol, _gnorm(b), atol)
+    x, rn, it = torch.zeros_like(b), torch.tensor(float("inf"), **kw), 0
+    dx = torch.zeros_like(b)
+    rows = torch.arange(m + 1, device=b.device)
+    while it < restarts and bool(rn > stop):
+        r = b - Aop(x)
+        dr = db - Aop(dx)
+        beta, dbeta = _norm_jvp(r, dr)
+        V = torch.zeros((m + 1, n), **kw)
+        dV = torch.zeros((m + 1, n), **kw)
+        V[0] = r / _safe(beta)
+        dV[0] = torch.where(beta == 0, dr, (dr - V[0] * dbeta) / _safe(beta))
+        Z = torch.zeros((m, n), **kw)
+        dZ = torch.zeros((m, n), **kw)
+        H = torch.zeros((m + 1, m), **kw)
+        dH = torch.zeros((m + 1, m), **kw)
+        for j in range(m):
+            z, dz = Mop(V[j]), Mop(dV[j])
+            w, dw = Aop(z), Aop(dz)
+            mask = (rows <= j).to(b.dtype)
+            dots = (V @ w) * mask
+            ddots = (dV @ w + V @ dw) * mask
+            w, dw = w - V.T @ dots, dw - dV.T @ dots - V.T @ ddots
+            dots2 = (V @ w) * mask
+            ddots2 = (dV @ w + V @ dw) * mask
+            w, dw = w - V.T @ dots2, dw - dV.T @ dots2 - V.T @ ddots2
+            wnorm, dwnorm = _norm_jvp(w, dw)
+            H[:, j] = dots + dots2
+            dH[:, j] = ddots + ddots2
+            H[j + 1, j] = wnorm
+            dH[j + 1, j] = dwnorm
+            V[j + 1] = w / _safe(wnorm)
+            dV[j + 1] = torch.where(wnorm == 0, dw,
+                                    (dw - V[j + 1] * dwnorm) / _safe(wnorm))
+            Z[j] = z
+            dZ[j] = dz
+        e1 = torch.zeros(m + 1, **kw)
+        e1[0] = beta
+        de1 = torch.zeros(m + 1, **kw)
+        de1[0] = dbeta
+        y, dy = _lstsq_eps_jvp(H, e1, dH, de1)
+        x = x + Z.T @ y
+        dx = dx + dZ.T @ y + Z.T @ dy
+        rn = _gnorm(b - Aop(x))
+        it += 1
+    return SolveResult(x=x, iters=it, resnorm=rn, converged=rn <= stop), dx
+
+
 def fgmres(A: Operator, b: Pytree, x0: Optional[Pytree] = None,
            M: Optional[Operator] = None, m: int = 30, tol: float = 1e-6,
            atol: float = 0.0, restarts: int = 10) -> SolveResult:
@@ -249,6 +366,27 @@ def fgmres_flat(Aop, Mop, b: Pytree, x0: Optional[Pytree] = None,
                        converged=rn <= stop)
 
 
+def linearize_by_vjp(F, x: torch.Tensor, v: torch.Tensor):
+    """``(F(x), J(x) v)`` for a map of flat vectors, J v as the transpose
+    of the vector-Jacobian product: g(w) = J^T w is linear in w, so
+    J v = d(g(w) . v)/dw. Two reverse passes of PyTorch's autograd and no
+    second derivative of F. (Forward-mode dual tensors give the same
+    product, but every operation that mixes a dual and a plain tensor
+    costs ~0.3 ms on the host in PyTorch's zero-tangent path.)"""
+    with torch.enable_grad():
+        xl = x.detach().requires_grad_(True)
+        y = F(xl)
+        if not y.requires_grad:           # F does not depend on x
+            return y, torch.zeros_like(y)
+        w = torch.zeros_like(y, requires_grad=True)
+        (g,) = torch.autograd.grad(y, xl, grad_outputs=w, create_graph=True,
+                                   allow_unused=True)
+        if g is None or not g.requires_grad:
+            return y.detach(), torch.zeros_like(y)
+        (jv,) = torch.autograd.grad(g, w, grad_outputs=v)
+    return y.detach(), jv
+
+
 class NewtonResult(NamedTuple):
     x: Pytree
     iters: int
@@ -258,10 +396,11 @@ class NewtonResult(NamedTuple):
 
 def newton_krylov(F: Operator, x0: Pytree, tol: float = 1e-8,
                   atol: float = 0.0, maxiter: int = 10, inner_m: int = 20,
-                  inner_restarts: int = 2,
-                  inner_tol: float = 1e-3) -> NewtonResult:
+                  inner_restarts: int = 2, inner_tol: float = 1e-3,
+                  jvp=None) -> NewtonResult:
     """Matrix-free Newton-Krylov for F(x) = 0: exact Jacobian-vector
-    products (forward-mode ``torch.func.jvp``), FGMRES inner solves and a
+    products (:func:`linearize_by_vjp`, or ``jvp(x, v)`` when given:
+    eager, so a host read in F follows the primal), FGMRES inner solves and a
     backtracking line search that keeps the best trial (a non-finite
     trial never counts as an improvement)."""
     x, unravel = ravel(x0)
@@ -277,7 +416,9 @@ def newton_krylov(F: Operator, x0: Pytree, tol: float = 1e-8,
         fx = Fflat(x_lin)
 
         def Jop(v):
-            return torch.func.jvp(Fflat, (x_lin,), (v,))[1]
+            if jvp is not None:
+                return ravel(jvp(unravel(x_lin), unravel(v)))[0]
+            return linearize_by_vjp(Fflat, x_lin, v)[1]
 
         dx, _, _ = _fgmres_flat(Jop, -fx, torch.zeros_like(x),
                                 lambda v: v, inner_m, inner_tol, 0.0,

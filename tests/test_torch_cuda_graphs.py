@@ -1,8 +1,9 @@
 """CUDA-graph replay on the card (``utils/cuda_graph.py``): the walled
 INS ``advance`` loop and the Stokes solver's FGMRES operator and
 preconditioner, each replayed as a CUDA graph, give bitwise the results
-of launching their kernels one by one. Needs an NVIDIA GPU and skips
-without one. The file imports neither JAX nor the JAX package:
+of launching their kernels one by one (the L-level projection, FAC
+included, and the implicit step's tangent FGMRES too). Needs an NVIDIA
+GPU and skips without one. The file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_graphs.py
@@ -112,3 +113,84 @@ def test_composite_projection_graphed_equals_eager(dim):
         for x, y in zip(a[0] + a[1] + a[2:], b[0] + b[1] + b[2:]):
             assert torch.equal(x, y)
     assert graphed._graphs is not None and eager._graphs is None
+
+
+def _levels_and_field(dim):
+    from ibamr_tpu_torch.amr import FineBox
+    from ibamr_tpu_torch.amr_multilevel import build_hierarchy
+
+    n = (32, 24, 16)[:dim]
+    grid = StaggeredGrid(n=n, x_lo=(0.0,) * dim, x_up=(1.0,) * dim)
+    levels = build_hierarchy(grid, [FineBox(lo=(4,) * dim, shape=(8,) * dim),
+                                    FineBox(lo=(3,) * dim,
+                                            shape=(8,) * dim)])
+    rng = np.random.default_rng(dim)
+    us = tuple(tuple(torch.tensor(0.1 * rng.standard_normal(tuple(
+        m + (1 if (l > 0 and a == d) else 0) for a, m in enumerate(
+            spec.grid.n))), device="cuda", dtype=torch.float32)
+        for d in range(dim)) for l, spec in enumerate(levels))
+    return levels, us
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fac", [False, True])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_multilevel_projection_graphed_equals_eager(dim, fac):
+    """The three-level projection with its operator and preconditioner
+    (the default, or the graph-safe FAC V-cycle) replayed as CUDA graphs
+    against the same projection on the eager flat operators: equal
+    restarts, bitwise equal fields."""
+    _needs_gpu()
+    from ibamr_tpu_torch.amr_ins_multilevel import \
+        MultiLevelCompositeProjection
+    from ibamr_tpu_torch.solvers.fac import FACMultilevelPoisson
+
+    levels, us = _levels_and_field(dim)
+
+    def make():
+        M = FACMultilevelPoisson(levels, dtype=torch.float32).precondition \
+            if fac else None
+        return MultiLevelCompositeProjection(levels, tol=3e-6,
+                                             preconditioner=M)
+
+    graphed, eager = make(), make()
+    eager.flat_ops = lambda t: flat_operators(eager.operator,
+                                              eager._precondition, t)
+    for _ in range(2):                       # the cached graphs again
+        a, ia = graphed.project(us)
+        b, ib = eager.project(us)
+        assert ia == ib
+        for ua, ub in zip(a, b):
+            for x, y in zip(ua, ub):
+                assert torch.equal(x, y)
+    assert graphed._graphs is not None and eager._graphs is None
+
+
+@pytest.mark.cuda
+def test_tangent_fgmres_through_graphs_equals_eager():
+    """The tangent FGMRES of the two-level implicit step over the graphed
+    composite operator and preconditioner against the same iteration on
+    the eager flat operators: bitwise equal primal and tangent."""
+    _needs_gpu()
+    from ibamr_tpu_torch.amr import FineBox
+    from ibamr_tpu_torch.amr_ins import CompositeProjection
+    from ibamr_tpu_torch.solvers.krylov import fgmres_flat_jvp
+    from ibamr_tpu_torch.utils.tree import ravel
+
+    grid = StaggeredGrid(n=(32, 32), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    box = FineBox(lo=(8, 8), shape=(16, 16))
+    proj = CompositeProjection(grid, box, tol=1e-8)
+    rng = np.random.default_rng(5)
+    rhs = (torch.tensor(rng.standard_normal((32, 32)), device="cuda"),
+           torch.tensor(rng.standard_normal((32, 32)), device="cuda"))
+    b = ravel(rhs)[0]
+    db = torch.tensor(rng.standard_normal(b.shape[0]), device="cuda")
+    sol_g, dx_g = fgmres_flat_jvp(*proj.flat_ops(rhs), b, db, m=16,
+                                  tol=1e-8, restarts=2)
+    sol_e, dx_e = fgmres_flat_jvp(
+        *flat_operators(proj.operator, proj._precondition, rhs), b, db,
+        m=16, tol=1e-8, restarts=2)
+    plain = fgmres_flat(*proj.flat_ops(rhs), b, m=16, tol=1e-8, restarts=2)
+    assert sol_g.iters == sol_e.iters == plain.iters
+    assert torch.equal(sol_g.x, sol_e.x) and torch.equal(dx_g, dx_e)
+    assert torch.equal(ravel(plain.x)[0], sol_g.x)

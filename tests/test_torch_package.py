@@ -47,7 +47,14 @@ def test_fresh_import_loads_neither_jax_nor_the_jax_package():
             "ibamr_tpu_torch.integrators.adv_diff",
             "ibamr_tpu_torch.examples.adv_diff_ex0",
             "ibamr_tpu_torch.examples.ib_explicit_ex0_amr",
-            "ibamr_tpu_torch.examples.ib_explicit_ex4_amr"} <= set(mods)
+            "ibamr_tpu_torch.examples.ib_explicit_ex4_amr",
+            "ibamr_tpu_torch.solvers.fac", "ibamr_tpu_torch.amr_multilevel",
+            "ibamr_tpu_torch.amr_ins_multilevel",
+            "ibamr_tpu_torch.amr_multibox", "ibamr_tpu_torch.integrators.imp",
+            "ibamr_tpu_torch.integrators.ib_implicit",
+            "ibamr_tpu_torch.ops.rods", "ibamr_tpu_torch.integrators.gib",
+            "ibamr_tpu_torch.integrators.penalty_ib",
+            "ibamr_tpu_torch.instruments"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -127,7 +134,8 @@ def test_gpu_entry_points_raise_without_a_gpu():
         lambda: gaussian_filter_symbol((8, 8), (0.1, 0.1), 0.2),
     ] + [lambda m=m, d=d: m.build(d) for m, d in drivers] \
         + [lambda m=m, d=d: m.run(d) for m, d in drivers]
-    new_calls += _structure_calls() + _transport_calls()
+    new_calls += _structure_calls() + _transport_calls() \
+        + _hierarchy_calls() + _structure_model_calls()
     for call in new_calls + [lambda: resolve_device(),
                  lambda: build_shell_example(n_cells=16, n_lat=8, n_lon=8),
                  lambda: build_shell_example(
@@ -222,6 +230,60 @@ def _transport_calls():
     return calls
 
 
+def _hierarchy_calls():
+    """The L-level hierarchy's entry points (FAC, the multilevel and
+    multi-box integrators), each called without ``device``."""
+    from ibamr_tpu_torch import (amr, amr_ins_multilevel, amr_multibox,
+                                 amr_multilevel)
+    from ibamr_tpu_torch.bc import DomainBC
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ib_implicit import TwoLevelIBImplicit
+    from ibamr_tpu_torch.solvers import fac
+
+    g = StaggeredGrid(n=(16, 16), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    boxes = [amr.FineBox(lo=(4, 4), shape=(8, 8)),
+             amr.FineBox(lo=(4, 4), shape=(8, 8))]
+    levels = amr_multilevel.build_hierarchy(g, boxes)
+    return [
+        lambda: fac.FACCompositePoisson(g.n, DomainBC.periodic(2), g.dx,
+                                        boxes[0]),
+        lambda: fac.FACMultilevelPoisson(levels),
+        lambda: amr_multilevel.MultiLevelAdvDiff(g, boxes),
+        lambda: amr_ins_multilevel.MultiLevelCompositeProjection(levels),
+        lambda: amr_ins_multilevel.MultiLevelINS(g, boxes),
+        lambda: amr_ins_multilevel.MultiLevelIBINS(g, boxes, None),
+        lambda: amr_multibox.MultiBoxDynamicAdvDiff(g, (4, 4), K=2),
+        lambda: TwoLevelIBImplicit(g, boxes[0], None),
+    ]
+
+
+def _structure_model_calls():
+    """The implicit, IMP, GIB, penalty and instrument entry points, each
+    called without ``device`` (an integrator on an INS integrator built
+    without one)."""
+    from ibamr_tpu_torch import instruments
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators import gib, imp, penalty_ib
+    from ibamr_tpu_torch.integrators.ib_implicit import IBImplicitIntegrator
+    from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator
+    from ibamr_tpu_torch.ops import rods
+
+    g2 = StaggeredGrid(n=(8, 8), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    g3 = StaggeredGrid(n=(8,) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
+    return [
+        lambda: IBImplicitIntegrator(INSStaggeredIntegrator(g2), None),
+        lambda: imp.IMPMethod([1.0], imp.NeoHookean(1.0, 1.0)),
+        lambda: imp.material_disc(g2, (0.5, 0.5), 0.2),
+        lambda: gib.GeneralizedIBMethod(INSStaggeredIntegrator(g3), None),
+        lambda: rods.make_rods([0], [1], 1.0, 0.0, 1.0, 0.1),
+        lambda: rods.straight_rod(4, 0.5),
+        lambda: penalty_ib.PenaltyIBIntegrator(INSStaggeredIntegrator(g2),
+                                               None, [0.0], 1.0),
+        lambda: instruments.InstrumentPanel(
+            g2, instruments.make_meters([[0, 1]], closed=False)),
+    ]
+
+
 def test_converters_default_to_the_gpu():
     """Every ``convert`` function places its tensors on the card unless it
     is passed ``device="cpu"``, like every entry point of the port."""
@@ -258,6 +320,18 @@ def test_converters_default_to_the_gpu():
     fluid2 = NS(uc=(z3, z3), uf=(np.zeros((3, 3)), np.zeros((2, 4))),
                 t=0.0, k=1)
     ib2 = NS(fluid=fluid2, X=z3, U=z3, mask=np.ones(2))
+    ml = NS(us=((z3, z3), (np.zeros((3, 3)), np.zeros((2, 4)))), t=0.0,
+            k=2)
+    mlib = NS(fluid=ml, X=z3, U=z3, mask=np.ones(2))
+    mb = NS(Qc=np.ones((8, 8)), Qf=np.ones((2, 4, 4)),
+            lo=np.array([[2, 3], [5, 5]]))
+    imp_s = NS(ins=ins, X=z3, F=np.zeros((2, 3, 3)), mask=np.ones(2))
+    gib_s = NS(ins=ins, X=z3, D=np.zeros((2, 3, 3)))
+    rods_s = NS(idx0=np.array([0]), idx1=np.array([1]), b=z3[:1], kappa=z3[:1],
+                s=z3[:1], ds=np.ones(1), enabled=np.ones(1))
+    pen = NS(ib=ib, Y=z3, V=z3)
+    meters = NS(idx=np.zeros((1, 3), np.int32), valid=np.ones((1, 3)),
+                seg=np.ones((1, 3)))
     calls = {"tensor": lambda **kw: convert.tensor(z3, **kw),
              "ins_state": lambda **kw: convert.ins_state(ins, **kw),
              "ib_state": lambda **kw: convert.ib_state(ib, **kw),
@@ -277,7 +351,18 @@ def test_converters_default_to_the_gpu():
              "two_level_ins_state": lambda **kw:
                  convert.two_level_ins_state(fluid2, **kw),
              "two_level_ib_state": lambda **kw: convert.two_level_ib_state(
-                 ib2, **kw)}
+                 ib2, **kw),
+             "multilevel_ins_state": lambda **kw:
+                 convert.multilevel_ins_state(ml, **kw),
+             "multilevel_ib_state": lambda **kw:
+                 convert.multilevel_ib_state(mlib, **kw),
+             "multibox_state": lambda **kw: convert.multibox_state(mb, **kw),
+             "imp_state": lambda **kw: convert.imp_state(imp_s, **kw),
+             "gib_state": lambda **kw: convert.gib_state(gib_s, **kw),
+             "rod_specs": lambda **kw: convert.rod_specs(rods_s, **kw),
+             "penalty_ib_state": lambda **kw: convert.penalty_ib_state(
+                 pen, **kw),
+             "meter_specs": lambda **kw: convert.meter_specs(meters, **kw)}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -289,6 +374,15 @@ def test_converters_default_to_the_gpu():
     assert convert.adv_diff_state(ad, device="cpu").k.dtype == torch.int32
     box = convert.fine_box(NS(lo=np.array([2, 3]), shape=(4, 6), ratio=2))
     assert (box.lo, box.shape, box.fine_n) == ((2, 3), (4, 6), (8, 12))
+    mbs = convert.multibox_state(mb, device="cpu")
+    assert mbs.lo.dtype == torch.int32 and mbs.lo.tolist() == [[2, 3], [5, 5]]
+    assert convert.rod_specs(rods_s, device="cpu").idx0.dtype == torch.int64
+    assert convert.meter_specs(meters, device="cpu").idx.dtype == torch.int64
+    g = NS(n=np.array([8, 8]), x_lo=(0.0, 0.0), x_up=(1.0, 2.0))
+    levels = convert.level_specs([NS(box=None, grid=g), NS(box=NS(
+        lo=(2, 2), shape=(4, 4), ratio=2), grid=g)])
+    assert levels[0].box is None and levels[1].box.fine_n == (8, 8)
+    assert levels[1].grid.dx == (0.125, 0.25)
 
 
 def _leaves(obj):
