@@ -59,13 +59,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    committed ``examples/navier_stokes/channel2d/input2d`` as it is (32x16,
    150 steps of the FGMRES + multigrid saddle solve, f32): the developed
    profile's error against Poiseuille, a constant outflow flux, the
-   divergence, and the first 10 steps on the GPU against the CPU (FGMRES
-   restarts per step equal); then the cylinder driver,
+   divergence, and the first ``OPEN_PARITY_STEPS`` on the GPU against the
+   CPU (FGMRES restarts per step equal); then the cylinder driver,
    ``ib_explicit_cylinder2d.run``, on ``examples/IB/explicit/cylinder2d/
    input2d`` (128x64, 64 target markers, f32) with ``num_steps`` cut to
    ``CYL_STEPS``: finite drag and lift, the markers near their anchors,
-   the viz files, the first 10 steps on the GPU against the CPU, and the
-   steps/s of each driver; and ``CYL_F64_STEPS`` of the cylinder at f64,
+   the viz files, the first ``OPEN_PARITY_STEPS`` on the GPU against the
+   CPU, and the steps/s of each driver; and ``CYL_F64_STEPS`` of the cylinder at f64,
    past the step where the f32 example diverges in the reference and in
    the port. The solves (and the cavity's steps) replay as
    CUDA graphs; one leg of each checks them bitwise against eager. Then
@@ -140,6 +140,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
    cavity's flow (closed loops read ~0), each on the card and the CPU;
    the implicit step refusing the ``pallas_packed`` engine. Both phases
    run the scatter oracle: a hand-kernel launch fails.
+18. multiphase -- two-phase variable-coefficient flow: the dam-break
+   driver, ``multiphase_dam_break.run``, on the committed ``examples/
+   multiphase/dam_break/input2d`` as it is (128x96, 600 f32 steps, walls,
+   density ratio 1000): the bounds of ``tests/test_examples_r5.py:229-236``
+   (a monotone surge front within a cell, the last front past 0.25 + 2
+   dx, max|div u| below 1e-2, the volume drift below 1e-2 through that
+   test's horizon t = 0.12, and the last drift within
+   ``MP_DAM_DRIFT_RTOL`` of the reference's own committed run, which
+   passes 1e-2 later), steps/s, CG iterations per step, the graphed
+   projection bitwise against eager, and a restart leg at 48x32 (20 steps
+   with a dump, then a restart to 40, bitwise equal to the straight run);
+   the falling-drop driver on ``input2d`` and ``input2d.walled`` as they
+   are (64^2, 300 steps): drift and divergence against ``MP_DROP_DRIFT``
+   and ``MP_DROP_DIV``, warm steps/s, and the first ``MP_PARITY_STEPS`` at
+   f64 on the card and the CPU (equal CG counts, fields within
+   ``TOL_MP_F64``); then ``MP_LEG_STEPS`` f64 steps each, GPU against
+   CPU, of the 3D walled drop, the VC membrane capsule, a Brinkman
+   cylinder, the open-outlet wave tank, Smagorinsky and k-omega, a
+   sheared Oldroyd-B fluid and the collocated Taylor-Green vortex, the
+   stochastic forcing's moments on the card's draws and the k-omega
+   channel (graphed chunks against the CPU loop). With ``breakdown``, one
+   warm dam-break step: device time and kernels, idle share, ms per CG
+   iteration, the reinitialization's cost and a fast-sweeping call's
+   kernel count. No hand kernel runs.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -152,6 +176,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -210,16 +235,18 @@ CYL_INPUT = "examples/IB/explicit/cylinder2d/input2d"
 # of the input's 2000: the reference's own example diverges after step
 # ~110 (JAX 32-bit on the CPU; ROADMAP C), and the port with it
 CYL_STEPS = 100
-CYL_F64_STEPS = 200       # the f64 leg: past where the f32 example diverges
-OPEN_PARITY_STEPS = 10
+CYL_F64_STEPS = 150       # the f64 leg: past where the f32 example diverges
+# (~110-130 steps); cut from 200 to make room for the multiphase phase
+OPEN_PARITY_STEPS = 5     # cut from 10 to make room for the multiphase phase
 OPEN_DIV_BOUND = 1e-4     # f32 solver floor (tol 1e-5 relative)
-TOL_OPEN_FIELDS = 1e-4    # GPU vs CPU after 10 f32 steps, rel. to max|.|
+TOL_OPEN_FIELDS = 1e-4    # GPU vs CPU after the f32 parity steps, rel. to max|.|
 IBFE_EX0_INPUT = "examples/IBFE/explicit/ex0/input2d"
 IBFE_PARITY_STEPS = 20    # ibfe: steps of the GPU-vs-CPU check
 IBFE_WARM = 100           # ibfe: steps of the warm leg after them
 IBFE_AREA_DRIFT = 0.02    # |area - area0| / area0: tests/test_ibfe.py:176
 BEAM_INPUT = "examples/IBFE/explicit/beam2d/input2d"
-BEAM_STEPS = 5            # of the input's 1500 (f32: 12 restarts a step)
+BEAM_STEPS = 2            # of the input's 1500 (f32: 12 restarts a step;
+# cut from 5 to make room for the multiphase phase)
 BEAM_PARITY_STEPS = 2
 BEAM_F64_STEPS = 100
 # the ibfe3d leg: a geodesic sphere membrane (4,098 nodes, 8,192 TRI3S
@@ -229,8 +256,9 @@ IBFE3D = dict(n_cells=128, radius=0.25, n_subdiv=5,
               dt=5e-4, seed=3)
 IBFE3D_STEPS = 5
 CIB_INPUT = "examples/CIB/ex0/input2d"
-CIB_STEPS = 6             # of the input's 40 (8 s a step: 1,200 CG);
-# cut from 10 to make room for the mlamr and implicit phases
+CIB_STEPS = 3             # of the input's 40 (8 s a step: 1,200 CG);
+# cut from 10 to 6 to make room for the mlamr and implicit phases, and
+# to 3 for the multiphase phase
 CIB_PARITY_STEPS = 2      # at f64, GPU vs CPU
 TOL_RIGID_U = 1e-5        # max|U_gpu - U_cpu| / max|U|
 OSC_INPUT = "examples/CIB/oscillating_cylinder/input2d"
@@ -245,9 +273,10 @@ TOL_RIGID_FX = 1e-4       # |fx_gpu - fx_cpu| / |fx_cpu|
 EEL_INPUT = "examples/ConstraintIB/eel2d/input2d"
 EEL_PARITY_STEPS = 20
 FIL_INPUT = "examples/IB/explicit/filament2d/input2d"
-FIL_STEPS = 5             # of the input's 4000 (f32: 12 restarts a step)
+FIL_STEPS = 2             # of the input's 4000 (f32: 12 restarts a step;
+# cut from 5 to make room for the multiphase phase)
 FIL_PARITY_STEPS = 2
-FIL_F64_STEPS = 100
+FIL_F64_STEPS = 50        # cut from 100 to make room for the multiphase phase
 FIL_LENGTH_STEPS = 300
 ADV_INPUT = "examples/adv_diff/ex0/input2d"
 ADV_PARITY_STEPS = 20     # adv: steps of the GPU-vs-CPU check
@@ -287,7 +316,7 @@ ML_ADV = dict(kappa=1e-3, steps=100, tol=1e-5)
 MB = dict(n=48, box=14, kappa=2e-3, amp=0.25, threshold=0.02, steps=60,
           regrid=6, dt=2.5e-4)
 # implicit: the ex0 membrane (f64), the first IMP1_CPU steps also on the CPU
-IMP1_STEPS = 20
+IMP1_STEPS = 10           # cut from 20 to make room for the multiphase phase
 IMP1_CPU = 3
 IMPLICIT_AREA_DRIFT = 0.02
 # implicit: ex0_amr at 10x its dt, a regrid every 2 steps (f64)
@@ -300,6 +329,27 @@ GIB = dict(n=64, steps=20, dt=2.5e-4)
 PEN = dict(n=64, steps=20, dt=1e-3)
 PANEL_STEPS = 200
 PANEL_CLOSED_TOL = 1e-2   # |flux| of a closed loop / (max|u| x its length)
+MP_DAM_INPUT = "examples/multiphase/dam_break/input2d"
+MP_DROP_INPUTS = ("examples/multiphase/falling_drop/input2d",
+                  "examples/multiphase/falling_drop/input2d.walled")
+MP_WARM = 10              # multiphase: warm steps after each driver's run
+# The dam break's volume drift: the bound 1e-2 of tests/test_examples_r5.py
+# :235 is set on that test's 64x48 tank at t = 0.12; the committed 128x96
+# input drifts past it later in the reference itself (JAX 32-bit on the
+# CPU: 1.0789e-03 at t = 0.12, step 240; 3.769441711099415e-02 at step
+# 600). So the bound holds through t = 0.12, and the last record is held
+# to the reference's own within MP_DAM_DRIFT_RTOL.
+MP_DAM_BOUND_T = 0.12
+MP_DAM_REF_DRIFT = 3.769441711099415e-02
+MP_DAM_DRIFT_RTOL = 0.05
+MP_PARITY_STEPS = 10      # falling drop: f64 steps GPU vs CPU
+MP_LEG_STEPS = 3          # the other multiphase legs: f64 steps each
+MP_CHANNEL_ITERS = 3000   # the k-omega channel's iterations on each side
+MP_DROP_DRIFT = 5e-2      # falling drop |V - V0| / V0 after 300 steps:
+# the reference's own run reaches 2.53e-2 (input2d; tests/test_ins_vc_walls
+# .py:137 bounds its walled drop by 5e-2)
+MP_DROP_DIV = 1e-3        # falling drop max|div u|, f32 (cg_tol 1e-5)
+TOL_MP_F64 = 1e-10        # f64 GPU vs CPU through CG at cg_tol 1e-10
 DEVICE = "cuda"
 # the TPU kernel each CUDA kernel replaces, and its source
 KERNELS = {
@@ -1921,6 +1971,473 @@ def phase_implicit(breakdown: bool = False) -> None:
                              "[implicit] lines)")
 
 
+def _rel64(a, b) -> float:
+    """max|a - b| / max|b| over a tuple (or one tensor) of card tensors
+    ``a`` against CPU tensors ``b``."""
+    a = a if isinstance(a, (tuple, list)) else (a,)
+    b = b if isinstance(b, (tuple, list)) else (b,)
+    return max(_rel(x, y) for x, y in zip(a, b))
+
+
+def _dam_break_leg(breakdown: bool):
+    """The dam break on its committed input as it is, its four bounds,
+    the warm steps/s, CG iterations per step, the graphed projection
+    bitwise against eager, and the restart leg."""
+    from ibamr_tpu_torch.examples import multiphase_dam_break as dam
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+
+    path = os.path.join(ROOT, MP_DAM_INPUT)
+    db = parse_input_file(path)
+    vc = db.get_database("INSVCStaggeredHierarchyIntegrator")
+    steps, dt = vc.get_int("num_steps"), vc.get_float("dt")
+    timer = TimerManager.instance()
+    timer.reset()
+    (integ, st), files = _in_tmp(lambda: dam.run(db, device=DEVICE))
+    run_s = timer.get("advance").total
+    recs = _records(files, db.get_database("Main").get_string("log_jsonl"))
+    its = integ.cg_iterations / integ.projections
+    dx = integ.grid.dx[0]
+    fronts = [r["front"] for r in recs]
+    last = recs[-1]
+    finite = all(math.isfinite(v) for r in recs for v in r.values())
+    monotone = all(b >= a - dx for a, b in zip(fronts, fronts[1:]))
+    early = max(r["volume_drift"] for r in recs
+                if r["t"] <= MP_DAM_BOUND_T * (1 + 1e-6))
+    drift_ref = abs(last["volume_drift"] - MP_DAM_REF_DRIFT) \
+        / MP_DAM_REF_DRIFT
+    bounds = (monotone and fronts[-1] > 0.25 + 2 * dx and early < 1e-2
+              and drift_ref <= MP_DAM_DRIFT_RTOL
+              and max(r["max_div"] for r in recs) < 1e-2)
+    c0, p0 = integ.cg_iterations, integ.projections
+    warm, st_w = _warm_steps_per_s(lambda s: integ.step(s, dt), st, MP_WARM)
+    warm_its = (integ.cg_iterations - c0) / (integ.projections - p0)
+    # the graphed projection against the eager pieces at the end state
+    rho = integ.density(st_w.phi)
+    u_star = tuple(c + 0.01 * torch.roll(c, 1, 1) for c in st_w.u)
+    ug, pg = integ.project_vc(u_star, rho, dt)
+    ig = integ.last_solve_stats["iters"]
+    ue, pe = integ.project_with(
+        integ.projection(rho, dt, graphed=False), u_star, dt)
+    ie = integ.last_solve_stats["iters"]
+    bitwise = ig == ie and all(torch.equal(a, b) for a, b in
+                               zip(ug + (pg,), ue + (pe,)))
+    log(f"[multiphase] dam break {MP_DAM_INPUT} as committed: grid "
+        f"{integ.grid.n}, {steps} steps of dt={dt:g}, f32, walls on both "
+        f"axes: {steps / run_s:.3f} steps/s over the run (graph captures "
+        f"included), warm {warm:.3f} steps/s ({MP_WARM} steps from the end "
+        f"state, host clock and a synchronize); CG iterations per step "
+        f"{its:.2f} over the run, {warm_its:.2f} warm")
+    for r in recs:
+        log(f"[multiphase] dam metrics {json.dumps(r)}")
+    log(f"[multiphase] dam bounds (tests/test_examples_r5.py:229-236): "
+        f"fronts monotone within dx {monotone}, last front "
+        f"{fronts[-1]:.6g} > {0.25 + 2 * dx:.6g}, volume drift through "
+        f"t = {MP_DAM_BOUND_T:g} {early:.3e} < 1e-2, last volume drift "
+        f"{last['volume_drift']:.6e} against the reference's committed run "
+        f"{MP_DAM_REF_DRIFT:.6e}: {drift_ref:.3e} (tol "
+        f"{MP_DAM_DRIFT_RTOL:g}), max|div u| over the records "
+        f"{max(r['max_div'] for r in recs):.3e} < 1e-2: {bounds}; graphed "
+        f"projection bitwise equal to eager with equal CG counts ({ig} / "
+        f"{ie}): {bitwise}")
+    rst = _dam_restart_leg(dam, path)
+    if breakdown:
+        _dam_breakdown(integ, st_w, dt, 1e3 / warm)
+    return finite and bounds and bitwise and rst
+
+
+def _dam_restart_leg(dam, path) -> bool:
+    """``tests/test_examples_r5.py:393`` on the card: the tank at 48x32,
+    20 steps with a dump, then ``restart`` to 40, against the straight
+    40-step run, bitwise in front and volume drift."""
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    base = open(path).read()
+
+    def cfg(tag, rdir, rint, steps):
+        text = base
+        for pat, rep in ((r"n\s*=\s*\d+\s*,\s*\d+", "n = 48, 32"),
+                         (r"dt\s*=\s*[0-9.eE+-]+", "dt = 1.5e-3"),
+                         (r"num_steps\s*=\s*\d+", f"num_steps = {steps}"),
+                         (r'log_jsonl\s*=\s*"[^"]*"',
+                          f'log_jsonl = "{tag}.jsonl"\n   restart_dirname = '
+                          f'"{rdir}"\n   restart_interval = {rint}')):
+            text, k = re.subn(pat, rep, text)
+            if k != 1:
+                raise AssertionError(f"multiphase: {pat!r} in {path}")
+        with open(f"in_{tag}", "w") as f:
+            f.write(text)
+        return parse_input_file(f"in_{tag}")
+
+    def runs():
+        dam.run(cfg("a", "ra", 0, 40), device=DEVICE)
+        dam.run(cfg("b", "rb", 20, 20), device=DEVICE)
+        dam.run(cfg("c", "rb", 20, 40), device=DEVICE, restart=True)
+
+    _, files = _in_tmp(runs)
+    a, c = _records(files, "a.jsonl")[-1], _records(files, "c.jsonl")
+    ok = ([r["step"] for r in c] == [40] and a["step"] == 40
+          and a["front"] == c[-1]["front"]
+          and a["volume_drift"] == c[-1]["volume_drift"])
+    log(f"[multiphase] dam restart leg (48x32, 20 + restart to 40 against "
+        f"40 straight): front {a['front']!r} / {c[-1]['front']!r}, volume "
+        f"drift {a['volume_drift']!r} / {c[-1]['volume_drift']!r}: bitwise "
+        f"{ok}")
+    return ok
+
+
+def _dam_breakdown(integ, st, dt, step_ms):
+    """One warm dam-break step: device ms in how many kernels and the
+    idle share; ms per CG iteration; the reinitialization's cost."""
+    from ibamr_tpu_torch.physics import level_set as ls
+
+    c0, p0 = integ.cg_iterations, integ.projections
+    dev, kernels, _ = _device_ms(lambda: integ.step(st, dt), 3)
+    its = (integ.cg_iterations - c0) / (integ.projections - p0)
+    rho = integ.density(st.phi)
+    proj = integ.projection(rho, dt)
+    u_star = tuple(c + 0.01 * torch.roll(c, 1, 1) for c in st.u)
+    host_p = _host_ms(lambda: integ.project_with(proj, u_star, dt), 3)
+    pits = integ.last_solve_stats["iters"]
+    dev_p, kern_p, _ = _device_ms(
+        lambda: integ.project_with(proj, u_star, dt), 2)
+    r = torch.ones_like(rho)
+    host_m = _host_ms(lambda: proj.M(r), 20)
+    dev_m, kern_m, _ = _device_ms(lambda: proj.M(r), 5)
+    wa = integ.wall_axes
+    reinit = lambda: ls.reinitialize(st.phi, integ.grid.dx,  # noqa: E731
+                                     iters=20, wall_axes=wa)
+    host_r = _host_ms(reinit, 5)
+    dev_r, kern_r, _ = _device_ms(reinit, 2)
+    log(f"[breakdown] multiphase dam whole step: device busy {dev:.3f} ms "
+        f"in {kernels:.0f} kernels ({its:.2f} CG iterations), of "
+        f"{step_ms:.3f} ms/step (warm leg): idle share "
+        f"{1 - dev / step_ms:.3f}")
+    log(f"[breakdown] multiphase dam projection: host {host_p:.3f} ms, "
+        f"device busy {dev_p:.3f} ms in {kern_p:.0f} kernels for {pits} CG "
+        f"iterations: {host_p / max(pits, 1):.3f} ms (host) / "
+        f"{dev_p / max(pits, 1):.3f} ms (device) per iteration; one "
+        f"graphed V-cycle {host_m:.3f} ms host, {dev_m:.3f} ms device in "
+        f"{kern_m:.0f} kernels")
+    log(f"[breakdown] multiphase dam reinitialization (20 iterations, "
+        f"every {integ.reinit_interval} steps): host {host_r:.3f} ms, "
+        f"device busy {dev_r:.3f} ms in {kern_r:.0f} kernels")
+    # fast sweeping (not on the step): one launch group per slice of each
+    # directional pass, 4 rounds of 2 * dim passes
+    fsm = lambda: ls.fast_sweeping_distance(  # noqa: E731
+        st.phi, integ.grid.dx, wall_axes=wa)
+    host_f = _host_ms(fsm, 2)
+    dev_f, kern_f, _ = _device_ms(fsm, 1)
+    log(f"[breakdown] multiphase fast_sweeping_distance on the dam's "
+        f"{integ.grid.n} level set (4 rounds of 4 passes, slice by slice): "
+        f"host {host_f:.3f} ms, device busy {dev_f:.3f} ms in "
+        f"{kern_f:.0f} kernels")
+
+
+def _falling_drop_leg(inp: str) -> bool:
+    """One falling-drop input as committed on the card (drift and
+    divergence against the stated bounds, warm steps/s), then its first
+    ``MP_PARITY_STEPS`` steps at f64 on the card and the CPU (CG counts
+    equal, fields within ``TOL_MP_F64``)."""
+    from ibamr_tpu_torch.examples import multiphase_falling_drop as fd
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+
+    db = parse_input_file(os.path.join(ROOT, inp))
+    vc = db.get_database("INSVCStaggeredHierarchyIntegrator")
+    steps, dt = vc.get_int("num_steps"), vc.get_float("dt")
+    timer = TimerManager.instance()
+    timer.reset()
+    (integ, st), files = _in_tmp(lambda: fd.run(db, device=DEVICE))
+    run_s = timer.get("advance").total
+    recs = _records(files, db.get_database("Main").get_string("log_jsonl"))
+    its = integ.cg_iterations / integ.projections
+    warm, _ = _warm_steps_per_s(lambda s: integ.step(s, dt), st, MP_WARM)
+    last = recs[-1]
+    finite = all(math.isfinite(v) for r in recs for v in r.values())
+    bounds = (last["volume_drift"] < MP_DROP_DRIFT
+              and max(r["max_div"] for r in recs) < MP_DROP_DIV)
+    gi, gs = fd.build(db, DEVICE, torch.float64)
+    ci, cs = fd.build(db, "cpu", torch.float64)
+    g_its, c_its = [], []
+    for _ in range(MP_PARITY_STEPS):
+        gs, cs = gi.step(gs, dt), ci.step(cs, dt)
+        g_its.append(gi.last_solve_stats["iters"])
+        c_its.append(ci.last_solve_stats["iters"])
+    err = _rel64(gs.u + (gs.p, gs.phi), cs.u + (cs.p, cs.phi))
+    log(f"[multiphase] falling drop {inp} as committed: grid {integ.grid.n}, "
+        f"walls {integ.wall_axes}, {steps} steps of dt={dt:g}, f32: "
+        f"{steps / run_s:.3f} steps/s over the run, warm {warm:.3f} steps/s;"
+        f" CG iterations per step {its:.2f}")
+    for r in recs:
+        log(f"[multiphase] drop metrics {json.dumps(r)}")
+    log(f"[multiphase] drop bounds: volume drift {last['volume_drift']:.3e} "
+        f"< {MP_DROP_DRIFT:g}, max|div u| over the records "
+        f"{max(r['max_div'] for r in recs):.3e} < {MP_DROP_DIV:g}: {bounds};"
+        f" first {MP_PARITY_STEPS} steps at f64 GPU vs CPU: CG "
+        f"{g_its} / {c_its}, max over u, p, phi of max|gpu-cpu|/max|cpu| "
+        f"{err:.3e} (tol {TOL_MP_F64:g})")
+    return finite and bounds and g_its == c_its and err <= TOL_MP_F64
+
+
+def _vc3d_leg(device):
+    """The 3D closed tank of ``tests/test_ins_vc_walls.py:260`` (16^3, a
+    heavy drop, walls on all axes), ``MP_LEG_STEPS`` steps at f64."""
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ins_vc import (
+        INSVCStaggeredIntegrator, advance_vc)
+
+    n = 16
+    g = StaggeredGrid(n=(n,) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
+    xx = (np.arange(n) + 0.5) / n
+    X, Y, Z = np.meshgrid(xx, xx, xx, indexing="ij")
+    phi0 = 0.18 - np.sqrt((X - 0.5) ** 2 + (Y - 0.5) ** 2 + (Z - 0.65) ** 2)
+    integ = INSVCStaggeredIntegrator(
+        g, rho0=1.0, rho1=10.0, mu0=0.01, mu1=0.02, gravity=(0.0, 0.0, -5.0),
+        convective_op_type="upwind", reinit_interval=10, cg_tol=1e-10,
+        wall_axes=(True, True, True), dtype=torch.float64, device=device)
+    st = advance_vc(integ, integ.initialize(phi0), 1e-3, MP_LEG_STEPS)
+    return st.u + (st.p, st.phi), integ.cg_iterations
+
+
+def _vc_capsule_leg(device):
+    """The membrane capsule of ``tests/test_vc_ib.py:21`` (48^2, a heavy
+    drop in a closed tank inside a 64-marker membrane)."""
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ib import (IBExplicitIntegrator,
+                                                IBMethod, advance_ib)
+    from ibamr_tpu_torch.integrators.ins_vc import INSVCStaggeredIntegrator
+    from ibamr_tpu_torch.models.membrane2d import make_circle_membrane
+
+    n, r0, c0 = 48, 0.12, (0.5, 0.62)
+    g = StaggeredGrid(n=(n, n), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    vc = INSVCStaggeredIntegrator(
+        g, rho0=1.0, rho1=5.0, mu0=0.02, mu1=0.05, gravity=(0.0, -3.0),
+        reinit_interval=10, cg_tol=1e-10, wall_axes=(True, True),
+        dtype=torch.float64, device=device)
+    xx = (np.arange(n) + 0.5) / n
+    X, Y = np.meshgrid(xx, xx, indexing="ij")
+    phi0 = r0 - np.sqrt((X - c0[0]) ** 2 + (Y - c0[1]) ** 2)
+    s = make_circle_membrane(64, r0, c0, stiffness=1.0)
+    integ = IBExplicitIntegrator(vc, IBMethod(
+        s.force_specs(dtype=torch.float64, device=device), kernel="IB_4"))
+    st = integ.initialize(s.vertices, ins_state=vc.initialize(phi0))
+    st = advance_ib(integ, st, 5e-4, MP_LEG_STEPS)
+    return (st.X,) + st.ins.u + (st.ins.p, st.ins.phi), vc.cg_iterations
+
+
+def _brinkman_leg(device):
+    """The driven flow past a fixed Brinkman cylinder of
+    ``tests/test_brinkman_waves.py:43`` (48^2)."""
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator
+    from ibamr_tpu_torch.physics import brinkman
+
+    g = StaggeredGrid(n=(48, 48), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    ins = INSStaggeredIntegrator(g, mu=0.02, rho=1.0, dtype=torch.float64,
+                                 device=device)
+    body = brinkman.BrinkmanBody(brinkman.make_cylinder_sdf(0.12), eta=1e-3)
+    bp = brinkman.BrinkmanPenalization(ins, [body])
+    kw = dict(dtype=torch.float64, device=device)
+    bsts = [brinkman.RigidBodyState(
+        center=torch.tensor([0.5, 0.5], **kw), U=torch.zeros(2, **kw),
+        theta=torch.zeros((), **kw), omega=torch.zeros((), **kw))]
+    f = (0.2 * torch.ones(g.n, **kw), torch.zeros(g.n, **kw))
+    st = ins.initialize()
+    for _ in range(MP_LEG_STEPS):
+        st, bsts, imp = bp.step(st, bsts, 2e-3, f=f)
+    return st.u + (st.p, imp[0][0]), 0
+
+
+def _wave_tank_leg(device):
+    """The open-outlet wave train of ``tests/test_vc_open.py:115``
+    (96x32; generation zone, damping beach, outlet)."""
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ins_vc import INSVCStaggeredIntegrator
+    from ibamr_tpu_torch.physics.waves import (StokesWave, apply_zone,
+                                               make_zone, still_targets,
+                                               wave_targets)
+
+    n, L, H, still = (96, 32), 3.0, 1.0, 0.5
+    kw = dict(dtype=torch.float64, device=device)
+    g = StaggeredGrid(n=n, x_lo=(0.0, 0.0), x_up=(L, H))
+    wave = StokesWave(amplitude=0.02, wavelength=1.0, still_level=still,
+                      depth=still)
+    vc = INSVCStaggeredIntegrator(
+        g, rho0=100.0, rho1=1.0, mu0=1e-3, mu1=1e-5, gravity=(0.0, -9.81),
+        wall_axes=(False, True), open_outlet=True, still_level=still,
+        cg_tol=1e-10, **kw)
+    gen = make_zone(g, 0.0, 0.8, "generation", "lo", **kw)
+    damp = make_zone(g, 2.2, 3.0, "damping", "hi", **kw)
+    zc = (np.arange(n[1]) + 0.5) * g.dx[1]
+    st = vc.initialize(np.broadcast_to((zc - still)[None, :], n).copy())
+    phi_s, u_s = still_targets(g, still, **kw)
+    for _ in range(MP_LEG_STEPS):
+        st = vc.step(st, 2.5e-3)
+        phi_t, u_t = wave_targets(g, wave, st.t, **kw)
+        phi, u = apply_zone(st.phi, st.u, gen, phi_t, u_t)
+        phi, u = apply_zone(phi, u, damp, phi_s, u_s)
+        st = st._replace(phi=phi, u=u)
+    return st.u + (st.p, st.phi), vc.cg_iterations
+
+
+def _turbulence_leg(device):
+    """Smagorinsky LES and k-omega URANS on a walled 32^2 Taylor-Green
+    channel (the VC machinery with walls: multigrid-preconditioned CG)."""
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.physics.turbulence import KOmegaINS, SmagorinskyINS
+
+    n = 32
+    g = StaggeredGrid(n=(n, n), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    x, xc = np.arange(n) / n, (np.arange(n) + 0.5) / n
+    u0 = (2.0 * np.sin(2 * np.pi * x)[:, None] * np.cos(2 * np.pi * xc)[None],
+          -2.0 * np.cos(2 * np.pi * xc)[:, None] * np.sin(2 * np.pi * x)[None])
+    u0[1][:, 0] = 0.0
+    kw = dict(wall_axes=(False, True), dtype=torch.float64, device=device)
+    les = SmagorinskyINS(g, mu=1e-3, cs=0.3, **kw)
+    rans = KOmegaINS(g, mu=1e-3, **kw)
+    les._vc.cg_tol = rans._vc.cg_tol = 1e-10
+    s1 = les.initialize(u0)
+    s2, tk = rans.initialize(u0, k0=1e-3, omega0=2.0)
+    for _ in range(MP_LEG_STEPS):
+        s1 = les.step(s1, 2e-3)
+        s2, tk = rans.step(s2, tk, 2e-3)
+    return (s1.u + (s1.p,) + s2.u + (tk.k, tk.omega),
+            les._vc.cg_iterations + rans._vc.cg_iterations)
+
+
+def _oldroyd_leg(device):
+    """A sheared periodic Oldroyd-B fluid (32^2): the conformation steps
+    and the polymer force through the staggered INS's ``f=``."""
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator
+    from ibamr_tpu_torch.physics.complex_fluids import OldroydB
+
+    n = 32
+    g = StaggeredGrid(n=(n, n), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    kw = dict(dtype=torch.float64, device=device)
+    model = OldroydB(g, mu_p=0.1, lam=0.3, **kw)
+    ins = INSStaggeredIntegrator(g, mu=0.05, **kw)
+    y = (np.arange(n) + 0.5) / n
+    st = ins.initialize(u0_arrays=(
+        np.broadcast_to(np.sin(2 * np.pi * y)[None, :], (n, n)).copy(),
+        np.zeros((n, n))))
+    C = model.initialize()
+    for _ in range(MP_LEG_STEPS):
+        st = ins.step(st, 2e-3, f=model.body_force(C))
+        C = model.step(C, st.u, 2e-3)
+    return st.u + (C,), 0
+
+
+def _collocated_leg(device):
+    """The collocated Taylor-Green vortex (32^2, centered)."""
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ins_collocated import (
+        INSCollocatedIntegrator, advance_collocated)
+
+    n = 32
+    g = StaggeredGrid(n=(n, n), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    c = (np.arange(n) + 0.5) / n
+    X, Y = np.meshgrid(c, c, indexing="ij")
+    integ = INSCollocatedIntegrator(g, mu=0.01, dtype=torch.float64,
+                                    device=device)
+    st = integ.initialize(u0_arrays=(
+        np.sin(2 * np.pi * X) * np.cos(2 * np.pi * Y),
+        -np.cos(2 * np.pi * X) * np.sin(2 * np.pi * Y)))
+    st = advance_collocated(integ, st, 5e-3, MP_LEG_STEPS)
+    return st.u + (st.p,), 0
+
+
+def _stochastic_leg() -> bool:
+    """Fluctuating-stress moments on the card's own draws (zero net
+    momentum, variance ratio 4 between dt and 4 dt from one seed) and the
+    normals-to-force map against the CPU on the same normals."""
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.ops.stochastic import StochasticStressForcing
+
+    g = StaggeredGrid(n=(64, 64), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    fg = StochasticStressForcing(g, mu=0.1, kT=1.0, dtype=torch.float64,
+                                 device=DEVICE)
+    fc = StochasticStressForcing(g, mu=0.1, kT=1.0, dtype=torch.float64,
+                                 device="cpu")
+
+    def gen(seed):
+        return torch.Generator(device=DEVICE).manual_seed(seed)
+
+    f1, f2 = fg.sample(gen(1), 1e-3), fg.sample(gen(1), 4e-3)
+    net = max(abs(float(torch.sum(c))) for c in f1)
+    ratio = float(torch.var(f1[0]) / torch.var(f2[0]))
+    Z = fc.normals(torch.Generator().manual_seed(3))
+    err = _rel64(fg.force_from_normals([z.to(DEVICE) for z in Z], 1e-3),
+                 fc.force_from_normals(Z, 1e-3))
+    ok = net < 1e-8 and abs(ratio - 4.0) < 1e-6 and err <= 1e-12
+    log(f"[multiphase] stochastic stress on the card's draws (64^2, f64): "
+        f"max|sum f_d| {net:.3e} (bound 1e-8), var ratio dt/4dt {ratio!r} "
+        f"(4 within 1e-6); the same normals GPU vs CPU {err:.3e} (tol "
+        f"1e-12): {ok}")
+    return ok
+
+
+def _channel_komega_leg() -> bool:
+    """The wall-resolved k-omega channel of ``tests/test_turbulence.py:148``
+    (Re_tau 395, 80 cells), ``MP_CHANNEL_ITERS`` of its 30,000 iterations:
+    the card's graphed chunks against the CPU loop."""
+    from ibamr_tpu_torch.physics.turbulence import channel_komega
+
+    t0 = time.perf_counter()
+    pg = channel_komega(re_tau=395.0, n=80, iters=MP_CHANNEL_ITERS,
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pc = channel_komega(re_tau=395.0, n=80, iters=MP_CHANNEL_ITERS,
+                        device="cpu")
+    c_s = time.perf_counter() - t0
+    err = _rel64(tuple(pg), tuple(pc))
+    log(f"[multiphase] channel_komega (Re_tau 395, 80 cells, "
+        f"{MP_CHANNEL_ITERS} iterations, f64): {g_s:.3f} s on the card (chunks of 200 "
+        f"iterations replayed as CUDA graphs), {c_s:.3f} s on the CPU; "
+        f"max over the profiles of max|gpu-cpu|/max|cpu| {err:.3e} (tol "
+        f"{TOL_MP_F64:g})")
+    return err <= TOL_MP_F64
+
+
+def phase_multiphase(breakdown: bool = False) -> None:
+    """Two-phase variable-coefficient flow: the dam break and both falling
+    drops on their committed inputs, then one f64 leg each of the 3D
+    walled drop, the VC membrane capsule, a Brinkman cylinder, the
+    open-outlet wave tank, Smagorinsky and k-omega, Oldroyd-B and the
+    collocated Taylor-Green on the card against the CPU, the stochastic
+    forcing's moments and the k-omega channel."""
+    ok = _dam_break_leg(breakdown)
+    for inp in MP_DROP_INPUTS:
+        ok &= _falling_drop_leg(inp)
+    for label, leg in (("3D walled drop 16^3", _vc3d_leg),
+                       ("VC membrane capsule 48^2", _vc_capsule_leg),
+                       ("Brinkman cylinder 48^2", _brinkman_leg),
+                       ("open-outlet wave tank 96x32", _wave_tank_leg),
+                       ("Smagorinsky + k-omega walled 32^2",
+                        _turbulence_leg),
+                       ("Oldroyd-B sheared 32^2", _oldroyd_leg),
+                       ("collocated Taylor-Green 32^2", _collocated_leg)):
+        t0 = time.perf_counter()
+        (g, g_its), (c, c_its) = leg(DEVICE), leg("cpu")
+        torch.cuda.synchronize()
+        err = _rel64(g, c)
+        passed = (err <= TOL_MP_F64 and g_its == c_its
+                  and all(bool(torch.isfinite(x).all()) for x in g))
+        log(f"[multiphase] {label}, {MP_LEG_STEPS} steps at f64: "
+            f"max|gpu-cpu|/max|cpu| over the fields {err:.3e} (tol "
+            f"{TOL_MP_F64:g}), CG iterations {g_its} / {c_its}, "
+            f"{time.perf_counter() - t0:.3f} s for both: {passed}")
+        ok &= passed
+    ok &= _stochastic_leg()
+    ok &= _channel_komega_leg()
+    if not ok:
+        raise AssertionError("multiphase: a check failed (see the "
+                             "[multiphase] lines)")
+
+
 def _graphed_projection_bitwise(leg) -> bool:
     """The composite projection at a leg's end state through the graphed
     operators against a fresh projection on the eager flat operators."""
@@ -3003,10 +3520,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,parity,path,hybrid,driver,auto,ex0,"
-                    "ibfe3d,walls,open,ibfe,rigid,adv,amr,mlamr,implicit",
+                    "ibfe3d,walls,open,ibfe,rigid,adv,amr,mlamr,implicit,"
+                    "multiphase",
                     help="comma-separated subset of kernels,parity,path,"
                     "hybrid,driver,auto,ex0,ibfe3d,walls,open,ibfe,rigid,"
-                    "adv,amr,mlamr,implicit "
+                    "adv,amr,mlamr,implicit,multiphase "
                     "(add 'breakdown' for a profile of the step of each "
                     "that runs, the flagship's auto leg included; hybrid "
                     "reads the path phase's time)")
@@ -3071,7 +3589,8 @@ def main(argv=None) -> int:
     for name, fn in (("walls", phase_walls), ("open", phase_open),
                      ("ibfe", phase_ibfe), ("rigid", phase_rigid),
                      ("adv", phase_adv), ("amr", phase_amr),
-                     ("mlamr", phase_mlamr), ("implicit", phase_implicit)):
+                     ("mlamr", phase_mlamr), ("implicit", phase_implicit),
+                     ("multiphase", phase_multiphase)):
         if name in phases:
             _assert_no_launches(name, lambda: fn("breakdown" in phases))
             clock.lap(name)

@@ -35,10 +35,14 @@ from ibamr_tpu_torch.integrators.penalty_ib import PenaltyIBState
 from ibamr_tpu_torch.instruments import MeterSpecs
 from ibamr_tpu_torch.ops.rods import RodSpecs
 from ibamr_tpu_torch.integrators.ins import INSState
+from ibamr_tpu_torch.integrators.ins_collocated import CollocatedINSState
+from ibamr_tpu_torch.integrators.ins_vc import VCConsState, VCINSState
 from ibamr_tpu_torch.integrators.ins_open import OpenINSState
 from ibamr_tpu_torch.ops import forces
 from ibamr_tpu_torch.ops.interaction_fast import Buckets
 from ibamr_tpu_torch.ops.interaction_packed import PackedBuckets
+from ibamr_tpu_torch.physics.brinkman import RigidBodyState
+from ibamr_tpu_torch.physics.turbulence import KOmegaState
 
 
 def tensor(a, device="cuda", dtype=None) -> torch.Tensor:
@@ -276,3 +280,47 @@ def meter_specs(m, device="cuda") -> MeterSpecs:
     return MeterSpecs(idx=tensor(m.idx, device, torch.int64),
                       valid=tensor(m.valid, device),
                       seg=tensor(m.seg, device))
+
+
+def vc_ins_state(s, device="cuda") -> VCINSState:
+    """A ``VCINSState``'s leaves (u, p, phi, n_prev, t; k as a host
+    int)."""
+    return VCINSState(u=tuple(tensor(c, device) for c in s.u),
+                      p=tensor(s.p, device), phi=tensor(s.phi, device),
+                      n_prev=tuple(tensor(c, device) for c in s.n_prev),
+                      t=tensor(s.t, device), k=int(np.asarray(s.k)))
+
+
+def vc_cons_state(s, device="cuda") -> VCConsState:
+    """A ``VCConsState``'s leaves (u, p, phi, rho, t; k as a host int)."""
+    return VCConsState(u=tuple(tensor(c, device) for c in s.u),
+                       p=tensor(s.p, device), phi=tensor(s.phi, device),
+                       rho=tensor(s.rho, device), t=tensor(s.t, device),
+                       k=int(np.asarray(s.k)))
+
+
+def collocated_ins_state(s, device="cuda") -> CollocatedINSState:
+    """A ``CollocatedINSState``'s leaves (u, p, n_prev, t; k as a host
+    int)."""
+    return CollocatedINSState(
+        u=tuple(tensor(c, device) for c in s.u), p=tensor(s.p, device),
+        n_prev=tuple(tensor(c, device) for c in s.n_prev),
+        t=tensor(s.t, device), k=int(np.asarray(s.k)))
+
+
+def komega_state(s, device="cuda") -> KOmegaState:
+    """A ``KOmegaState``'s leaves (k, omega)."""
+    return KOmegaState(k=tensor(s.k, device), omega=tensor(s.omega, device))
+
+
+def rigid_body_state(s, device="cuda") -> RigidBodyState:
+    """A Brinkman ``RigidBodyState``'s leaves (center, U, theta, omega)."""
+    return RigidBodyState(center=tensor(s.center, device),
+                          U=tensor(s.U, device),
+                          theta=tensor(s.theta, device),
+                          omega=tensor(s.omega, device))
+
+
+def conformation(C, device="cuda") -> torch.Tensor:
+    """An Oldroyd-B conformation field (..., nc)."""
+    return tensor(C, device)

@@ -2,8 +2,10 @@
 INS ``advance`` loop and the Stokes solver's FGMRES operator and
 preconditioner, each replayed as a CUDA graph, give bitwise the results
 of launching their kernels one by one (the L-level projection, FAC
-included, and the implicit step's tangent FGMRES too). Needs an NVIDIA
-GPU and skips without one. The file imports neither JAX nor the JAX package:
+included, the implicit step's tangent FGMRES, the two-phase projection's
+set-up, operator and multigrid preconditioner, and the k-omega channel's
+iteration chunks too). Needs an NVIDIA GPU and skips without one. The
+file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_graphs.py
@@ -194,3 +196,56 @@ def test_tangent_fgmres_through_graphs_equals_eager():
     assert sol_g.iters == sol_e.iters == plain.iters
     assert torch.equal(sol_g.x, sol_e.x) and torch.equal(dx_g, dx_e)
     assert torch.equal(ravel(plain.x)[0], sol_g.x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["periodic", "walled", "conservative",
+                                  "open"])
+def test_vc_projection_graphed_equals_eager(kind):
+    """The two-phase projection's set-up, operator and multigrid
+    preconditioner graphs: every step's own density reaches the graphed
+    hierarchy (steps of a heavy drop, each projection against the eager
+    pieces at the same density), bitwise with equal CG counts."""
+    _needs_gpu()
+    from ibamr_tpu_torch.integrators.ins_vc import (
+        INSVCConservativeIntegrator, INSVCStaggeredIntegrator)
+
+    n = (32, 24)
+    grid = StaggeredGrid(n=n, x_lo=(0.0, 0.0), x_up=(1.0, 0.75))
+    kw = dict(rho0=1.0, rho1=1000.0, mu0=0.01, mu1=0.1, sigma=0.5,
+              gravity=(0.0, -1.0), cg_tol=1e-5)
+    cls, rule = INSVCStaggeredIntegrator, "harmonic"
+    if kind == "walled":
+        kw["wall_axes"] = (True, True)
+    elif kind == "conservative":
+        cls, rule = INSVCConservativeIntegrator, "arithmetic"
+    elif kind == "open":
+        kw.update(wall_axes=(False, True), open_outlet=True,
+                  still_level=0.4, sigma=0.0)
+    integ = cls(grid, **kw)
+    xs = [(np.arange(m) + 0.5) * h for m, h in zip(n, grid.dx)]
+    X, Y = np.meshgrid(*xs, indexing="ij")
+    st = integ.initialize(0.15 - np.sqrt((X - 0.5) ** 2 + (Y - 0.45) ** 2))
+    dt = 2e-4
+    for _ in range(4):
+        st = integ.step(st, dt)
+        rho = st.rho if kind == "conservative" else integ.density(st.phi)
+        u = tuple(c + 0.01 * torch.roll(c, 1, 1) for c in st.u)
+        ug, pg = integ.project_with(integ.projection(rho, dt, rule), u, dt)
+        ig = integ.last_solve_stats["iters"]
+        ue, pe = integ.project_with(
+            integ.projection(rho, dt, rule, graphed=False), u, dt)
+        assert ig == integ.last_solve_stats["iters"]
+        for a, b in zip(ug + (pg,), ue + (pe,)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_channel_komega_graphed_chunks_equal_eager():
+    _needs_gpu()
+    from ibamr_tpu_torch.physics.turbulence import channel_komega
+
+    a = channel_komega(re_tau=180.0, n=32, iters=450, chunk=200)
+    b = channel_komega(re_tau=180.0, n=32, iters=450, chunk=1000)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

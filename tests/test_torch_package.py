@@ -27,8 +27,14 @@ def _forbidden(name: str) -> bool:
 
 
 def _port_modules():
-    return sorted(m.name for m in pkgutil.walk_packages(
-        ibamr_tpu_torch.__path__, "ibamr_tpu_torch."))
+    """Every module of the port, ``ibamr_tpu_torch.physics`` included (a
+    directory without ``__init__.py``, as in the JAX package, which
+    ``pkgutil`` does not descend into)."""
+    mods = {m.name for m in pkgutil.walk_packages(
+        ibamr_tpu_torch.__path__, "ibamr_tpu_torch.")}
+    mods |= {m.name for m in pkgutil.iter_modules(
+        [str(PKG / "physics")], "ibamr_tpu_torch.physics.")}
+    return sorted(mods)
 
 
 def test_forbidden_name_check_tells_the_prefix_apart():
@@ -54,7 +60,17 @@ def test_fresh_import_loads_neither_jax_nor_the_jax_package():
             "ibamr_tpu_torch.integrators.ib_implicit",
             "ibamr_tpu_torch.ops.rods", "ibamr_tpu_torch.integrators.gib",
             "ibamr_tpu_torch.integrators.penalty_ib",
-            "ibamr_tpu_torch.instruments"} <= set(mods)
+            "ibamr_tpu_torch.instruments",
+            "ibamr_tpu_torch.physics.level_set",
+            "ibamr_tpu_torch.physics.brinkman",
+            "ibamr_tpu_torch.physics.waves",
+            "ibamr_tpu_torch.physics.turbulence",
+            "ibamr_tpu_torch.physics.complex_fluids",
+            "ibamr_tpu_torch.integrators.ins_vc",
+            "ibamr_tpu_torch.integrators.ins_collocated",
+            "ibamr_tpu_torch.ops.stochastic",
+            "ibamr_tpu_torch.examples.multiphase_dam_break",
+            "ibamr_tpu_torch.examples.multiphase_falling_drop"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -135,7 +151,7 @@ def test_gpu_entry_points_raise_without_a_gpu():
     ] + [lambda m=m, d=d: m.build(d) for m, d in drivers] \
         + [lambda m=m, d=d: m.run(d) for m, d in drivers]
     new_calls += _structure_calls() + _transport_calls() \
-        + _hierarchy_calls() + _structure_model_calls()
+        + _hierarchy_calls() + _structure_model_calls() + _multiphase_calls()
     for call in new_calls + [lambda: resolve_device(),
                  lambda: build_shell_example(n_cells=16, n_lat=8, n_lon=8),
                  lambda: build_shell_example(
@@ -257,6 +273,53 @@ def _hierarchy_calls():
     ]
 
 
+def _multiphase_calls():
+    """The two-phase family's entry points (the VC and collocated
+    integrators, the physics modules, stochastic forcing) and the two
+    multiphase drivers, each called without ``device``."""
+    from ibamr_tpu_torch.examples import (multiphase_dam_break,
+                                          multiphase_falling_drop)
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ins_collocated import \
+        INSCollocatedIntegrator
+    from ibamr_tpu_torch.integrators.ins_vc import (
+        INSVCConservativeIntegrator, INSVCStaggeredIntegrator)
+    from ibamr_tpu_torch.ops.stochastic import (StochasticFluxForcing,
+                                                StochasticStressForcing)
+    from ibamr_tpu_torch.physics import complex_fluids, turbulence, waves
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    g = StaggeredGrid(n=(8, 8), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    box = __import__("ibamr_tpu_torch.amr", fromlist=["FineBox"]).FineBox(
+        lo=(2, 2), shape=(4, 4))
+    calls = [
+        lambda: INSVCStaggeredIntegrator(g),
+        lambda: INSVCConservativeIntegrator(g),
+        lambda: INSVCStaggeredIntegrator(g, wall_axes=(True, True)),
+        lambda: INSCollocatedIntegrator(g),
+        lambda: complex_fluids.OldroydB(g, 0.1, 0.5),
+        lambda: complex_fluids.identity_conformation(g),
+        lambda: turbulence.SmagorinskyINS(g, 1e-3),
+        lambda: turbulence.TwoLevelSmagorinskyINS(g, box, 1e-3),
+        lambda: turbulence.KOmegaINS(g, 1e-3),
+        lambda: turbulence.channel_komega(n=8, iters=1),
+        lambda: waves.make_zone(g, 0.0, 0.3, "generation", "lo"),
+        lambda: waves.still_targets(g, 0.5),
+        lambda: waves.cell_coords(g),
+        lambda: StochasticStressForcing(g, 0.1, 1.0),
+        lambda: StochasticFluxForcing(g, 0.1),
+    ]
+    for m, inputs in ((multiphase_dam_break, ("dam_break/input2d",)),
+                      (multiphase_falling_drop,
+                       ("falling_drop/input2d",
+                        "falling_drop/input2d.walled"))):
+        for ex in inputs:
+            db = parse_input_file(str(ROOT / "examples/multiphase" / ex))
+            calls += [lambda m=m, db=db: m.run(db),
+                      lambda m=m, db=db: m.build(db)]
+    return calls
+
+
 def _structure_model_calls():
     """The implicit, IMP, GIB, penalty and instrument entry points, each
     called without ``device`` (an integrator on an INS integrator built
@@ -332,6 +395,11 @@ def test_converters_default_to_the_gpu():
     pen = NS(ib=ib, Y=z3, V=z3)
     meters = NS(idx=np.zeros((1, 3), np.int32), valid=np.ones((1, 3)),
                 seg=np.ones((1, 3)))
+    vc_s = NS(u=(z3,) * 2, p=z3, phi=z3, n_prev=(z3,) * 2, t=0.0,
+              k=np.int32(4))
+    vcc_s = NS(u=(z3,) * 2, p=z3, phi=z3, rho=z3, t=0.0, k=np.int32(2))
+    kw_s = NS(k=z3, omega=z3)
+    rb_s = NS(center=np.zeros(2), U=np.zeros(2), theta=0.0, omega=0.0)
     calls = {"tensor": lambda **kw: convert.tensor(z3, **kw),
              "ins_state": lambda **kw: convert.ins_state(ins, **kw),
              "ib_state": lambda **kw: convert.ib_state(ib, **kw),
@@ -362,7 +430,16 @@ def test_converters_default_to_the_gpu():
              "rod_specs": lambda **kw: convert.rod_specs(rods_s, **kw),
              "penalty_ib_state": lambda **kw: convert.penalty_ib_state(
                  pen, **kw),
-             "meter_specs": lambda **kw: convert.meter_specs(meters, **kw)}
+             "meter_specs": lambda **kw: convert.meter_specs(meters, **kw),
+             "vc_ins_state": lambda **kw: convert.vc_ins_state(vc_s, **kw),
+             "vc_cons_state": lambda **kw: convert.vc_cons_state(vcc_s,
+                                                                 **kw),
+             "collocated_ins_state": lambda **kw:
+                 convert.collocated_ins_state(ins, **kw),
+             "komega_state": lambda **kw: convert.komega_state(kw_s, **kw),
+             "rigid_body_state": lambda **kw: convert.rigid_body_state(
+                 rb_s, **kw),
+             "conformation": lambda **kw: convert.conformation(z3, **kw)}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -378,6 +455,9 @@ def test_converters_default_to_the_gpu():
     assert mbs.lo.dtype == torch.int32 and mbs.lo.tolist() == [[2, 3], [5, 5]]
     assert convert.rod_specs(rods_s, device="cpu").idx0.dtype == torch.int64
     assert convert.meter_specs(meters, device="cpu").idx.dtype == torch.int64
+    # the two-phase states keep their step counter as a host int
+    assert convert.vc_ins_state(vc_s, device="cpu").k == 4
+    assert isinstance(convert.vc_cons_state(vcc_s, device="cpu").k, int)
     g = NS(n=np.array([8, 8]), x_lo=(0.0, 0.0), x_up=(1.0, 2.0))
     levels = convert.level_specs([NS(box=None, grid=g), NS(box=NS(
         lo=(2, 2), shape=(4, 4), ratio=2), grid=g)])
