@@ -98,7 +98,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    f64) with its 80 steps cut to the first (fx and the CG's convergence
    against the reference's, |fy| < 0.05 |fx|), then that step with the
    markers cut to ``OSC_MARKERS`` (converged, GPU against CPU), and the eel2d driver on ``examples/
-   ConstraintIB/eel2d/input2d`` as it is (2000 steps: swim_dx < 0 at
+   ConstraintIB/eel2d/input2d`` cut to ``EEL_STEPS`` (swim_dx < 0 at
    the end, the first 20 steps against the CPU). The 2D structure
    paths run no hand kernel; a launch in them fails.
 14. adv    -- the IB + advection-diffusion driver, ``adv_diff_ex0.run``, on
@@ -164,6 +164,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    warm dam-break step: device time and kernels, idle share, ms per CG
    iteration, the reinitialization's cost and a fast-sweeping call's
    kernel count. No hand kernel runs.
+19. resilience -- the supervised run loop: the flagship on
+   ``pallas_packed`` under ``ResilientDriver`` (``RES_STEPS`` steps in
+   chunks of ``RES_CHUNK``, a checkpoint every ``RES_RESTART`` through
+   the async writer, the health probe, the flight recorder, the f64
+   shadow audit every 2 chunks, the watchdog, a run ledger) with a
+   recorded dt-gated NaN at step ``RES_NAN_STEP``: exactly one divergence
+   incident rolled back to step 20, the run finite at step 40, no audit
+   breach, ``driver/chunk`` spans and chunk boundaries in the ledger, the
+   launches of exactly the stepped steps, and the incident's capsule
+   replayed on the card bitwise (``reproduced``); the warm steps/s of the
+   plain loop and of the supervised driver in turns, with the snapshot's
+   and the ledger's shares; the four drills of ``ibamr_tpu_torch/tools/
+   fault_injection.py`` on the card (rollback and checkpoint corruption,
+   silent failures, bf16 -> f32 escalation and replay, and 8 lanes of the
+   32^3 shell on ``pallas_packed`` with one poisoned lane); a
+   ``profile_trace`` of 3 flagship steps named in the ledger; and
+   ``entry()``'s step.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -234,10 +251,12 @@ CHANNEL_PROFILE_ERR = 0.021731913089752197
 CYL_INPUT = "examples/IB/explicit/cylinder2d/input2d"
 # of the input's 2000: the reference's own example diverges after step
 # ~110 (JAX 32-bit on the CPU; ROADMAP C), and the port with it
-CYL_STEPS = 100
-CYL_F64_STEPS = 150       # the f64 leg: past where the f32 example diverges
-# (~110-130 steps); cut from 200 to make room for the multiphase phase
-OPEN_PARITY_STEPS = 5     # cut from 10 to make room for the multiphase phase
+CYL_STEPS = 60            # cut from 100 to make room for the resilience phase
+CYL_F64_STEPS = 140       # the f64 leg: past where the f32 example diverges
+# (~110-130 steps); cut from 200 (PR 13: 150) to make room for the
+# multiphase and resilience phases
+OPEN_PARITY_STEPS = 3     # cut from 10 (PR 13: 5) to make room for the
+# multiphase and resilience phases; 3 still cross the 12-restart start
 OPEN_DIV_BOUND = 1e-4     # f32 solver floor (tol 1e-5 relative)
 TOL_OPEN_FIELDS = 1e-4    # GPU vs CPU after the f32 parity steps, rel. to max|.|
 IBFE_EX0_INPUT = "examples/IBFE/explicit/ex0/input2d"
@@ -247,7 +266,7 @@ IBFE_AREA_DRIFT = 0.02    # |area - area0| / area0: tests/test_ibfe.py:176
 BEAM_INPUT = "examples/IBFE/explicit/beam2d/input2d"
 BEAM_STEPS = 2            # of the input's 1500 (f32: 12 restarts a step;
 # cut from 5 to make room for the multiphase phase)
-BEAM_PARITY_STEPS = 2
+BEAM_PARITY_STEPS = 1     # cut from 2 to make room for the resilience phase
 BEAM_F64_STEPS = 100
 # the ibfe3d leg: a geodesic sphere membrane (4,098 nodes, 8,192 TRI3S
 # facets, 24,576 quadrature points) pre-stretched in a 128^3 box
@@ -256,10 +275,11 @@ IBFE3D = dict(n_cells=128, radius=0.25, n_subdiv=5,
               dt=5e-4, seed=3)
 IBFE3D_STEPS = 5
 CIB_INPUT = "examples/CIB/ex0/input2d"
-CIB_STEPS = 3             # of the input's 40 (8 s a step: 1,200 CG);
+CIB_STEPS = 2             # of the input's 40 (8 s a step: 1,200 CG);
 # cut from 10 to 6 to make room for the mlamr and implicit phases, and
-# to 3 for the multiphase phase
-CIB_PARITY_STEPS = 2      # at f64, GPU vs CPU
+# to 3 for the multiphase phase, and to 2 for the resilience phase
+CIB_PARITY_STEPS = 1      # at f64, GPU vs CPU; cut from 2 for the
+# resilience phase
 TOL_RIGID_U = 1e-5        # max|U_gpu - U_cpu| / max|U|
 OSC_INPUT = "examples/CIB/oscillating_cylinder/input2d"
 # (fx, converged) of the input's first step (of 80): the first record of
@@ -271,12 +291,15 @@ OSC_REF = (25.621520152268545, False)
 OSC_MARKERS = 12
 TOL_RIGID_FX = 1e-4       # |fx_gpu - fx_cpu| / |fx_cpu|
 EEL_INPUT = "examples/ConstraintIB/eel2d/input2d"
+EEL_STEPS = 500           # of the input's 2000 (the swimmer moves against
+# the wave from step ~150 on); cut to make room for the resilience phase
 EEL_PARITY_STEPS = 20
 FIL_INPUT = "examples/IB/explicit/filament2d/input2d"
 FIL_STEPS = 2             # of the input's 4000 (f32: 12 restarts a step;
 # cut from 5 to make room for the multiphase phase)
-FIL_PARITY_STEPS = 2
-FIL_F64_STEPS = 50        # cut from 100 to make room for the multiphase phase
+FIL_PARITY_STEPS = 1      # cut from 2 to make room for the resilience phase
+FIL_F64_STEPS = 30        # cut from 100 (PR 13: 50) to make room for the
+# multiphase and resilience phases
 FIL_LENGTH_STEPS = 300
 ADV_INPUT = "examples/adv_diff/ex0/input2d"
 ADV_PARITY_STEPS = 20     # adv: steps of the GPU-vs-CPU check
@@ -316,7 +339,8 @@ ML_ADV = dict(kappa=1e-3, steps=100, tol=1e-5)
 MB = dict(n=48, box=14, kappa=2e-3, amp=0.25, threshold=0.02, steps=60,
           regrid=6, dt=2.5e-4)
 # implicit: the ex0 membrane (f64), the first IMP1_CPU steps also on the CPU
-IMP1_STEPS = 10           # cut from 20 to make room for the multiphase phase
+IMP1_STEPS = 6            # cut from 20 (PR 13: 10) to make room for the
+# multiphase and resilience phases
 IMP1_CPU = 3
 IMPLICIT_AREA_DRIFT = 0.02
 # implicit: ex0_amr at 10x its dt, a regrid every 2 steps (f64)
@@ -414,7 +438,18 @@ def _check_kernel(name: str, kernel, plain, library, nbytes: int,
     beside the bound of ``nbytes`` moved and ``ops`` operations."""
     err, scale, bitwise = _compare(kernel, plain, live)
     ms = _device_ms(kernel, 20)[0]
+    for _ in range(2):
+        # a capture that recorded no device activity is retried; the
+        # profiler has come back empty on the card now and then
+        if ms > 0:
+            break
+        ms = _device_ms(kernel, 20)[0]
     calls_ms = time_ms(kernel, 50)
+    if not ms > 0:
+        log(f"[kernels] {name}: the profiler recorded no device time in "
+            f"three captures; the kernel time is the CUDA events' over "
+            f"back-to-back calls")
+        ms = calls_ms
     plain_ms = time_ms(plain, 5)
     library_ms = time_ms(library, 10)
     bms, by = bound(nbytes, ops)
@@ -3341,6 +3376,7 @@ def phase_rigid(breakdown: bool = False) -> None:
 
     db = parse_input_file(os.path.join(ROOT, EEL_INPUT))
     idb = db.get_database("INSStaggeredHierarchyIntegrator")
+    idb.put("num_steps", EEL_STEPS)
     steps, dt = idb.get_int("num_steps"), idb.get_float("dt")
     timer.reset()
     st, files = _in_tmp(lambda: eel.run(db, device=DEVICE))
@@ -3504,6 +3540,275 @@ def phase_breakdown(integ, state, step_ms: float, label: str,
             f"{e.count / 3:6.1f} device {us / 3e3:.3f} ms/step")
 
 
+RES_STEPS, RES_RESTART, RES_CHUNK = 40, 10, 5   # resilience: supervised run
+RES_NAN_STEP = 23         # the dt-gated NaN lands in the chunk 20..25
+RES_WARM = 20             # resilience: warm steps of each timing leg
+
+
+def _supervised_flagship(tmp: str) -> dict:
+    """The flagship on ``pallas_packed`` under the whole supervised run
+    loop: ResilientDriver + HierarchyDriver with the health probe, the
+    flight recorder, the f64 shadow audit every 2 chunks, the async
+    checkpoint writer and the watchdog, under a run ledger, with a
+    recorded dt-gated NaN in the fluid velocity at step 23. Then the
+    incident's capsule replayed on the card."""
+    from ibamr_tpu_torch import obs
+    from ibamr_tpu_torch.models.shell3d import build_shell_example
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.solvers.escalation import ShadowAuditor
+    from ibamr_tpu_torch.tools.fault_injection import (nan_injector_step,
+                                                       recorded)
+    from ibamr_tpu_torch.tools.replay import replay
+    from ibamr_tpu_torch.utils.flight_recorder import (FlightRecorder,
+                                                       factory_spec)
+    from ibamr_tpu_torch.utils.health import HealthProbe
+    from ibamr_tpu_torch.utils.hierarchy_driver import (HierarchyDriver,
+                                                        RunConfig)
+    from ibamr_tpu_torch.utils.supervisor import ResilientDriver
+    from ibamr_tpu_torch.utils.watchdog import RunWatchdog, read_heartbeat
+
+    kwargs = dict(use_fast_interaction="pallas_packed", dtype="float32",
+                  device=DEVICE, **FLAGSHIP)
+    integ, st0 = build_shell_example(**dict(kwargs, dtype=torch.float32))
+    dt0 = DT_FLAGSHIP
+    cfg = RunConfig(dt=dt0, num_steps=RES_STEPS,
+                    restart_interval=RES_RESTART, health_interval=RES_CHUNK)
+    inj = dict(at_step=RES_NAN_STEP, leaf_path="u[0]", dt_gate=dt0 * 0.99,
+               step_attr="ins.k")
+    rec = FlightRecorder(capacity=4, spec=factory_spec(
+        "ibamr_tpu_torch.models.shell3d", "build_shell_example", **kwargs))
+    audit = ShadowAuditor(every=2)
+    ckdir, ledger = os.path.join(tmp, "run"), os.path.join(tmp, "ledger.jsonl")
+    with recorded("nan", **inj):
+        drv = HierarchyDriver(integ, cfg,
+                              step_fn=nan_injector_step(integ.step, **inj),
+                              health_probe=HealthProbe.for_integrator(integ),
+                              recorder=rec, shadow_audit=audit)
+        sup = ResilientDriver(
+            drv, ckdir, max_retries=2, dt_backoff=0.5, handle_signals=False,
+            watchdog=RunWatchdog(heartbeat_path=ckdir, interval_s=0.5,
+                                 min_stall_s=120.0))
+        ci.reset_launch_counts()
+        t0 = time.perf_counter()
+        with obs.ledger(ledger, fingerprint=rec.fingerprint(drv)):
+            out = sup.run(st0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    launches = dict(ci.LAUNCHES)
+    div = [r for r in sup.incidents if r["event"] == "divergence"]
+    others = [r["event"] for r in sup.incidents if r["event"] != "divergence"]
+    k = int(out.ins.k)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (out.X, *out.ins.u, out.ins.p))
+    recs = obs.read_ledger(ledger)
+    spans = [r for r in recs if r["kind"] == "span"
+             and r.get("name") == "driver/chunk"]
+    bounds = [r for r in recs if r["kind"] == "counters"]
+    hb = read_heartbeat(os.path.join(ckdir, "heartbeat.json"))
+    # the failing attempt runs to the end of the chunk holding the NaN,
+    # the capsule's post digest re-runs that chunk, the retry runs from
+    # the step-20 checkpoint to the end
+    fail_end = (RES_NAN_STEP // RES_CHUNK + 1) * RES_CHUNK
+    steps_run = fail_end + RES_CHUNK + (RES_STEPS - 2 * RES_RESTART)
+    log(f"[resilience] supervised flagship: {run_s:.2f} s for "
+        f"{RES_STEPS} steps with one rollback ({steps_run} steps stepped, "
+        f"the capsule's re-execution included); incidents "
+        f"{[(r['event'], r.get('kind'), r.get('step'), r.get('rollback_step'), r.get('dt_after')) for r in sup.incidents]}; "
+        f"final step {k}, finite={finite}; shadow audits "
+        f"{[(a['step'], a['spectral_dtype'], round(a['drift'], 9)) for a in audit.history]}; "
+        f"ledger: {len(recs)} records, {len(spans)} driver/chunk spans, "
+        f"{len(bounds)} chunk boundaries; heartbeat step "
+        f"{hb and hb.get('step')}; launches {launches}")
+    t0 = time.perf_counter()
+    cap = div[0]["replay"] if div else None
+    ci.reset_launch_counts()
+    res = replay(cap) if cap else {"verdict": None, "bitwise": False}
+    replayed = dict(ci.LAUNCHES)
+    log(f"[resilience] capsule {cap} replayed on the card in "
+        f"{time.perf_counter() - t0:.2f} s: verdict {res['verdict']}, "
+        f"bitwise {res['bitwise']}, launches {replayed}")
+    ok = (len(div) == 1 and div[0]["rollback_step"] == 2 * RES_RESTART
+          and not others and k == RES_STEPS and finite
+          and audit.audits >= 1
+          and all(a["drift"] <= audit.bound for a in audit.history)
+          and spans and bounds and res["verdict"] == "reproduced"
+          and res["bitwise"]
+          and launches == {**dict.fromkeys(KERNELS, 0),
+                           "packed_spread": 3 * steps_run,
+                           "packed_interp": 6 * steps_run}
+          and replayed["packed_spread"] == 3 * RES_CHUNK)
+    if not ok:
+        raise AssertionError("the supervised flagship run missed one of its "
+                             "checks (see the log lines above)")
+    return dict(integ=integ, state=out,
+                launches={k: launches[k] + replayed[k] for k in launches})
+
+
+def _supervised_speed(integ, state, tmp: str) -> None:
+    """Warm steps/s of the flagship: a plain loop of steps, then the
+    driver with one layer added at a time (chunks and their one read;
+    the probe; the recorder; the audit every 2 chunks, i.e. supervised,
+    under a ledger), in turns; the recorder's snapshot and the ledger's
+    shares of the supervised wall."""
+    from ibamr_tpu_torch import obs
+    from ibamr_tpu_torch.solvers.escalation import ShadowAuditor
+    from ibamr_tpu_torch.utils.flight_recorder import FlightRecorder
+    from ibamr_tpu_torch.utils.health import HealthProbe
+    from ibamr_tpu_torch.utils.hierarchy_driver import (HierarchyDriver,
+                                                        RunConfig)
+
+    def plain():
+        s = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RES_WARM):
+            s = integ.step(s, DT_FLAGSHIP)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, {}
+
+    def driven(layers, i):
+        rec = FlightRecorder(capacity=4) if layers >= 3 else None
+        drv = HierarchyDriver(
+            integ, RunConfig(dt=DT_FLAGSHIP, num_steps=RES_WARM,
+                             health_interval=RES_CHUNK),
+            health_probe=(HealthProbe.for_integrator(integ)
+                          if layers >= 2 else None),
+            recorder=rec,
+            shadow_audit=ShadowAuditor(2) if layers >= 4 else None)
+        torch.cuda.synchronize()
+        with obs.ledger(os.path.join(tmp, f"warm{layers}{i}.jsonl")) as led:
+            t0 = time.perf_counter()
+            drv.run(state)
+            wall = time.perf_counter() - t0
+        return wall, dict(snap=rec.overhead_s if rec else 0.0,
+                          ledger=led.overhead_s, reads=drv.host_reads)
+
+    legs = [("plain loop", plain)] + [
+        (name, lambda i, k=k: driven(k, i)) for k, name in
+        ((1, "driver (chunks, one read each)"), (2, "+ health probe"),
+         (3, "+ flight recorder"), (4, "+ shadow audit = supervised"))]
+    plain()
+    walls = {name: [] for name, _ in legs}
+    for i in range(2):
+        for name, fn in (legs if i == 0 else legs[::-1]):
+            wall, info = fn(i) if name != "plain loop" else fn()
+            walls[name].append(wall)
+            if info and info["reads"] != RES_WARM // RES_CHUNK:
+                raise AssertionError("the driver read more than once a "
+                                     "chunk")
+            if name.endswith("supervised"):
+                log(f"[resilience] supervised leg: snapshot host share "
+                    f"{info['snap'] / wall:.5f}, ledger share "
+                    f"{info['ledger'] / wall:.5f}, {info['reads']} host "
+                    f"reads for {RES_WARM // RES_CHUNK} chunks")
+    base = min(walls["plain loop"])
+    for name, ws in walls.items():
+        w = min(ws)
+        log(f"[resilience] warm flagship, {name}: "
+            f"{RES_WARM / w:.3f} steps/s (best of 2; {w / base:.4f}x the "
+            f"plain loop's wall; walls {[round(x, 4) for x in ws]} s)")
+    # the snapshot's device time: clones of the whole 256^3 state
+    rec = FlightRecorder(capacity=1)
+    ms = time_ms(lambda: rec.snapshot(state, step=0, dt=DT_FLAGSHIP,
+                                      length=RES_CHUNK), 5)
+    chunk_ms = 1e3 * min(walls["+ shadow audit = supervised"]) / (
+        RES_WARM // RES_CHUNK)
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (state.X, state.U, state.mask, *state.ins.u, state.ins.p,
+                  *state.ins.n_prev))
+    log(f"[resilience] one snapshot (clone of {nbytes} B on the card): "
+        f"{ms:.4f} ms device, {ms / chunk_ms:.5f} of a warm supervised "
+        f"chunk of {RES_CHUNK} steps ({chunk_ms:.3f} ms)")
+
+
+def phase_resilience() -> dict:
+    """The supervised run loop on the card: (a) the flagship supervised,
+    with one injected divergence, rollback and bitwise capsule replay,
+    and its warm steps/s beside the plain loop's; (b) the four drills
+    (supervised recovery and checkpoint corruption, silent failures,
+    bf16 -> f32 escalation and replay, the 8-lane fleet on
+    ``pallas_packed`` with one poisoned lane); (c) a ``profile_trace``
+    of 3 flagship steps named in the ledger; (d) ``entry()``'s step.
+    Returns the launch counts of the whole phase."""
+    from ibamr_tpu_torch import obs
+    from ibamr_tpu_torch.entry import entry
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.tools import fault_injection as fi
+    from ibamr_tpu_torch.utils.timers import profile_trace
+
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for name in total:
+            total[name] += counts[name]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        flag = _supervised_flagship(tmp)
+        add(flag["launches"])
+        log(f"[resilience] (a) supervised flagship and its replay: "
+            f"{time.perf_counter() - t0:.1f} s")
+        ci.reset_launch_counts()
+        _supervised_speed(flag["integ"], flag["state"], tmp)
+        add(ci.LAUNCHES)
+
+        ci.reset_launch_counts()
+        prof_dir, ledger = os.path.join(tmp, "prof"), os.path.join(
+            tmp, "prof.jsonl")
+        s = flag["state"]
+        with obs.ledger(ledger), profile_trace(prof_dir, stage="flagship"):
+            for _ in range(3):
+                s = flag["integ"].step(s, DT_FLAGSHIP)
+        add(ci.LAUNCHES)
+        named = [r for r in obs.read_ledger(ledger) if r["kind"] == "profile"]
+        trace = named[0].get("trace") if named else None
+        size = os.path.getsize(trace) if trace and os.path.exists(trace) else 0
+        log(f"[resilience] (c) profile_trace of 3 flagship steps: {trace} "
+            f"({size} B), named in the ledger: {bool(named)}")
+        if not size:
+            raise AssertionError("profile_trace wrote no trace")
+        del flag, s
+        torch.cuda.empty_cache()
+
+        for name, fn, kw in (("run_smoke", fi.run_smoke, {}),
+                             ("run_silent_smoke", fi.run_silent_smoke, {}),
+                             ("run_replay_smoke", fi.run_replay_smoke, {}),
+                             ("run_fleet_smoke", fi.run_fleet_smoke,
+                              dict(dtype=torch.float32,
+                                   engine="pallas_packed"))):
+            t0 = time.perf_counter()
+            ci.reset_launch_counts()
+            res = fn(os.path.join(tmp, name), device=DEVICE, **kw)
+            add(ci.LAUNCHES)
+            summary = {k: v for k, v in res.items()
+                       if k not in ("incidents", "state", "escalations")}
+            log(f"[resilience] (b) {name} on the card: {summary} "
+                f"({time.perf_counter() - t0:.1f} s; launches "
+                f"{dict(ci.LAUNCHES)})")
+            if name == "run_fleet_smoke":
+                # the 7 healthy lanes' 8 steps each, over the supervised
+                # run's wall (the poisoned lane's steps, the checkpoints,
+                # the rollback and the capsule included)
+                log(f"[resilience] fleet: {7 * 8 / res['fleet_wall_s']:.3f} "
+                    f"healthy lane steps/s over the supervised run of 8 "
+                    f"lanes of 32^3 ({res['fleet_wall_s']:.3f} s)")
+                if not (ci.LAUNCHES["packed_spread"]
+                        and ci.LAUNCHES["packed_interp"]):
+                    raise AssertionError("the fleet drill did not run the "
+                                         "packed kernels")
+
+        fn, (st, dt) = entry()
+        out = fn(st, dt)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (out.X, *out.ins.u, out.ins.p))
+        log(f"[resilience] (d) entry() step of the 32^3 shell on "
+            f"{out.X.device}: finite {finite}")
+        if not finite or out.X.device.type != "cuda":
+            raise AssertionError("entry()'s step is not finite on the card")
+    log(f"[resilience] launches in the phase: {total}")
+    return total
+
+
 class _PhaseClock:
     """Seconds of each phase, logged as it ends."""
 
@@ -3521,10 +3826,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,parity,path,hybrid,driver,auto,ex0,"
                     "ibfe3d,walls,open,ibfe,rigid,adv,amr,mlamr,implicit,"
-                    "multiphase",
+                    "multiphase,resilience",
                     help="comma-separated subset of kernels,parity,path,"
                     "hybrid,driver,auto,ex0,ibfe3d,walls,open,ibfe,rigid,"
-                    "adv,amr,mlamr,implicit,multiphase "
+                    "adv,amr,mlamr,implicit,multiphase,resilience "
                     "(add 'breakdown' for a profile of the step of each "
                     "that runs, the flagship's auto leg included; hybrid "
                     "reads the path phase's time)")
@@ -3594,6 +3899,10 @@ def main(argv=None) -> int:
         if name in phases:
             _assert_no_launches(name, lambda: fn("breakdown" in phases))
             clock.lap(name)
+    if "resilience" in phases:
+        ran = phase_resilience()
+        launches = {k: launches[k] + ran[k] for k in launches}
+        clock.lap("resilience")
 
     table = [dict(name=k, route="cuda", source=KERNELS[k][0],
                   replaces=KERNELS[k][1], launches=launches[k], **v)

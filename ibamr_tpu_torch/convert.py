@@ -53,7 +53,9 @@ def tensor(a, device="cuda", dtype=None) -> torch.Tensor:
 
 def ins_state(s, device="cuda") -> INSState:
     """An ``INSState``'s leaves (u, p, n_prev, t, k); the periodic and the
-    walled (``wall_axes``) integrators share the state."""
+    walled (``wall_axes``) integrators share the state. A lane-stacked
+    fleet state (a leading lane axis on every leaf, ``utils/lanes.py``)
+    carries over the same way."""
     return INSState(u=tuple(tensor(c, device) for c in s.u),
                     p=tensor(s.p, device),
                     n_prev=tuple(tensor(c, device) for c in s.n_prev),
@@ -62,7 +64,7 @@ def ins_state(s, device="cuda") -> INSState:
 
 
 def ib_state(s, device="cuda") -> IBState:
-    """An ``IBState``'s leaves (ins, X, U, mask)."""
+    """An ``IBState``'s leaves (ins, X, U, mask), lane-stacked or not."""
     return IBState(ins=ins_state(s.ins, device), X=tensor(s.X, device),
                    U=tensor(s.U, device), mask=tensor(s.mask, device))
 

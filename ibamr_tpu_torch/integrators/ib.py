@@ -122,6 +122,38 @@ class IBExplicitIntegrator:
         self.ins = ins
         self.ib = ib
         self.scheme = scheme
+        self._jitted_steps = {}
+
+    def jitted_step(self, donate: bool = True, with_stats: bool = False):
+        """The reference's compiled, buffer-donating step, as a cached
+        callable per ``(donate, with_stats)`` over :meth:`step` /
+        :meth:`step_with_stats`. Eager PyTorch compiles nothing and
+        donates nothing, so the callable runs the eager step; it keeps
+        the reference's refusal: ``donate=True`` raises ``ValueError``
+        when any input tensor requires grad (reverse mode replays the
+        step from its inputs, which a donated step would have freed)."""
+        key = (bool(donate), bool(with_stats))
+        fn = self._jitted_steps.get(key)
+        if fn is None:
+            base = self.step_with_stats if with_stats else self.step
+            if donate:
+                from ibamr_tpu_torch.utils.tree import leaves
+
+                def fn(state, dt):
+                    if any(isinstance(x, torch.Tensor) and x.requires_grad
+                           for x in leaves((state, dt))):
+                        raise ValueError(
+                            "jitted_step(donate=True) called on inputs "
+                            "that require grad: buffer donation frees the "
+                            "primal values the backward pass replays "
+                            "from. Use jitted_step(donate=False) when "
+                            "differentiating (RunConfig(remat=...) "
+                            "chunks do this).")
+                    return base(state, dt)
+            else:
+                fn = base
+            self._jitted_steps[key] = fn
+        return fn
 
     def initialize(self, X0, ins_state: Optional[INSState] = None,
                    mask=None) -> IBState:

@@ -11,15 +11,19 @@
   solve to another device.
 - :func:`precision_level_name` / :func:`precision_chain` name the
   ``spectral_dtype`` levels bf16 -> f32 -> f64.
-
-The reference's strided f64 shadow audit (``ShadowAuditor``,
-``PrecisionDrift``) is not ported yet.
+- :class:`ShadowAuditor` re-runs one fluid substep at the configured
+  ``spectral_dtype`` and at f64 every N chunks and raises
+  :class:`PrecisionDrift` when they part by more than a bound; the
+  supervisor answers by escalating ``spectral_dtype`` one level. On a
+  GPU the f64 shadow is a real f64 cuFFT substep.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional, Sequence
+
+import torch
 
 from ibamr_tpu_torch.utils.hierarchy_driver import SimulationDiverged
 
@@ -136,6 +140,136 @@ def precision_chain(name: str = "bf16"):
         chain.append(cur)
         cur = PRECISION_FALLBACKS[cur]
     return chain
+
+
+class PrecisionDrift(SimulationDiverged):
+    """The strided f64 shadow audit found the mixed-precision fluid
+    substep drifting past its bound: the state is finite and the solver
+    converged, but the fast path is out of tolerance. The supervisor
+    retries at the next ``PRECISION_FALLBACKS`` level instead of backing
+    dt off: the cure is precision, not stability."""
+
+    kind = "precision_drift"
+
+    def __init__(self, step: int, *, drift: float, bound: float,
+                 spectral_dtype: str, div_drift: Optional[float] = None):
+        self.step = step
+        self.drift = float(drift)
+        self.bound = float(bound)
+        self.spectral_dtype = spectral_dtype
+        self.div_drift = None if div_drift is None else float(div_drift)
+        self.bad_leaves: list = []      # nothing is non-finite
+        RuntimeError.__init__(
+            self,
+            f"precision drift by step {step}: f64 shadow audit measured "
+            f"relative substep drift {self.drift:.4g} > bound "
+            f"{self.bound:.4g} at spectral_dtype={spectral_dtype!r} - "
+            f"the mixed-precision fast path is out of tolerance")
+
+    def incident_payload(self) -> dict:
+        return {"drift": self.drift, "bound": self.bound,
+                "spectral_dtype": self.spectral_dtype,
+                "div_drift": self.div_drift}
+
+
+class ShadowAuditor:
+    """Strided f64 shadow audit of the fused spectral fluid substep.
+
+    Every ``every`` chunks, :meth:`maybe_audit` re-runs ONE Stokes
+    substep from the current velocity twice, at the integrator's
+    ``spectral_dtype`` and at f64 through
+    :func:`~ibamr_tpu_torch.solvers.spectral_plan.get_plan`, and compares
+    the relative velocity drift (and the post-projection divergence gap)
+    against its bounds; a breach raises :class:`PrecisionDrift`. The
+    audit runs between chunks, off the step. Default ``bound=0.02``: an
+    order of magnitude above the natural bf16 substep drift (~3e-3
+    against the f64 oracle)."""
+
+    def __init__(self, every: int = 8, bound: float = 0.02,
+                 div_bound: Optional[float] = None):
+        if every < 1:
+            raise ValueError("ShadowAuditor.every must be >= 1")
+        self.every = every
+        self.bound = float(bound)
+        self.div_bound = None if div_bound is None else float(div_bound)
+        self.chunks_seen = 0
+        self.audits = 0
+        self.history: list = []
+        self.last: Optional[dict] = None
+
+    def params(self) -> dict:
+        """JSON-safe audit configuration for the flight-recorder
+        fingerprint (what ``tools/replay.py`` re-arms the audit from)."""
+        return {"every": self.every, "bound": self.bound,
+                "div_bound": self.div_bound}
+
+    @staticmethod
+    def _fluid_parts(integ, state):
+        """(INS-like integrator, INS-like state): unwraps one IB layer."""
+        ins = getattr(integ, "ins", None)
+        if ins is not None and hasattr(state, "ins"):
+            return ins, state.ins
+        return integ, state
+
+    def maybe_audit(self, integ, state, dt, step: int):
+        """Called by the driver once per chunk; audits every
+        ``every``-th call. Returns the audit record (or None)."""
+        self.chunks_seen += 1
+        if self.chunks_seen % self.every:
+            return None
+        return self.audit(integ, state, dt, step=step)
+
+    def audit(self, integ, state, dt, step: int):
+        """One shadow audit; raises :class:`PrecisionDrift` on breach."""
+        import numpy as np
+
+        from ibamr_tpu_torch.ops import stencils
+        from ibamr_tpu_torch.solvers.spectral_plan import get_plan
+
+        fluid, fstate = self._fluid_parts(integ, state)
+        sdtype = getattr(fluid, "spectral_dtype", None)
+        grid = fluid.grid
+        rho = float(getattr(fluid, "rho", 1.0))
+        mu = float(getattr(fluid, "mu", 0.0))
+        u = fstate.u
+        # one Stokes substep: backward-Euler viscous solve + Leray
+        # projection of rho/dt * u, the algebra the fused path runs
+        alpha = rho / float(dt)
+        beta = -0.5 * mu
+        rhs = tuple((c * alpha) for c in u)
+        dev = rhs[0].device
+        plan = get_plan(rhs[0].shape, grid.dx, rhs[0].dtype, dev)
+        fast_u, _ = plan.substep(rhs, alpha, beta, (alpha, beta),
+                                 spectral_dtype=sdtype)
+        plan64 = get_plan(rhs[0].shape, grid.dx, torch.float64, dev)
+        ref_u, _ = plan64.substep(
+            tuple(c.to(plan64.rdtype) for c in rhs),
+            alpha, beta, (alpha, beta), spectral_dtype=None)
+        scale = max(float(torch.max(torch.abs(c))) for c in ref_u)
+        scale = max(scale, 1e-30)
+        drift = max(
+            float(torch.max(torch.abs(f.to(plan64.rdtype)
+                                      - r.to(plan64.rdtype))))
+            for f, r in zip(fast_u, ref_u)) / scale
+        div_fast = float(torch.max(torch.abs(
+            stencils.divergence(fast_u, grid.dx))))
+        div_ref = float(torch.max(torch.abs(
+            stencils.divergence(ref_u, grid.dx))))
+        div_drift = abs(div_fast - div_ref) / max(scale, 1e-30)
+        self.audits += 1
+        level = precision_level_name(sdtype)
+        rec = {"step": int(step), "spectral_dtype": level,
+               "drift": drift, "bound": self.bound,
+               "div_drift": div_drift, "div_bound": self.div_bound}
+        self.last = rec
+        self.history.append(rec)
+        breached = (np.isfinite(drift) and drift > self.bound) or \
+            (self.div_bound is not None and div_drift > self.div_bound)
+        if breached:
+            raise PrecisionDrift(step, drift=drift, bound=self.bound,
+                                 spectral_dtype=level,
+                                 div_drift=div_drift)
+        return rec
 
 
 def escalate_solve(attempt_fn: Callable, *, context: str = "solve",

@@ -13,8 +13,14 @@ package restores into the other.
 
 ``restore_checkpoint`` and ``latest_step`` skip checkpoints that fail
 verification and fall back to the newest verified one; pruning never
-deletes the last verified checkpoint. Not ported: the asynchronous
-writer, lane (fleet) checkpoints and sharded checkpoints.
+deletes the last verified checkpoint.
+
+:class:`AsyncCheckpointWriter` writes off the critical path: ``save``
+copies the state to the host at once (the copy is what the run may not
+overwrite) and a single worker thread writes it, retrying once. Fleet
+checkpoints (``lanes=B``) add per-lane CRCs to the sidecar, so
+:func:`restore_lane` restores one lane from a step whose file is damaged
+in another lane's rows. Sharded checkpoints wait for ``parallel/``.
 """
 
 from __future__ import annotations
@@ -149,19 +155,22 @@ def _npz(directory: str, step: int) -> str:
     return os.path.join(directory, f"restore.{step:08d}.npz")
 
 
-def save_checkpoint(directory: str, state: Any, step: int,
-                    metadata: Optional[Dict[str, Any]] = None,
-                    keep: int = 3) -> str:
-    """Serialize a state pytree. Returns the checkpoint file path."""
-    arrays = {_path_str(p): _host(leaf)
-              for p, leaf in flatten_with_path(state)}
+def _gather_arrays(state: Any) -> Dict[str, np.ndarray]:
+    """Host copies of every leaf, keyed by the reference's leaf path."""
+    return {_path_str(p): _host(leaf) for p, leaf in flatten_with_path(state)}
+
+
+def _write_arrays(directory: str, arrays: Dict[str, np.ndarray],
+                  schema: Dict[str, Any], step: int,
+                  metadata: Optional[Dict[str, Any]], keep: int,
+                  lanes: Optional[int] = None) -> str:
     os.makedirs(directory, exist_ok=True)
     fname = _npz(directory, step)
     npz_crc, npz_size = _atomic_write_digest(
         fname, lambda f: np.savez(f, **arrays))
     meta = dict(metadata or {})
     meta["step"] = step
-    meta["schema"] = state_schema(state)
+    meta["schema"] = schema
     # the sidecar lands after the arrays: a complete sidecar implies a
     # complete array file (the commit marker)
     meta["integrity"] = {
@@ -169,11 +178,30 @@ def save_checkpoint(directory: str, state: Any, step: int,
         "npz_crc32": npz_crc,
         "npz_size": npz_size,
     }
+    if lanes is not None:
+        # fleet checkpoints: per-lane CRC32 of every lane-stacked leaf's
+        # rows, so one corrupt lane condemns only that lane's slice
+        meta["integrity"]["lanes"] = {
+            "count": int(lanes),
+            "leaves": {k: [_leaf_crc(v[i]) for i in range(int(lanes))]
+                       for k, v in arrays.items()
+                       if v.ndim >= 1 and v.shape[0] == int(lanes)},
+        }
     payload = json.dumps(meta).encode()
     _atomic_write_digest(fname.replace(".npz", ".json"),
                          lambda f: f.write(payload))
     _prune(directory, keep)
     return fname
+
+
+def save_checkpoint(directory: str, state: Any, step: int,
+                    metadata: Optional[Dict[str, Any]] = None,
+                    keep: int = 3, lanes: Optional[int] = None) -> str:
+    """Serialize a state pytree. Returns the checkpoint file path.
+    ``lanes`` (fleet runs) records per-lane leaf CRCs in the sidecar."""
+    return _write_arrays(directory, _gather_arrays(state),
+                         state_schema(state), step, metadata, keep,
+                         lanes=lanes)
 
 
 def _read_sidecar(directory: str, step: int) -> Optional[Dict[str, Any]]:
@@ -255,6 +283,116 @@ def latest_step(directory: str,
                  if verify_checkpoint(directory, s)), None)
 
 
+class AsyncCheckpointWriter:
+    """Checkpoint writes on one worker thread, overlapping the next
+    chunks.
+
+    The device-to-host copy happens synchronously inside ``save``: the
+    run goes on updating its tensors, so the worker may only see a copy.
+    One worker keeps writes ordered; a write that fails twice (one retry)
+    surfaces once on the next ``save``/``wait`` and is then dropped. The
+    queue is bounded: at ``max_pending`` outstanding writes,
+    ``overflow="block"`` waits for the oldest to land and
+    ``overflow="drop"`` sheds the new save (``dropped_saves``).
+    ``queue_depth()`` is the backlog, published as the
+    ``ckpt_queue_depth`` gauge; each write's wall time goes to the
+    ``ckpt_commit_seconds`` histogram.
+    """
+
+    def __init__(self, directory: str, keep: int = 3,
+                 max_pending: int = 2, overflow: str = "block",
+                 lanes: Optional[int] = None):
+        from concurrent.futures import ThreadPoolExecutor
+
+        if max_pending < 1:
+            raise ValueError("max_pending must be >= 1")
+        if overflow not in ("block", "drop"):
+            raise ValueError("overflow must be 'block' or 'drop'")
+        self.directory = directory
+        self.keep = keep
+        self.max_pending = max_pending
+        self.overflow = overflow
+        self.lanes = lanes
+        self.dropped_saves = 0
+        self._exec = ThreadPoolExecutor(max_workers=1)
+        self._pending = []
+
+    def queue_depth(self) -> int:
+        """Writes enqueued but not yet finished."""
+        return sum(1 for f in self._pending if not f.done())
+
+    def _raise_finished(self):
+        # drop completed futures first so a failure is reported once
+        done = [f for f in self._pending if f.done()]
+        self._pending = [f for f in self._pending if not f.done()]
+        for f in done:
+            f.result()
+
+    @staticmethod
+    def _write_with_retry(directory, arrays, schema, step, metadata,
+                          keep, lanes=None):
+        # one retry: the atomic-replace protocol makes it idempotent.
+        # `_write_arrays` is looked up per call, so a patched writer
+        # (tools/fault_injection.failing_checkpoint_writes) sees both
+        # attempts
+        import time as _time
+
+        from ibamr_tpu_torch import obs as _obs
+        t0 = _time.perf_counter()
+        try:
+            try:
+                return _write_arrays(directory, arrays, schema, step,
+                                     metadata, keep, lanes=lanes)
+            except Exception:
+                return _write_arrays(directory, arrays, schema, step,
+                                     metadata, keep, lanes=lanes)
+        finally:
+            _obs.histogram("ckpt_commit_seconds",
+                           writer="single").observe(
+                _time.perf_counter() - t0)
+
+    def save(self, state: Any, step: int,
+             metadata: Optional[Dict[str, Any]] = None):
+        """Copy and enqueue one checkpoint write. Returns the write
+        future, or ``None`` when the save was shed."""
+        from ibamr_tpu_torch import obs as _obs
+        self._raise_finished()
+        if self.queue_depth() >= self.max_pending:
+            if self.overflow == "drop":
+                self.dropped_saves += 1
+                _obs.counter("ckpt_dropped_saves_total",
+                             writer="single").inc()
+                return None
+            import concurrent.futures as _cf
+            oldest = next((f for f in self._pending if not f.done()),
+                          None)
+            if oldest is not None:
+                _cf.wait([oldest])
+            self._raise_finished()
+        arrays = _gather_arrays(state)
+        schema = state_schema(state)
+        fut = self._exec.submit(self._write_with_retry, self.directory,
+                                arrays, schema, step, metadata,
+                                self.keep, self.lanes)
+        self._pending.append(fut)
+        _obs.gauge("ckpt_queue_depth",
+                   writer="single").set(self.queue_depth())
+        return fut
+
+    def wait(self) -> None:
+        """Block until every enqueued write is on disk (re-raises the
+        first failure; failed futures are dropped)."""
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._exec.shutdown(wait=True)
+
+
 def restore_checkpoint(directory: str, template: Any,
                        step: Optional[int] = None):
     """Restore a state pytree shaped like ``template``, whose leaves give
@@ -321,3 +459,77 @@ def _load_step(directory: str, step: int, template: Any):
 
         state = map_with_path(load, template)
     return state, step, metadata
+
+
+def restore_lane(directory: str, template: Any, lane: int,
+                 step: Optional[int] = None):
+    """Restore ONE lane's slice from a fleet checkpoint into
+    ``template`` (the current lane-stacked state). Every other lane's
+    rows come back bitwise untouched. Verification is per lane (the
+    sidecar's ``integrity.lanes``), so a step whose file is corrupt in
+    another lane's rows still serves this one; sidecars without a lane
+    record need whole-leaf CRCs. Walks newest to oldest (or only
+    ``step``) and returns ``(patched_state, checkpoint_step)``, or
+    ``None`` when no checkpoint vouches for this lane."""
+    if not os.path.isdir(directory):
+        return None
+    steps = [step] if step is not None else \
+        list(reversed(_all_steps(directory)))
+    for s in steps:
+        try:
+            return _load_lane_step(directory, s, template, lane), s
+        except (CheckpointCorruptError, KeyError, ValueError,
+                OSError) as e:
+            warnings.warn(
+                f"restore_lane: skipping step {s} for lane {lane}: {e}")
+    return None
+
+
+def _load_lane_step(directory: str, step: int, template: Any, lane: int):
+    fname = _npz(directory, step)
+    if not os.path.exists(fname):
+        raise FileNotFoundError(fname)
+    meta = _read_sidecar(directory, step)
+    if meta is None:
+        raise CheckpointCorruptError(
+            "sidecar missing or unparseable (torn write)")
+    integ = meta.get("integrity") or {}
+    lane_rec = integ.get("lanes")
+    if lane_rec is not None and lane >= int(lane_rec.get("count", 0)):
+        raise ValueError(
+            f"lane {lane} out of range for fleet of "
+            f"{lane_rec.get('count')}")
+    lane_crcs = (lane_rec or {}).get("leaves", {})
+    leaf_crcs = integ.get("leaves", {})
+
+    with np.load(fname) as data:
+        def load(path, leaf):
+            key = _path_str(path)
+            if key not in data:
+                raise KeyError(f"checkpoint {fname} missing leaf {key!r}")
+            arr = data[key]
+            if arr.shape != tuple(np.shape(leaf)):
+                raise ValueError(
+                    f"checkpoint {fname}: leaf {key!r} shape {arr.shape} "
+                    f"!= fleet state shape {tuple(np.shape(leaf))}")
+            if arr.ndim < 1 or lane >= arr.shape[0]:
+                raise ValueError(
+                    f"checkpoint {fname}: leaf {key!r} has no lane {lane}")
+            sl = arr[lane]
+            if key in lane_crcs:
+                rec = lane_crcs[key]
+                if lane >= len(rec) or _leaf_crc(np.asarray(sl)) != \
+                        int(rec[lane]):
+                    raise CheckpointCorruptError(
+                        f"checkpoint {fname}: lane {lane} of leaf {key!r} "
+                        f"fails its recorded per-lane CRC32")
+            elif key in leaf_crcs and _leaf_crc(arr) != leaf_crcs[key]:
+                raise CheckpointCorruptError(
+                    f"checkpoint {fname}: leaf {key!r} fails its recorded "
+                    f"CRC32 and carries no per-lane record")
+            out = leaf.clone()
+            out[lane] = torch.as_tensor(np.ascontiguousarray(sl)).to(
+                device=leaf.device, dtype=leaf.dtype)
+            return out
+
+        return map_with_path(load, template)

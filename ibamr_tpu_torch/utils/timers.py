@@ -4,7 +4,10 @@ Named timers bracket significant methods, with a report table at
 shutdown (SAMRAI's ``TimerManager``). CUDA runs asynchronously, so a
 scope may block on a pytree of tensors before it reads the clock: when
 that pytree holds a CUDA tensor the scope calls ``torch.cuda.synchronize``
-first. The reference's telemetry spans are not ported.
+first. A scope is also a telemetry span (``ibamr_tpu_torch.obs.span``):
+it closes into the attached run ledger and names a
+``torch.profiler.record_function`` range. :func:`profile_trace` captures
+a ``torch.profiler`` trace of a region into a directory.
 """
 
 from __future__ import annotations
@@ -84,12 +87,18 @@ class TimerManager:
 
     @contextmanager
     def scope(self, name: str, block_on=None):
+        # the scope IS a telemetry span: the span blocks on ``block_on``
+        # before its clock read and closes into the attached ledger; the
+        # Timer accumulates right after it, for report()
+        from ibamr_tpu_torch.obs import span as _span
+
         t = self.get(name)
         t.start()
         try:
-            yield t
+            with _span(name, block_on=block_on):
+                yield t
         finally:
-            t.stop(block_on=block_on)
+            t.stop()
 
     def report(self) -> str:
         if not self.timers:
@@ -111,3 +120,40 @@ def timer(name: str, block_on=None):
     """Module-level convenience: ``with timer("IB::spreadForce"): ...``"""
     with TimerManager.instance().scope(name, block_on=block_on) as t:
         yield t
+
+
+@contextmanager
+def profile_trace(log_dir: Optional[str], stage: Optional[str] = None):
+    """Capture a ``torch.profiler`` trace of the enclosed region (CPU
+    and, on a GPU, CUDA activity) and export it as a Chrome trace,
+    ``<log_dir>/trace.json``, viewable in Perfetto. A no-op when
+    ``log_dir`` is falsy, so call sites can thread a ``--profile DIR``
+    flag through unconditionally. The capture runs inside an
+    ``obs.span("profile_trace", capture_dir=..., stage=...)``, and a
+    ``profile`` ledger record naming the trace file lands when it
+    closes. The spans and timer scopes inside the region show up as
+    ``record_function`` ranges."""
+    if not log_dir:
+        yield
+        return
+    import os
+
+    from ibamr_tpu_torch import obs
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(str(log_dir), "trace.json")
+    with obs.span("profile_trace", capture_dir=str(log_dir), stage=stage):
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+        try:
+            yield
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(path)
+            obs.emit("profile", capture_dir=str(log_dir), stage=stage,
+                     trace=path)

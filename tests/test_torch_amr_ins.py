@@ -28,6 +28,17 @@ from ibamr_tpu_torch.models.membrane2d import make_circle_membrane as tmembrane
 from ibamr_tpu_torch.models.shell3d import make_spherical_shell as tshell
 
 EXACT = 1e-12
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One PyTorch CPU thread per test: the suite runs in parallel
+    workers, where each worker's default thread pool oversubscribes the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SOLVE = 1e-10
 
 
@@ -312,15 +323,16 @@ def test_regrid_carries_projection_config():
 
 def test_regridding_advance_matches_reference():
     """The moving window of test_amr_ins_regrid.py on a 32^2 grid in a
-    stream of 1: 40 steps with a regrid every 10; the window origins
-    after every chunk equal, the state to 1e-10."""
-    _, (ji, ti), (js, ts) = _regrid_setup(U0=1.0)
+    stream of 2: 20 steps with a regrid every 5 (the structure travels
+    as far as in 40 steps at a stream of 1, and the window moves); the
+    window origins after every chunk equal, the state to 1e-10."""
+    _, (ji, ti), (js, ts) = _regrid_setup(U0=2.0)
     jlog, tlog = [], []
     ji_end, js_end = jins.advance_two_level_ib_regridding(
-        ji, js, 2.5e-3, 40, regrid_interval=10,
+        ji, js, 2.5e-3, 20, regrid_interval=5,
         on_chunk=lambda i, s, d: jlog.append((d, i.box.lo)))
     ti_end, ts_end = tins.advance_two_level_ib_regridding(
-        ti, ts, 2.5e-3, 40, regrid_interval=10,
+        ti, ts, 2.5e-3, 20, regrid_interval=5,
         on_chunk=lambda i, s, d: tlog.append((d, i.box.lo)))
     assert tlog == jlog and len({lo for _, lo in tlog}) > 1
     assert ti_end.box.lo == ji_end.box.lo

@@ -28,6 +28,17 @@ def _close(ref, got, tol=1e-10):
     assert np.max(np.abs(got - ref)) <= tol * max(np.max(np.abs(ref)), 1e-300)
 
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One PyTorch CPU thread per test: the suite runs in parallel
+    workers, where each worker's default thread pool oversubscribes the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 def _two_discs(n_markers=8):
     """Two disc bodies, (2N, 2) markers with their body ids."""
     a = np.asarray(jc.make_disc((0.35, 0.5), 0.12, n_markers))

@@ -14,6 +14,7 @@ import json
 import math
 import os
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -122,8 +123,8 @@ def test_input_db_engine_knob_errors():
     (dict(restart_interval=-1), ValueError),
     (dict(regrid_interval=-1), ValueError),
     (dict(health_interval=0), ValueError), (dict(cfl=0.0), ValueError),
-    (dict(donate=True), NotImplementedError),
-    (dict(remat="full"), NotImplementedError)])
+    (dict(remat="dots_all"), ValueError),
+    (dict(donate=True, remat="checkpoint_dots"), ValueError)])
 def test_run_config_rejects(kw, err):
     args = dict(dt=1e-3, num_steps=10)
     args.update(kw)
@@ -135,11 +136,15 @@ def test_run_config_rejects(kw, err):
 
 
 def test_driver_features_not_ported_raise():
-    cfg = tdrv.RunConfig(dt=1e-3, num_steps=1)
+    # the probe, recorder, audit, lanes, donate and remat are ported;
+    # sharding lanes over a device mesh waits for parallel/
+    cfg = tdrv.RunConfig(dt=1e-3, num_steps=1, donate=True, remat="full")
+    integ = SimpleNamespace(step=lambda s, dt: s)
     for kw in (dict(lanes=2), dict(health_probe=object()),
                dict(recorder=object()), dict(shadow_audit=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tdrv.HierarchyDriver(None, cfg, **kw)
+        tdrv.HierarchyDriver(integ, cfg, **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tdrv.HierarchyDriver(integ, cfg, lanes=2, lane_mesh=object())
 
 
 def _recording_driver(mod, integ, cfg, seen):

@@ -44,6 +44,17 @@ from ibamr_tpu_torch.ops.interaction_packed import PackedInteraction as TPacked
 from ibamr_tpu_torch.utils.input_db import parse_input_file as t_parse_file
 from ibamr_tpu_torch.utils.input_db import parse_input_string as t_parse
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One PyTorch CPU thread per test: the suite runs in parallel
+    workers, where each worker's default thread pool oversubscribes the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = Path(__file__).resolve().parent.parent
 SUPPORT = 2                 # IB_4 half-width
 RTOL = 1e-12                # f64 transfers, other sum orders
@@ -416,7 +427,8 @@ def test_packed_bf16_within_reference_tolerance():
     tX, tF = torch.tensor(X), torch.tensor(F)
     tu = tuple(map(torch.tensor, u))
     f0, f1 = exact.spread_vel(tF, tX), comp.spread_vel(tF, tX)
-    jf = jcomp.spread_vel(jnp.asarray(F), jnp.asarray(X))
+    # jitted: the eager reference call compiles op by op (~5x slower)
+    jf = jax.jit(jcomp.spread_vel)(jnp.asarray(F), jnp.asarray(X))
     scale = max(float(c.abs().max()) for c in f0)
     assert all(c.dtype == torch.float32 for c in f1)
     assert max(float((a - b).abs().max()) for a, b in zip(f0, f1)) \

@@ -70,7 +70,15 @@ def test_fresh_import_loads_neither_jax_nor_the_jax_package():
             "ibamr_tpu_torch.integrators.ins_collocated",
             "ibamr_tpu_torch.ops.stochastic",
             "ibamr_tpu_torch.examples.multiphase_dam_break",
-            "ibamr_tpu_torch.examples.multiphase_falling_drop"} <= set(mods)
+            "ibamr_tpu_torch.examples.multiphase_falling_drop",
+            "ibamr_tpu_torch.obs", "ibamr_tpu_torch.obs.bus",
+            "ibamr_tpu_torch.obs.export", "ibamr_tpu_torch.obs.merge",
+            "ibamr_tpu_torch.utils.lanes", "ibamr_tpu_torch.utils.health",
+            "ibamr_tpu_torch.utils.flight_recorder",
+            "ibamr_tpu_torch.utils.watchdog",
+            "ibamr_tpu_torch.utils.supervisor", "ibamr_tpu_torch.entry",
+            "ibamr_tpu_torch.tools.fault_injection",
+            "ibamr_tpu_torch.tools.replay"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -151,7 +159,8 @@ def test_gpu_entry_points_raise_without_a_gpu():
     ] + [lambda m=m, d=d: m.build(d) for m, d in drivers] \
         + [lambda m=m, d=d: m.run(d) for m, d in drivers]
     new_calls += _structure_calls() + _transport_calls() \
-        + _hierarchy_calls() + _structure_model_calls() + _multiphase_calls()
+        + _hierarchy_calls() + _structure_model_calls() + _multiphase_calls() \
+        + _resilience_calls()
     for call in new_calls + [lambda: resolve_device(),
                  lambda: build_shell_example(n_cells=16, n_lat=8, n_lon=8),
                  lambda: build_shell_example(
@@ -167,6 +176,22 @@ def test_gpu_entry_points_raise_without_a_gpu():
             call()
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def _resilience_calls():
+    """The entry point and the resilience drills and replay rebuilds,
+    each called without ``device``."""
+    from ibamr_tpu_torch.entry import entry
+    from ibamr_tpu_torch.tools import fault_injection as fi
+    from ibamr_tpu_torch.tools.replay import rebuild
+
+    spec = {"kind": "ins", "grid": {"n": [8, 8], "x_lo": [0.0, 0.0],
+                                    "x_up": [1.0, 1.0]},
+            "rho": 1.0, "mu": 0.05, "convective_op_type": "centered",
+            "dtype": "float32", "wall_axes": None, "spectral_dtype": "f32"}
+    return [entry, fi.run_smoke, fi.run_silent_smoke, fi.run_replay_smoke,
+            fi.run_fleet_smoke, fi._tg16_setup,
+            lambda: rebuild({"fingerprint": {"integrator": spec}})]
 
 
 def _structure_calls():
