@@ -17,10 +17,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    40,000 markers.
 3. parity  -- 3 midpoint steps of the 32^3 shell (16x16) on the GPU (the
    kernels) and on the CPU (the plain versions) from the same state, on
-   the ``pallas_packed``, ``pallas``, ``hybrid_bf16``, ``hybrid_packed``
-   and ``packed`` engines, each launching its own kernels and no other; a
-   buffered and an exceeded overflow through each kernel engine against
-   the CPU scatter oracle.
+   the ``pallas_packed``, ``pallas``, ``hybrid_bf16``, ``hybrid_packed``,
+   ``packed``, ``mxu``, ``mxu_bf16``, ``packed3`` and ``packed3_bf16``
+   engines, each launching its own kernels and no other; a buffered and
+   an exceeded overflow through each kernel engine, ``mxu`` and
+   ``packed3`` against the CPU scatter oracle.
 4. path    -- the flagship step, ``build_shell_example(n_cells=256,
    n_lat=316, n_lon=316, use_fast_interaction="pallas_packed")``, warmed
    up and timed; the kernel launch counts of exactly this run, and no
@@ -30,6 +31,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    beside the path phase's ``pallas_packed``: the launches of exactly
    each run (``packed_spread`` alone), the refresh hits, and one step
    taken twice from the same state, bitwise equal.
+5b. engines -- the flagship on ``mxu``, ``mxu_bf16``, ``packed3`` and
+   ``packed3_bf16`` (the reference's XLA engines in torch ops): one step
+   from the state the path phase reached against ``pallas_packed``'s step
+   from it (f32 within the parity tolerances, bf16 within 2e-2 of the
+   displacement and of max|u|), then warmed up and timed beside it, with
+   the peak device memory of each leg and no hand-kernel launch.
 6. driver  -- the ex4 driver, ``ibamr_tpu_torch.examples.ib_explicit_ex4
    .run``, on the committed ``input3d.northstar`` (256^3, 316x316 shell)
    with ``IBMethod.transfer_engine = "pallas"``: steps/s, the metrics log,
@@ -40,6 +47,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    directories and a short run overridden): the engine each resolves
    (``packed`` and ``scatter`` by the default rule), checked against the
    resolver, and its steps/s.
+7b. tune   -- the autotuner, ``ibamr_tpu_torch.tune.runner.search``, at
+   the reference's default key (16^3, an 8x16 shell) over its default
+   engine menu, f32 and bf16 transforms, chunk lengths 1 and 4 (32
+   trials, the kernel engines probed on the card first): no candidate
+   pruned, no trial error, the ranking and the entry it would publish
+   logged (none is written). ``shootout`` (run only when named) is the
+   same search at the flagship key over every engine of the registry,
+   its whole result logged as one JSON line.
 8. ex0     -- the ex0 driver, ``ibamr_tpu_torch.examples.ib_explicit_ex0
    .run``, on the committed ``examples/IB/explicit/ex0/input2d`` as it is
    (64^2, 128 markers, 400 steps; the 2D path runs no hand kernel) in a
@@ -82,9 +97,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the scatter oracle on the card (twice, bitwise), then 5 coupled
    midpoint steps against the same steps through the CPU's scatter
    oracle, with the launches of each step (3 spread, 6 interp).
-12. ibfe   -- the IBFE ex0 driver, ``ibfe_explicit_ex0.run``, on the
-   committed ``examples/IBFE/explicit/ex0/input2d`` as it is (64^2, 8
-   rings, 400 steps): finite metrics, the area drift within 2% at every
+12. ibfe   -- the IBFE 2D disc of ``tests/test_ibfe.py:195-240`` through
+   the 2D ``mxu``, ``packed`` and ``packed3`` engines against the scatter
+   oracle on the card (nodal and unified); the IBFE ex0 driver,
+   ``ibfe_explicit_ex0.run``, on the committed
+   ``examples/IBFE/explicit/ex0/input2d`` as it is (64^2, 8 rings, 400
+   steps): finite metrics, the area drift within 2% at every
    logged step, the elastic energy falling, the first 20 steps on the
    GPU against the CPU and a warm leg; then the beam2d driver on
    ``examples/IBFE/explicit/beam2d/input2d`` as the filament above
@@ -226,6 +244,18 @@ AUTO_INPUTS = ("examples/IB/explicit/ex4/input3d.northstar",
 AUTO_STEPS, AUTO_TIMED = 4, 5   # auto leg: driver steps, then timed steps
 HOT_TILE_MARKERS = 40000  # the packed spread's hot-tile case
 HYBRID_ENGINES = ("hybrid_bf16", "hybrid_packed")
+# the reference's XLA engines in torch ops beside pallas_packed at the
+# flagship (engines phase): no hand kernel; the bf16 ones within the
+# reference suite's bf16 class of the f32 step
+TORCH_OP_ENGINES = ("mxu", "mxu_bf16", "packed3", "packed3_bf16")
+TOL_BF16 = 2e-2
+TOL_DX_F32 = 1e-4   # engines phase: f32 step's displacement, rel. max|dX|
+ENGINE_WARMUP, ENGINE_STEPS = 2, 10   # engines phase: steps before and in
+# the timing (mxu runs ~0.37 s a step, device-bound)
+# the tune phase's search: the reference's default key (16^3, an 8x16
+# shell), its default engine menu, f32 and bf16 transforms, chunk lengths
+# 1 and 4; the shootout phase runs it at the flagship over the registry
+TUNE_KEY = dict(n_cells=16, n_lat=8, n_lon=16)
 EX0_INPUT = "examples/IB/explicit/ex0/input2d"
 EX0_RESTART = 200        # ex0: the checkpoint step restarted from
 EX0_PARITY_STEPS = 20    # ex0: steps of the GPU-vs-CPU check
@@ -251,7 +281,8 @@ CHANNEL_PROFILE_ERR = 0.021731913089752197
 CYL_INPUT = "examples/IB/explicit/cylinder2d/input2d"
 # of the input's 2000: the reference's own example diverges after step
 # ~110 (JAX 32-bit on the CPU; ROADMAP C), and the port with it
-CYL_STEPS = 60            # cut from 100 to make room for the resilience phase
+CYL_STEPS = 40            # cut from 100 to 60 to make room for the
+# resilience phase, and to 40 for the engines and tune phases
 CYL_F64_STEPS = 140       # the f64 leg: past where the f32 example diverges
 # (~110-130 steps); cut from 200 (PR 13: 150) to make room for the
 # multiphase and resilience phases
@@ -291,8 +322,9 @@ OSC_REF = (25.621520152268545, False)
 OSC_MARKERS = 12
 TOL_RIGID_FX = 1e-4       # |fx_gpu - fx_cpu| / |fx_cpu|
 EEL_INPUT = "examples/ConstraintIB/eel2d/input2d"
-EEL_STEPS = 500           # of the input's 2000 (the swimmer moves against
-# the wave from step ~150 on); cut to make room for the resilience phase
+EEL_STEPS = 300           # of the input's 2000 (the swimmer moves against
+# the wave from step ~150 on); cut to 500 to make room for the resilience
+# phase, and to 300 for the engines and tune phases
 EEL_PARITY_STEPS = 20
 FIL_INPUT = "examples/IB/explicit/filament2d/input2d"
 FIL_STEPS = 2             # of the input's 4000 (f32: 12 restarts a step;
@@ -677,13 +709,15 @@ def _to(s, dev):
     return s
 
 
-# the kernels each engine launches (the packed engine is the reference's
-# XLA engine in torch ops: none; the hybrid engines interpolate with it)
+# the kernels each engine launches (the packed, mxu and packed3 engines
+# are the reference's XLA engines in torch ops: none; the hybrid engines
+# interpolate with the packed one)
 ENGINE_KERNELS = {"pallas_packed": ("packed_spread", "packed_interp"),
                   "pallas": ("tile_spread", "tile_interp"),
                   "hybrid_bf16": ("packed_spread",),
                   "hybrid_packed": ("packed_spread",),
-                  "packed": ()}
+                  "packed": (), "mxu": (), "mxu_bf16": (), "packed3": (),
+                  "packed3_bf16": ()}
 
 
 def phase_parity() -> None:
@@ -725,13 +759,16 @@ def phase_parity() -> None:
 
 def check_overflow() -> None:
     """Markers beyond the layout's capacity take the scatter fallback on
-    the GPU (deterministic accumulation): for each engine a buffered and
-    an exceeded overflow, each twice (bitwise equal) and against the CPU
-    scatter oracle."""
+    the GPU (deterministic accumulation): for each kernel engine and the
+    f32 torch-op engines (whose bf16 twins share the fallback) a buffered
+    and an exceeded overflow, each twice (bitwise equal) and against the
+    CPU scatter oracle."""
     from ibamr_tpu_torch.grid import StaggeredGrid
     from ibamr_tpu_torch.ops import interaction
     from ibamr_tpu_torch.ops.cuda_interaction import (PackedKernelInteraction,
                                                       TileKernelInteraction)
+    from ibamr_tpu_torch.ops.interaction_fast import FastInteraction
+    from ibamr_tpu_torch.ops.interaction_packed3 import PackedInteraction3
 
     grid = StaggeredGrid(n=(32,) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
     rng = np.random.default_rng(1)
@@ -746,7 +783,12 @@ def check_overflow() -> None:
         "pallas_packed": lambda ocap: PackedKernelInteraction(
             grid, chunk=128, nchunks=4, overflow_cap=ocap, device=DEVICE),
         "pallas": lambda ocap: TileKernelInteraction(
-            grid, cap=32, overflow_cap=ocap, device=DEVICE)}
+            grid, cap=32, overflow_cap=ocap, device=DEVICE),
+        "mxu": lambda ocap: FastInteraction(
+            grid, cap=32, overflow_cap=ocap, device=DEVICE),
+        "packed3": lambda ocap: PackedInteraction3(
+            grid, tile_last=16, chunk=64, nchunks=4, overflow_cap=ocap,
+            device=DEVICE)}
     for engine, make in engines.items():
         for ocap in (None, 64):
             eng = make(ocap)
@@ -918,6 +960,177 @@ def phase_hybrid(path_ms: float, breakdown: bool = False) -> dict:
             phase_breakdown(integ, state, ms, engine)
         del integ, state, one, two
     return total
+
+
+def _rel_dev(a, b) -> float:
+    """max|a - b| / max|b| of two tensors on the card."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_engines(path=None, breakdown: bool = False) -> None:
+    """The flagship on each torch-op engine of ``TORCH_OP_ENGINES`` beside
+    ``pallas_packed``: one step from the state the path phase reached
+    against ``pallas_packed``'s step from it, the displacement and u
+    (f32 engines within TOL_DX_F32 of max|dX| and TOL_PARITY_U of max|u|;
+    bf16 engines within TOL_BF16 of both), then
+    ENGINE_WARMUP steps and ENGINE_STEPS timed; no hand kernel may
+    launch; the warm steps/s
+    and the peak device memory of each leg. ``path`` is the path phase's
+    ``(integ, state, ms)``; without it the phase builds and warms its
+    own ``pallas_packed`` flagship."""
+    from ibamr_tpu_torch.models.shell3d import build_shell_example
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+
+    if path is None:
+        integ, state = build_shell_example(
+            use_fast_interaction="pallas_packed", dtype=torch.float32,
+            device=DEVICE, **FLAGSHIP)
+        for _ in range(WARMUP):
+            state = integ.step(state, DT_FLAGSHIP)
+        path = (integ, state, float("nan"))
+    ref_integ, state, path_ms = path
+    ref = ref_integ.step(state, DT_FLAGSHIP)
+    torch.cuda.synchronize()
+    dX_ref = ref.X - state.X
+    # the f32 bound: TOL_DX_F32 of the displacement, plus one f32 spacing
+    # at max|X|, to which each step's X is rounded on storage
+    dx_frac = float(dX_ref.abs().max() / state.X.abs().max())
+    tol_dx_f32 = TOL_DX_F32 + torch.finfo(torch.float32).eps / dx_frac
+    for engine in TORCH_OP_ENGINES:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ci.reset_launch_counts()
+        t0 = time.perf_counter()
+        integ, _ = build_shell_example(use_fast_interaction=engine,
+                                       dtype=torch.float32, device=DEVICE,
+                                       **FLAGSHIP)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        fast = integ.ib.fast
+        layout = (f"{fast.nchunks} chunks of {fast.geom.cap}, tiles "
+                  f"{fast.geom.tile}" if hasattr(fast, "nchunks") else
+                  f"{int(np.prod(fast.geom.nblk))} tiles of cap "
+                  f"{fast.geom.cap}")
+        one = integ.step(state, DT_FLAGSHIP)
+        ex = _rel_dev(one.X - state.X, dX_ref)
+        tol_x, tol_u = ((TOL_BF16, TOL_BF16) if engine.endswith("_bf16")
+                        else (tol_dx_f32, TOL_PARITY_U))
+        eu = max(_rel_dev(a, b) for a, b in zip(one.ins.u, ref.ins.u))
+        st = one
+        for _ in range(ENGINE_WARMUP):
+            st = integ.step(st, DT_FLAGSHIP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ENGINE_STEPS):
+            st = integ.step(st, DT_FLAGSHIP)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / ENGINE_STEPS
+        launches = dict(ci.LAUNCHES)
+        finite, rel_div = _finite_div(integ, st)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[engines] {engine} on {torch.cuda.get_device_name(0)}: built "
+            f"in {build_s:.2f} s ({layout}, compute dtype "
+            f"{fast.compute_dtype}); one step from the path state vs "
+            f"pallas_packed's: displacement {ex:.3e} (tol {tol_x:.3e}; "
+            f"max|dX|/max|X| {dx_frac:.3e}, where {TOL_PARITY_X:g} of max|X| "
+            f"is {TOL_PARITY_X / dx_frac:.3e}), max_d u "
+            f"{eu:.3e} (tol {tol_u:g})")
+        log(f"[engines] {engine}: {ENGINE_STEPS} timed steps after "
+            f"{ENGINE_WARMUP} warm-up:"
+            f" {1e3 / ms:.3f} steps/s, {ms:.3f} ms/step (host clock, "
+            f"synchronized) vs pallas_packed {1e3 / path_ms:.3f} steps/s "
+            f"(path phase, same call); peak device memory "
+            f"{peak / 2**30:.3f} GiB (the path state and step held: "
+            f"{base / 2**30:.3f} GiB); kernel launches {launches}; finite="
+            f"{finite}, max|div u|*dx/max|u|={rel_div:.3e}")
+        if any(launches.values()):
+            raise AssertionError(f"{engine} launched a hand kernel: "
+                                 f"{launches}")
+        if not (ex <= tol_x and eu <= tol_u):
+            raise AssertionError(f"{engine}'s step disagrees with "
+                                 "pallas_packed's")
+        if not (finite and rel_div <= 1e-4):
+            raise AssertionError(f"{engine}: state not finite or not "
+                                 "divergence-free")
+        if breakdown:
+            phase_breakdown(integ, st, ms, engine)
+        del integ, fast, one, st
+    del ref, dX_ref
+
+
+def _search_log(label, res) -> None:
+    """Each trial of a search and its ranking, on the log."""
+    for t in res.trials:
+        log(f"[{label}] trial {t.candidate.label():28s} "
+            f"{t.steps_per_s:10.3f} steps/s {t.ms_per_step:10.3f} ms/step "
+            f"warm-up {t.compile_s:.3f} s error={t.error}")
+    for c, reason in res.pruned:
+        log(f"[{label}] pruned {c.label()}: {reason}")
+    d = res.to_dict()
+    log(f"[{label}] ranking: " + ", ".join(
+        f"{t.candidate.label()} {t.steps_per_s:.3f}"
+        for t in res.ranking()))
+    log(f"[{label}] winner {d['winner'] and d['winner']['engine']}, "
+        f"runner-up {d['runner_up'] and d['runner_up']['engine']}, margin "
+        f"{d['margin']}")
+
+
+def phase_tune() -> dict:
+    """The autotuner on the card: ``search`` at the reference's default
+    key over its default engine menu (kernel engines probed on the card
+    first), f32 and bf16 transforms, chunk lengths 1 and 4. Fails if the
+    probe prunes a candidate or a trial errs. Returns the phase's
+    kernel launches (the pallas_packed probe and trials)."""
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.tune.runner import db_entry_from_search, search
+    from ibamr_tpu_torch.tune.space import DEFAULT_ENGINES
+
+    ci.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = search(**TUNE_KEY, device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = dict(ci.LAUNCHES)
+    _search_log("tune", res)
+    entry = db_entry_from_search(
+        res, platform="cuda", timestamp=time.strftime("%Y-%m-%d"),
+        device_kind=torch.cuda.get_device_name(0),
+        torch_version=torch.__version__)
+    log(f"[tune] search of {len(res.trials)} trials at {TUNE_KEY} over "
+        f"{DEFAULT_ENGINES} in {wall:.1f} s; kernel launches {launches}; "
+        f"the entry it would publish (not written): {json.dumps(entry)}")
+    if res.pruned or any(t.error for t in res.trials):
+        raise AssertionError("tune: a candidate was pruned or a trial "
+                             "failed")
+    if len(res.trials) != 32 or not launches["packed_spread"]:
+        raise AssertionError("tune: the search did not time every "
+                             "candidate on the card")
+    return launches
+
+
+def phase_shootout() -> dict:
+    """The logged shoot-out: ``search`` at the flagship key (256^3, the
+    316x316 shell) over every engine of the registry, f32 and bf16
+    transforms, chunk lengths 1 and 4; the whole result logged as one
+    JSON line. Fails if a trial errs. Returns the phase's kernel
+    launches."""
+    from ibamr_tpu_torch.models.engine_resolver import RESOLVED_ENGINES
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.tune.runner import search
+
+    ci.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = search(**FLAGSHIP, engines=RESOLVED_ENGINES, dt=DT_FLAGSHIP,
+                 device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = dict(ci.LAUNCHES)
+    _search_log("shootout", res)
+    log(f"[shootout] result {json.dumps(res.to_dict())}")
+    log(f"[shootout] {len(res.trials)} trials at {FLAGSHIP} in {wall:.1f} "
+        f"s; kernel launches {launches}")
+    if any(t.error for t in res.trials) or res.pruned:
+        raise AssertionError("shootout: a candidate was pruned or a trial "
+                             "failed")
+    return launches
 
 
 def _ecc(X: torch.Tensor) -> float:
@@ -2980,6 +3193,56 @@ def _assert_no_launches(label, fn):
     return out
 
 
+def _ibfe2d_engines() -> None:
+    """The IBFE 2D disc of ``tests/test_ibfe.py:195-240`` (32^2, 4 rings,
+    displaced; a seeded nodal force and MAC field) through the three 2D
+    engines on the card, nodal and unified: one spread and one interp
+    against the scatter oracle on the card within TOL_KERNEL."""
+    from ibamr_tpu_torch.fe.fem import neo_hookean
+    from ibamr_tpu_torch.fe.mesh import disc_mesh
+    from ibamr_tpu_torch.grid import StaggeredGrid
+    from ibamr_tpu_torch.integrators.ibfe import IBFEMethod
+    from ibamr_tpu_torch.ops.interaction_fast import FastInteraction
+    from ibamr_tpu_torch.ops.interaction_packed import PackedInteraction
+    from ibamr_tpu_torch.ops.interaction_packed3 import PackedInteraction3
+
+    grid = StaggeredGrid(n=(32, 32), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    engines = {
+        "mxu": FastInteraction(grid, tile=8, cap=64, device=DEVICE),
+        "packed": PackedInteraction(grid, tile=8, chunk=64, nchunks=32,
+                                    device=DEVICE),
+        "packed3": PackedInteraction3(grid, tile=8, tile_last=8, chunk=64,
+                                      nchunks=64, device=DEVICE)}
+    mesh = disc_mesh(radius=0.15, center=(0.5, 0.5), n_rings=4)
+    rng = np.random.default_rng(3)
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    X = torch.tensor(mesh.nodes * 1.1 - 0.05, **f32)
+    F = torch.tensor(rng.standard_normal(X.shape), **f32)
+    u = tuple(torch.tensor(rng.standard_normal(grid.n), **f32)
+              for _ in range(2))
+    mask = torch.ones(X.shape[0], **f32)
+    for coupling in ("nodal", "unified"):
+        oracle = IBFEMethod(mesh, neo_hookean(1.0, 4.0), coupling=coupling,
+                            **f32)
+        f_ref = oracle.spread_force(F, grid, X, mask)
+        U_ref = oracle.interpolate_velocity(u, grid, X, mask)
+        for name, eng in engines.items():
+            fe = IBFEMethod(mesh, neo_hookean(1.0, 4.0), coupling=coupling,
+                            fast=eng, **f32)
+            ctx = fe.prepare(X, mask)
+            ef = max(_rel_dev(a, b) for a, b in zip(
+                fe.spread_force(F, grid, X, mask, ctx=ctx), f_ref))
+            eU = _rel_dev(fe.interpolate_velocity(u, grid, X, mask,
+                                                  ctx=ctx), U_ref)
+            log(f"[ibfe] 2D disc ({mesh.n_nodes} nodes, {coupling}) on the "
+                f"{name} engine vs the scatter oracle on the card: spread "
+                f"{ef:.3e}, interp {eU:.3e} (tol {TOL_KERNEL:g}; overflow "
+                f"{ctx.any_overflow})")
+            if not (ef <= TOL_KERNEL and eU <= TOL_KERNEL):
+                raise AssertionError(f"ibfe: the 2D {name} engine disagrees "
+                                     "with the scatter oracle")
+
+
 def phase_ibfe(breakdown: bool = False) -> None:
     """The IBFE ex0 driver on the committed input as it is and the beam2d
     driver with ``num_steps`` cut to ``BEAM_STEPS``, each on the card in a
@@ -2992,6 +3255,7 @@ def phase_ibfe(breakdown: bool = False) -> None:
     from ibamr_tpu_torch.utils.input_db import parse_input_file
     from ibamr_tpu_torch.utils.timers import TimerManager
 
+    _ibfe2d_engines()
     timer = TimerManager.instance()
     db = parse_input_file(os.path.join(ROOT, IBFE_EX0_INPUT))
     ts = db.get_database("TimeStepping")
@@ -3824,15 +4088,17 @@ class _PhaseClock:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,parity,path,hybrid,driver,auto,ex0,"
-                    "ibfe3d,walls,open,ibfe,rigid,adv,amr,mlamr,implicit,"
-                    "multiphase,resilience",
+                    default="kernels,parity,path,hybrid,engines,driver,auto,"
+                    "tune,ex0,ibfe3d,walls,open,ibfe,rigid,adv,amr,mlamr,"
+                    "implicit,multiphase,resilience",
                     help="comma-separated subset of kernels,parity,path,"
-                    "hybrid,driver,auto,ex0,ibfe3d,walls,open,ibfe,rigid,"
-                    "adv,amr,mlamr,implicit,multiphase,resilience "
-                    "(add 'breakdown' for a profile of the step of each "
-                    "that runs, the flagship's auto leg included; hybrid "
-                    "reads the path phase's time)")
+                    "hybrid,engines,driver,auto,tune,ex0,ibfe3d,walls,open,"
+                    "ibfe,rigid,adv,amr,mlamr,implicit,multiphase,"
+                    "resilience and the shootout, which runs only when "
+                    "named (add 'breakdown' for a profile of the step of "
+                    "each that runs, the flagship's auto leg included; "
+                    "hybrid and engines read the path phase's time, and "
+                    "engines steps from its state)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3856,17 +4122,24 @@ def main(argv=None) -> int:
         clock.lap("parity")
     launches = dict.fromkeys(KERNELS, 0)
     path_ms = float("nan")
+    path = None
     if "path" in phases:
         ran, path_ms, integ, state = phase_path(WARMUP, STEPS)
         launches = {k: launches[k] + ran[k] for k in launches}
         if "breakdown" in phases:
             phase_breakdown(integ, state, path_ms, "pallas_packed")
+        if "engines" in phases:
+            path = (integ, state, path_ms)
         del integ, state
         clock.lap("path")
     if "hybrid" in phases:
         ran = phase_hybrid(path_ms, "breakdown" in phases)
         launches = {k: launches[k] + ran[k] for k in launches}
         clock.lap("hybrid")
+    if "engines" in phases:
+        phase_engines(path, "breakdown" in phases)
+        del path
+        clock.lap("engines")
     if "driver" in phases:
         ran, step_ms, db, state = phase_driver(DRIVER_STEPS)
         launches = {k: launches[k] + ran[k] for k in launches}
@@ -3881,6 +4154,11 @@ def main(argv=None) -> int:
     if "auto" in phases:
         phase_auto(path_ms, "breakdown" in phases)
         clock.lap("auto")
+    for name, fn in (("tune", phase_tune), ("shootout", phase_shootout)):
+        if name in phases:
+            ran = fn()
+            launches = {k: launches[k] + ran[k] for k in launches}
+            clock.lap(name)
     if "ex0" in phases:
         ran = phase_ex0("breakdown" in phases)
         launches = {k: launches[k] + ran[k] for k in launches}

@@ -41,6 +41,7 @@ from ibamr_tpu_torch.integrators.ins_open import OpenINSState
 from ibamr_tpu_torch.ops import forces
 from ibamr_tpu_torch.ops.interaction_fast import Buckets
 from ibamr_tpu_torch.ops.interaction_packed import PackedBuckets
+from ibamr_tpu_torch.ops.interaction_packed3 import PackedBuckets3
 from ibamr_tpu_torch.physics.brinkman import RigidBodyState
 from ibamr_tpu_torch.physics.turbulence import KOmegaState
 
@@ -141,6 +142,12 @@ def packed_buckets(b, device="cuda") -> PackedBuckets:
     return PackedBuckets(**fields,
                          tile_of_chunk=tensor(b.tile_of_chunk, device,
                                               torch.int32))
+
+
+def packed_buckets3(b, device="cuda") -> PackedBuckets3:
+    """A fully blocked ``PackedBuckets3`` layout, converted as
+    :func:`packed_buckets` (a tile origin per axis)."""
+    return PackedBuckets3(**packed_buckets(b, device)._asdict())
 
 
 def fe_mesh(m) -> FEMesh:

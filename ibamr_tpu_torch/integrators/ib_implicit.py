@@ -60,7 +60,8 @@ def refuse_kernel_engines(ib) -> None:
             f"the implicit IB step differentiates the transfers, and the "
             f"{name!r} engine launches hand CUDA kernels, which have no "
             "derivative (the reference's pallas_call refuses a JVP "
-            "likewise); use the 'scatter' or 'packed' engine")
+            "likewise); use 'scatter' or a torch-op engine ('packed', "
+            "'mxu', 'packed3' or their bf16 twins)")
 
 
 def _check_scheme(scheme: str) -> None:

@@ -19,8 +19,8 @@ surface ``IBMethod`` does (``prepare`` / ``compute_force`` /
 IB integrators drive them unchanged. ``fast=`` takes a transfer engine:
 its quadrature or node clouds are ordinary marker clouds to the engine,
 so in 3D the FE coupling runs on the hand kernels of
-``ops/cuda_interaction.py``. The port has no 2D engine yet, so a 2D
-structure with ``fast=`` raises.
+``ops/cuda_interaction.py``, and in 2D on the torch-op engines (``mxu``,
+``packed``, ``packed3``).
 """
 
 from __future__ import annotations
@@ -48,15 +48,11 @@ from ibamr_tpu_torch.ops import interaction
 Vel = Tuple[torch.Tensor, ...]
 
 
-def _check_fast_engine(fast, kernel, dim: int) -> None:
+def _check_fast_engine(fast, kernel) -> None:
     """The engine bakes in its kernel at construction; a mismatch with
     the method's kernel would transfer with the wrong delta."""
     if fast is None:
         return
-    if dim != 3:
-        raise NotImplementedError(
-            "the port has no 2D transfer engine yet: a 2D FE structure "
-            "transfers through the scatter oracle (fast=None)")
     if getattr(fast, "kernel", kernel) != kernel:
         raise ValueError(f"fast engine kernel {fast.kernel!r} != method "
                          f"kernel {kernel!r}")
@@ -137,7 +133,7 @@ class IBFEMethod(_FECoupling):
                  device="cuda"):
         if coupling not in ("nodal", "unified"):
             raise ValueError(f"unknown IBFE coupling scheme {coupling!r}")
-        _check_fast_engine(fast, kernel, mesh.dim)
+        _check_fast_engine(fast, kernel)
         device = resolve_device(device)
         self.fast = fast
         self.mesh = mesh
@@ -193,7 +189,7 @@ class IBFESurfaceMethod(_FECoupling):
             raise ValueError(f"unknown IBFE coupling scheme {coupling!r}")
         if not isinstance(mesh, SurfaceMesh):
             raise TypeError("IBFESurfaceMethod takes a SurfaceMesh")
-        _check_fast_engine(fast, kernel, mesh.dim)
+        _check_fast_engine(fast, kernel)
         self.fast = fast
         self.mesh = mesh
         self.asm = build_surface_assembly(mesh, dtype=dtype, device=device)

@@ -10,14 +10,16 @@ the packed CUDA spread/interp kernels, ``ops/cuda_interaction.py``),
 ``"pallas"`` (the per-tile layout driven by the tile kernels),
 ``"hybrid_bf16"`` (alias ``"hybrid_packed_bf16"``) and
 ``"hybrid_packed"`` (the packed spread kernel with the ``packed``
-interp, bf16 operands for ``*_bf16``), ``"packed"`` and ``"packed_bf16"``
-(the reference's XLA engine on the packed layout in torch ops,
-``ops/interaction_packed.py``) and ``"scatter"`` (the scatter/gather
-oracle). An absent or ``"auto"`` engine
-resolves through ``models/engine_resolver.py`` as in the reference. The
-other engines of the reference registry are not ported yet and raise; the
-reference's build-failure fallback chain is not carried over: the port
-never degrades to another engine.
+interp, bf16 operands for ``*_bf16``), and the reference's XLA engines in
+torch ops: ``"packed"`` / ``"packed_bf16"`` (the xy-packed layout,
+``ops/interaction_packed.py``), ``"mxu"`` / ``"mxu_bf16"`` (the per-tile
+layout, ``ops/interaction_fast.py``) and ``"packed3"`` /
+``"packed3_bf16"`` (the fully blocked layout,
+``ops/interaction_packed3.py``); ``"scatter"`` is the scatter/gather
+oracle. An absent or ``"auto"`` engine resolves through
+``models/engine_resolver.py`` as in the reference. The reference's
+build-failure fallback chain is not carried over: the port never
+degrades to another engine.
 """
 
 from __future__ import annotations
@@ -97,46 +99,64 @@ def shell_volume(X: torch.Tensor, center: Tuple[float, float, float]):
     return (4.0 / 3.0) * math.pi * torch.mean(r ** 3)
 
 
-# of the reference registry's engine names (RESOLVED_ENGINES), the ones
-# the port builds
-PORTED_ENGINES = ("scatter", "pallas", "pallas_packed", "packed",
-                  "packed_bf16", "hybrid_bf16", "hybrid_packed_bf16",
-                  "hybrid_packed")
-
-
 def construct_transfer_engine(name, grid: StaggeredGrid, vertices,
                               kernel: str, device="cuda"):
     """Build the named transfer engine for markers at ``vertices`` with
-    the reference's sizing: ``"pallas"`` (tile capacity 1.2 x the fullest
-    tile, at most 1024), ``"pallas_packed"``, the hybrid engines,
-    ``"packed"`` and ``"packed_bf16"`` (1.3 x the chunk demand) or
-    ``"scatter"`` (None: the scatter path). Another registry name raises ``NotImplementedError``;
-    a name outside the registry ``ValueError``."""
+    the reference's sizing: the per-tile layouts (``"pallas"``, ``"mxu"``,
+    ``"mxu_bf16"``) hold 1.2 x the fullest tile, at most 1024; the xy-
+    packed ones (``"pallas_packed"``, the hybrid engines, ``"packed"``,
+    ``"packed_bf16"``) 1.3 x the demand of chunks of 128; ``"packed3"``
+    and ``"packed3_bf16"`` 1.3 x the demand of chunks of 64 on z tiles of
+    16, else 8 (``ValueError`` when neither fits); every engine buffers
+    ``max(2048, N // 4)`` overflow markers. ``"scatter"`` is None (the
+    scatter path); a name outside the registry raises ``ValueError``."""
     name = normalize_engine_name(name)
     if name == "scatter":
         return None
     if name not in RESOLVED_ENGINES:
         raise ValueError(f"unknown transfer engine {name!r}")
-    if name not in PORTED_ENGINES:
-        raise NotImplementedError(
-            f"transfer engine {name!r} is not ported yet; use one of "
-            f"{PORTED_ENGINES}")
     from ibamr_tpu_torch.ops.cuda_interaction import (
         HybridKernelInteraction, PackedKernelInteraction,
         TileKernelInteraction)
-    from ibamr_tpu_torch.ops.interaction_fast import suggest_cap
+    from ibamr_tpu_torch.ops.interaction_fast import (FastInteraction,
+                                                      suggest_cap)
     from ibamr_tpu_torch.ops.interaction_packed import (PackedInteraction,
                                                         suggest_chunks)
+    from ibamr_tpu_torch.ops.interaction_packed3 import (PackedInteraction3,
+                                                         suggest_chunks3)
 
     overflow_cap = max(2048, vertices.shape[0] // 4)
-    if name == "pallas":
+    bf16 = torch.bfloat16 if name.endswith("_bf16") else None
+    if name in ("pallas", "mxu", "mxu_bf16"):
         # pole-clustered tiles overflow into the compact scatter path;
         # the bound keeps the dense capacity (and its padding) sane
         cap = min(suggest_cap(grid, vertices, kernel=kernel, tile=8,
                               slack=1.2), 1024)
-        return TileKernelInteraction(grid, kernel=kernel, tile=8, cap=cap,
-                                     overflow_cap=overflow_cap,
-                                     device=device)
+        if name == "pallas":
+            return TileKernelInteraction(grid, kernel=kernel, tile=8,
+                                         cap=cap, overflow_cap=overflow_cap,
+                                         device=device)
+        return FastInteraction(grid, kernel=kernel, tile=8, cap=cap,
+                               overflow_cap=overflow_cap,
+                               compute_dtype=bf16, device=device)
+    if name in ("packed3", "packed3_bf16"):
+        # the z tile: the larger of 16 and 8 that divides the z extent
+        # and leaves room for the footprint
+        s = get_kernel(kernel)[0]
+        nz = grid.n[-1]
+        tz = next((t for t in (16, 8)
+                   if nz % t == 0 and nz >= t + s + 1 and t >= s + 1), None)
+        if tz is None:
+            raise ValueError(
+                f"packed3 engine: no valid z tile for n_z = {nz} with "
+                f"kernel {kernel!r} (need n_z divisible by 8 or 16 with "
+                f"n_z >= tile+{s + 1}); use the 'packed' engine instead")
+        Q3 = suggest_chunks3(grid, vertices, kernel=kernel, tile=8,
+                             tile_last=tz, chunk=64, slack=1.3)
+        return PackedInteraction3(grid, kernel=kernel, tile=8,
+                                  tile_last=tz, chunk=64, nchunks=Q3,
+                                  overflow_cap=overflow_cap,
+                                  compute_dtype=bf16, device=device)
     Q = suggest_chunks(grid, vertices, kernel=kernel, tile=8, chunk=128,
                        slack=1.3)
     if name == "pallas_packed":
@@ -146,15 +166,10 @@ def construct_transfer_engine(name, grid: StaggeredGrid, vertices,
     if name in ("hybrid_bf16", "hybrid_packed_bf16", "hybrid_packed"):
         return HybridKernelInteraction(
             grid, kernel=kernel, tile=8, chunk=128, nchunks=Q,
-            overflow_cap=overflow_cap,
-            compute_dtype=(torch.bfloat16 if name.endswith("_bf16")
-                           else None),
-            device=device)
+            overflow_cap=overflow_cap, compute_dtype=bf16, device=device)
     return PackedInteraction(
         grid, kernel=kernel, tile=8, chunk=128, nchunks=Q,
-        overflow_cap=overflow_cap,
-        compute_dtype=torch.bfloat16 if name == "packed_bf16" else None,
-        device=device)
+        overflow_cap=overflow_cap, compute_dtype=bf16, device=device)
 
 
 def build_shell_example(
@@ -178,8 +193,9 @@ def build_shell_example(
     """Assemble the ex4-equivalent simulation (3D periodic box) on
     ``device`` (the GPU unless ``device="cpu"``).
 
-    ``use_fast_interaction`` names the transfer engine (one of
-    ``PORTED_ENGINES`` or False for ``"scatter"``); None is ``"auto"``. ``input_db`` (an ``InputDatabase``)
+    ``use_fast_interaction`` names the transfer engine (a name of
+    ``RESOLVED_ENGINES``, True for ``"mxu"`` or False for ``"scatter"``);
+    None is ``"auto"``. ``input_db`` (an ``InputDatabase``)
     overrides the keyword arguments as the reference reads it:
     ``CartesianGeometry``, ``INSStaggeredHierarchyIntegrator``,
     ``IBMethod`` (``delta_fcn``, ``transfer_engine``) and ``Shell``; the

@@ -1,7 +1,7 @@
-"""Tile geometry, the per-tile marker layout and the shared pieces of the
-bucketed transfer engines (port of the parts of
-``ibamr_tpu/ops/interaction_fast.py`` that the tile and packed engines
-read).
+"""Tile geometry, the per-tile marker layout, the shared pieces of the
+bucketed transfer engines and the ``mxu`` / ``mxu_bf16`` engine
+(:class:`FastInteraction`, 2D and 3D; port of
+``ibamr_tpu/ops/interaction_fast.py``).
 
 Markers are bucketed by the (x, y) tile holding their stencil origin.
 Each tile's footprint spans ``width = tile + support + 1`` cells per
@@ -9,7 +9,11 @@ blocked axis, starting one cell below the tile origin, and the whole
 periodic last axis. Per-tile partial grids ``(B, W0*W1, nz)`` fold onto
 the periodic grid with :func:`_overlap_add`; :func:`_extract_tiles` is
 its gather twin. Markers that do not fit the layout ("overflow") go
-through the exact scatter/gather oracle (:mod:`.interaction`).
+through the exact scatter/gather oracle (:mod:`.interaction`). The
+torch-op engines (``mxu``, ``packed``, ``packed3``) contract each layout
+row's weights with one batched ``torch.einsum`` (:func:`_spread_rows`,
+:func:`_interp_rows`), as the reference's XLA einsums; the f32
+contraction runs without TF32 on the card.
 
 The reference's ``lax.cond`` overflow branches are Python branches here
 on the two host flags that the layout builder reads once per bucketing.
@@ -17,14 +21,17 @@ on the two host flags that the layout builder reads once per bucketing.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.grid import StaggeredGrid
 from ibamr_tpu_torch.ops import interaction
+from ibamr_tpu_torch.ops.interaction import _centering_offsets
 from ibamr_tpu_torch.ops.delta import get_kernel
 
 
@@ -221,24 +228,25 @@ def _phi_safe(phi, support):
 
 def tile_weights(geom: BucketGeometry, grid: StaggeredGrid, offs,
                  tid: torch.Tensor, Xb: torch.Tensor, kernel="IB_4"):
-    """The weight preamble of the kernels for every chunk (or tile row)
-    ``q`` of tile ``tid[q]``: per-axis weights ``wx (Q, W0, c)``,
-    ``wy (Q, W1, c)``, ``wz (Q, nz, c)`` of its markers over the tile's
-    footprint, wrapped periodically by rounding half to even. The CUDA
-    kernels evaluate IB_4, the default; the ``packed`` engine passes its
-    own (isotropic) kernel."""
+    """The weight preamble of the kernels and engines for every chunk (or
+    tile row) ``q`` of tile ``tid[q]``: per axis d, the weights ``(Q, W_d,
+    c)`` of its markers over the tile's footprint (``W_d = width[d]``
+    cells from one below the tile origin) on the blocked axes, and over
+    the whole periodic axis on an axis ``geom`` does not block (the last,
+    for the xy-blocked layouts; none for the fully blocked ``packed3``),
+    wrapped periodically by rounding half to even. The CUDA kernels
+    evaluate IB_4, the default; the torch-op engines pass their own
+    (isotropic) kernel."""
     support, phi0 = get_kernel(kernel)
     phi = _phi_safe(phi0, support)
     dtype, dev = Xb.dtype, Xb.device
-    t = tid.to(torch.int64)
-    nb1 = geom.nblk[1]
-    origins = ((t // nb1) * geom.tile[0] - 1, (t % nb1) * geom.tile[1] - 1)
+    origins = _tile_origins(geom, tid.to(torch.int64))
     out = []
-    for d in range(3):
+    for d in range(grid.dim):
         n = grid.n[d]
         xi = (Xb[..., d] - grid.x_lo[d]) / grid.dx[d] - offs[d]   # (Q, c)
-        if d < 2:
-            k = (origins[d][:, None].to(dtype)
+        if d < len(geom.nblk):
+            k = ((origins[d] - 1)[:, None].to(dtype)
                  + torch.arange(geom.width[d], dtype=dtype, device=dev))
         else:
             k = torch.arange(n, dtype=dtype, device=dev)[None, :]
@@ -246,6 +254,45 @@ def tile_weights(geom: BucketGeometry, grid: StaggeredGrid, offs,
         tk = tk - torch.round(tk / n) * n
         out.append(phi(tk))
     return tuple(out)
+
+
+def _tile_weights(geom, grid: StaggeredGrid, b, tid: torch.Tensor,
+                  centering, kernel):
+    """The reference's ``_tile_weights`` for rows of tiles ``tid``: the
+    first ``dim - 1`` axes combined into one footprint axis, ``A (Q, P,
+    c)`` with ``p = a * W1 + b`` in 3D, and the last axis ``W (Q, W_last,
+    c)`` (``_blocked_axis_weights`` / ``_full_axis_weights`` are
+    :func:`tile_weights`'s cases)."""
+    ws = tile_weights(geom, grid, _centering_offsets(grid, centering), tid,
+                      b.Xb, kernel)
+    A = ws[0]
+    for w in ws[1:-1]:
+        A = (A[:, :, None, :] * w[:, None, :, :]).reshape(
+            A.shape[0], -1, A.shape[-1])
+    return A, ws[-1]
+
+
+def _spread_rows(geom, grid: StaggeredGrid, b, tid: torch.Tensor,
+                 F: torch.Tensor, centering, kernel,
+                 compute_dtype=None) -> torch.Tensor:
+    """Each layout row's partial footprint ``(Q, P, W_last)`` of the
+    marker values F (N,): the rows' weighted markers contracted over
+    their slots (``bmp,bmz->bpz`` of the reference)."""
+    inv_vol = 1.0 / math.prod(grid.dx)
+    A, W = _tile_weights(geom, grid, b, tid, centering, kernel)
+    A = A * (bucketed_channel(b, F) * b.wb * inv_vol)[:, None, :]
+    return contract_compressed("qpm,qzm->qpz", A, W, compute_dtype)
+
+
+def _interp_rows(geom, grid: StaggeredGrid, b, tid: torch.Tensor,
+                 T: torch.Tensor, centering, kernel,
+                 compute_dtype=None) -> torch.Tensor:
+    """Each layout slot's interpolant ``(Q, c)`` from its row's footprint
+    ``T (Q, P, W_last)`` of the grid component (``bpz,bmz->bmp`` of the
+    reference, then the sum over the footprint)."""
+    A, W = _tile_weights(geom, grid, b, tid, centering, kernel)
+    D = contract_compressed("qpz,qzm->qpm", T, W, compute_dtype)
+    return torch.sum(A * D, dim=1) * b.wb
 
 
 def _pad_axis(x: torch.Tensor, axis: int, after: int) -> torch.Tensor:
@@ -286,11 +333,13 @@ def _overlap_add(geom: BucketGeometry, grid: StaggeredGrid,
     return out
 
 
-def _extract_tiles(geom: BucketGeometry, grid: StaggeredGrid,
+def _extract_tiles(geom, grid: StaggeredGrid,
                    f: torch.Tensor) -> torch.Tensor:
-    """Gather the (width..., n_last) tile of every block -> (B, P, n_last)."""
-    dim = grid.dim
-    nblocked = dim - 1
+    """Gather every tile's footprint of ``f`` -> ``(B, P, W_last)``: the
+    blocked axes' widths, the first ``dim - 1`` combined into ``P``, and
+    the last axis whole (xy-blocked layouts) or its footprint (the fully
+    blocked ``packed3``, the reference's ``_extract_tiles3``)."""
+    nblocked = len(geom.nblk)
     arr = f
     for d in range(nblocked):
         idx = (np.arange(geom.nblk[d])[:, None] * geom.tile[d] - 1
@@ -300,11 +349,13 @@ def _extract_tiles(geom: BucketGeometry, grid: StaggeredGrid,
         arr = arr.reshape(arr.shape[:2 * d]
                           + (geom.nblk[d], geom.width[d])
                           + arr.shape[2 * d + 1:])
-    if nblocked == 1:
-        return arr.reshape(geom.nblk[0], geom.width[0], grid.n[dim - 1])
-    arr = arr.permute(0, 2, 1, 3, 4)
-    B = geom.nblk[0] * geom.nblk[1]
-    return arr.reshape(B, geom.width[0] * geom.width[1], grid.n[dim - 1])
+    # (nb0, w0, nb1, w1, ...[, n_last]) -> (nb..., w...[, n_last])
+    perm = ([2 * d for d in range(nblocked)]
+            + [2 * d + 1 for d in range(nblocked)]
+            + list(range(2 * nblocked, arr.dim())))
+    return arr.permute(perm).reshape(int(np.prod(geom.nblk)),
+                                     int(np.prod(geom.width[:grid.dim - 1])),
+                                     -1)
 
 
 def bucketed_channel(b, F: torch.Tensor) -> torch.Tensor:
@@ -317,20 +368,43 @@ def bucketed_channel(b, F: torch.Tensor) -> torch.Tensor:
     return Ff[:-1].reshape(b.wb.shape)
 
 
+@contextlib.contextmanager
+def exact_f32_matmul():
+    """cuBLAS f32 products without TF32 inside the block, the reference's
+    ``Precision.HIGHEST``, whatever the process set; the setting is
+    restored after."""
+    m = torch.backends.cuda.matmul
+    prev = m.fp32_precision
+    if prev == "ieee":
+        yield
+        return
+    m.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        m.fp32_precision = prev
+
+
 def contract_compressed(spec: str, a: torch.Tensor, b: torch.Tensor,
                         compute_dtype=None) -> torch.Tensor:
-    """The transfer engines' contraction: exact in the operands' type, or,
-    with ``compute_dtype=torch.bfloat16``, of the operands rounded to bf16
-    with an f32 sum and an f32 result (cast to ``a``'s type) as the
-    reference's ``preferred_element_type=f32``. Each rounded operand goes
-    back to f32 before the product: a bf16 ``einsum`` would round its
-    result to bf16 too."""
+    """The transfer engines' contraction: exact in the operands' type (f32
+    without TF32 on the card), or, with ``compute_dtype=torch.bfloat16``,
+    of the operands rounded to bf16 with an f32 sum and an f32 result
+    (cast to ``a``'s type) as the reference's
+    ``preferred_element_type=f32``. Each rounded operand goes back to f32
+    before the product: a bf16 ``einsum`` would round its result to bf16
+    too."""
     if compute_dtype is not None:
         def rounded(x):
             return x.to(compute_dtype).to(torch.float32)
 
-        return torch.einsum(spec, rounded(a), rounded(b)).to(a.dtype)
-    return torch.einsum(spec, a, b)
+        a_, b_ = rounded(a), rounded(b)
+    else:
+        a_, b_ = a, b
+    if a.device.type != "cuda":
+        return torch.einsum(spec, a_, b_).to(a.dtype)
+    with exact_f32_matmul():
+        return torch.einsum(spec, a_, b_).to(a.dtype)
 
 
 def spread_overflow_fallbacks(out: torch.Tensor, b, F: torch.Tensor,
@@ -373,3 +447,75 @@ def unbucket_with_overflow(Ub: torch.Tensor, b, f: torch.Tensor,
                                      kernel=kernel, weights=b.o_w)
         return U.index_add(0, o, Uo)
     return U
+
+
+def spread_bucketed(geom: BucketGeometry, grid: StaggeredGrid, b: Buckets,
+                    F: torch.Tensor, X: torch.Tensor, centering, kernel,
+                    compute_dtype=None) -> torch.Tensor:
+    """Spread marker values F (N,) to the grid component at ``centering``
+    through the per-tile layout ``b``: per tile the contraction of its
+    slots' weights, then the overlap-add; the overflow markers go through
+    the exact scatter. The marker weights are the ones baked into ``b``."""
+    tid = torch.arange(b.wb.shape[0], device=F.device)
+    T = _spread_rows(geom, grid, b, tid, F, centering, kernel, compute_dtype)
+    return spread_overflow_fallbacks(_overlap_add(geom, grid, T), b, F, X,
+                                     grid, centering, kernel)
+
+
+def interpolate_bucketed(geom: BucketGeometry, grid: StaggeredGrid,
+                         b: Buckets, f: torch.Tensor, X: torch.Tensor,
+                         centering, kernel,
+                         compute_dtype=None) -> torch.Tensor:
+    """Interpolate the grid component ``f`` at the markers -> (N,), the
+    adjoint of :func:`spread_bucketed`."""
+    tid = torch.arange(b.wb.shape[0], device=f.device)
+    Ub = _interp_rows(geom, grid, b, tid, _extract_tiles(geom, grid, f),
+                      centering, kernel, compute_dtype)
+    return unbucket_with_overflow(Ub, b, f, X, grid, centering, kernel)
+
+
+class FastInteraction:
+    """The ``mxu`` engine (``mxu_bf16`` with ``compute_dtype=
+    torch.bfloat16``), 2D and 3D: markers bucketed once per position into
+    ``cap`` slots per tile and reused for every component and both
+    directions; each tile's transfer is one batched contraction
+    (``torch.einsum``, as the reference's XLA einsum). Markers past a
+    tile's ``cap`` take the exact scatter fallback. ``weights`` are baked
+    into the buckets: with a prebuilt ``b`` they must be the ones it was
+    built with."""
+
+    def __init__(self, grid: StaggeredGrid, kernel="IB_4", tile: int = 8,
+                 cap: int = 256, overflow_cap: Optional[int] = None,
+                 compute_dtype=None, device="cuda"):
+        resolve_device(device)   # raises for a GPU request without one
+        self.grid = grid
+        self.kernel = kernel
+        self.geom = make_geometry(grid, kernel, tile=tile, cap=cap)
+        self.overflow_cap = overflow_cap
+        self.compute_dtype = compute_dtype
+
+    def buckets(self, X: torch.Tensor,
+                weights: Optional[torch.Tensor] = None) -> Buckets:
+        return bucket_markers(self.geom, self.grid, X, weights,
+                              overflow_cap=self.overflow_cap)
+
+    def interpolate_vel(self, u, X: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None,
+                        b: Optional[Buckets] = None) -> torch.Tensor:
+        if b is None:
+            b = self.buckets(X, weights)
+        return torch.stack([
+            interpolate_bucketed(self.geom, self.grid, b, u[d], X, d,
+                                 self.kernel,
+                                 compute_dtype=self.compute_dtype)
+            for d in range(self.grid.dim)], dim=-1)
+
+    def spread_vel(self, F: torch.Tensor, X: torch.Tensor,
+                   weights: Optional[torch.Tensor] = None,
+                   b: Optional[Buckets] = None) -> tuple:
+        if b is None:
+            b = self.buckets(X, weights)
+        return tuple(spread_bucketed(self.geom, self.grid, b, F[:, d], X, d,
+                                     self.kernel,
+                                     compute_dtype=self.compute_dtype)
+                     for d in range(self.grid.dim))

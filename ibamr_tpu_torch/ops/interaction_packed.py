@@ -1,6 +1,6 @@
 """Occupancy-packed chunk layout of the markers and the ``packed`` /
-``packed_bf16`` transfer engines on it (port of
-``ibamr_tpu/ops/interaction_packed.py``; forward only, 3D only).
+``packed_bf16`` transfer engines on it, 2D and 3D (port of
+``ibamr_tpu/ops/interaction_packed.py``; forward only).
 
 Markers are bucketed by (x, y) tile and packed into ``Q`` chunks of
 ``c`` slots, allocated compactly in tile order: chunk q holds up to c
@@ -35,13 +35,12 @@ import torch
 from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.grid import StaggeredGrid
 from ibamr_tpu_torch.ops.delta import get_kernel
-from ibamr_tpu_torch.ops.interaction import _centering_offsets, scatter_add
+from ibamr_tpu_torch.ops.interaction import scatter_add
 from ibamr_tpu_torch.ops.interaction_fast import (
     BucketGeometry, _block_ids_np, _extract_tiles, _host_array,
-    _marker_tile_ids, _overlap_add, _tile_origins, bucketed_channel,
-    compact_overflow, contract_compressed, default_overflow_cap,
-    make_geometry, spread_overflow_fallbacks, tile_weights,
-    unbucket_with_overflow)
+    _interp_rows, _marker_tile_ids, _overlap_add, _spread_rows,
+    _tile_origins, compact_overflow, default_overflow_cap, make_geometry,
+    spread_overflow_fallbacks, unbucket_with_overflow)
 
 
 class PackedBuckets(NamedTuple):
@@ -180,20 +179,6 @@ def refresh_packed(geom: BucketGeometry, grid: StaggeredGrid,
 
 # -- the packed engine ---------------------------------------------------------
 
-def _chunk_weights(geom: BucketGeometry, grid: StaggeredGrid,
-                   b: PackedBuckets, centering, kernel):
-    """Each chunk's weights over its tile's footprint: the blocked axes
-    combined, ``A (Q, P, c)`` with p = a * W1 + b, and the last axis
-    ``Wz (Q, nz, c)``."""
-    if grid.dim != 3:
-        raise NotImplementedError("the packed engine is ported for 3D only")
-    offs = _centering_offsets(grid, centering)
-    wx, wy, wz = tile_weights(geom, grid, offs, b.tile_of_chunk, b.Xb,
-                              kernel)
-    Q, _, c = wx.shape
-    return (wx[:, :, None, :] * wy[:, None, :, :]).reshape(Q, -1, c), wz
-
-
 def spread_packed(geom: BucketGeometry, grid: StaggeredGrid,
                   b: PackedBuckets, F: torch.Tensor, X: torch.Tensor,
                   centering, kernel, compute_dtype=None) -> torch.Tensor:
@@ -202,15 +187,13 @@ def spread_packed(geom: BucketGeometry, grid: StaggeredGrid,
     ``compute_dtype=torch.bfloat16`` rounds the contraction's operands to
     bf16 (f32 sum). The reference's ``_spread_raw``: its custom VJP is
     not ported."""
-    inv_vol = 1.0 / math.prod(grid.dx)
-    A, Wz = _chunk_weights(geom, grid, b, centering, kernel)
-    A = A * (bucketed_channel(b, F) * b.wb * inv_vol)[:, None, :]
-    Tq = contract_compressed("qpm,qzm->qpz", A, Wz, compute_dtype)
+    tid = b.tile_of_chunk.to(torch.int64)
+    Tq = _spread_rows(geom, grid, b, tid, F, centering, kernel,
+                      compute_dtype)
     # tile_of_chunk is nondecreasing: the chunks of a tile are one
     # segment, summed without atomics
     B = int(np.prod(geom.nblk))
-    T = scatter_add(Tq.new_zeros((B,) + Tq.shape[1:]),
-                    b.tile_of_chunk.to(torch.int64), Tq)
+    T = scatter_add(Tq.new_zeros((B,) + Tq.shape[1:]), tid, Tq)
     return spread_overflow_fallbacks(_overlap_add(geom, grid, T), b, F, X,
                                      grid, centering, kernel)
 
@@ -221,10 +204,9 @@ def interpolate_packed(geom: BucketGeometry, grid: StaggeredGrid,
                        compute_dtype=None) -> torch.Tensor:
     """Interpolate the grid component ``f`` at the markers -> (N,), the
     adjoint of :func:`spread_packed` (the reference's ``_interp_raw``)."""
-    A, Wz = _chunk_weights(geom, grid, b, centering, kernel)
-    Tq = _extract_tiles(geom, grid, f)[b.tile_of_chunk.to(torch.int64)]
-    D = contract_compressed("qpz,qzm->qpm", Tq, Wz, compute_dtype)
-    Ub = torch.sum(A * D, dim=1) * b.wb                   # (Q, c)
+    tid = b.tile_of_chunk.to(torch.int64)
+    Ub = _interp_rows(geom, grid, b, tid, _extract_tiles(geom, grid, f)[tid],
+                      centering, kernel, compute_dtype)
     return unbucket_with_overflow(Ub, b, f, X, grid, centering, kernel)
 
 
@@ -240,9 +222,6 @@ class PackedInteraction:
                  chunk: int = 128, nchunks: int = 1024,
                  overflow_cap: Optional[int] = None, compute_dtype=None,
                  device="cuda"):
-        if grid.dim != 3:
-            raise NotImplementedError(
-                "the packed engine is ported for 3D only")
         resolve_device(device)   # raises for a GPU request without one
         self.grid = grid
         self.kernel = kernel

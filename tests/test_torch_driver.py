@@ -93,11 +93,17 @@ def test_build_from_input_db_matches_reference():
 
 
 def test_input_db_engine_knob_errors():
-    for knob, err in (('"warp_drive"', ValueError),
-                      ('"mxu"', NotImplementedError)):
-        db = t_parse(SHELL_INPUT.replace('"pallas"', knob))
-        with pytest.raises(err, match="warp_drive|not ported"):
-            tbuild(input_db=db, device="cpu")
+    db = t_parse(SHELL_INPUT.replace('"pallas"', '"warp_drive"'))
+    with pytest.raises(ValueError, match="warp_drive"):
+        tbuild(input_db=db, device="cpu")
+    # "mxu" in the file builds the per-tile torch-op engine, as the
+    # reference's file knob does
+    text = SHELL_INPUT.replace('"pallas"', '"mxu"')
+    tinteg, _ = tbuild(input_db=t_parse(text), device="cpu")
+    jinteg, _ = jbuild(input_db=j_parse(text))
+    assert tinteg.ib.engine_name == "mxu"
+    assert tuple(tinteg.ib.fast.geom) == tuple(jinteg.ib.fast.geom)
+    assert tinteg.ib.fast.overflow_cap == jinteg.ib.fast.overflow_cap
     # the file's spectral_dtype is taken as the reference takes it (a
     # typo raises in both)
     for value, want in (('"bf16"', torch.bfloat16), ('"f64"', torch.float64),

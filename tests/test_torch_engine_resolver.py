@@ -10,7 +10,8 @@ whose platform is its device's type. ``packed`` equals the reference's
 ``PackedInteraction`` to roundoff at f64 (1e-12 relative: the sum orders
 differ); ``packed_bf16`` meets the reference suite's bf16 tolerance
 (``tests/test_interaction_packed.py``: 8e-3 of the exact transfer, 2e-2
-for adjointness). A build with no ``transfer_engine`` resolves as the
+for adjointness). Every name of the registry builds, sized as the
+reference sizes it. A build with no ``transfer_engine`` resolves as the
 reference does, and the committed ``input3d`` runs unmodified through the
 ex4 entry point."""
 
@@ -449,27 +450,52 @@ def test_packed_bf16_within_reference_tolerance():
 
 def test_construct_packed_engines_with_reference_sizing():
     from ibamr_tpu.models.shell3d import construct_transfer_engine as jcons
-    from ibamr_tpu_torch.models.shell3d import PORTED_ENGINES
+    from ibamr_tpu_torch.ops.interaction_fast import FastInteraction
+    from ibamr_tpu_torch.ops.interaction_packed3 import PackedInteraction3
 
-    assert {"packed", "packed_bf16"} <= set(PORTED_ENGINES)
     n = (32, 32, 32)
     X, _, _, _ = _random(7, 5000, n, 0.2, 0.8)
     jg, tg = _grids(n)
-    for name in ("packed", "packed_bf16"):
+    # every name of the registry builds, sized as the reference sizes it
+    for name in tres.RESOLVED_ENGINES:
         ref = jcons(name, jg, X, "IB_4")
         got = construct_transfer_engine(name, tg, X, "IB_4", device="cpu")
-        assert type(got) is TPacked
-        assert got.nchunks == ref.nchunks
+        if name == "scatter":
+            assert ref is got is None
+            continue
+        assert tuple(got.geom) == tuple(ref.geom), name
         assert got.overflow_cap == ref.overflow_cap == 2048
-        assert tuple(got.geom) == tuple(ref.geom)
-        assert (got.compute_dtype is None) == (ref.compute_dtype is None)
+        assert getattr(got, "nchunks", None) == getattr(ref, "nchunks",
+                                                        None)
+        # the reference's hybrid keeps its dtype on its inner XLA engine
+        ref_dtype = getattr(getattr(ref, "_xla", ref), "compute_dtype", None)
+        assert ((getattr(got, "compute_dtype", None) is None)
+                == (ref_dtype is None)), name
+    for name, cls in (("packed", TPacked), ("packed_bf16", TPacked),
+                      ("mxu", FastInteraction),
+                      ("mxu_bf16", FastInteraction),
+                      ("packed3", PackedInteraction3),
+                      ("packed3_bf16", PackedInteraction3)):
+        assert type(construct_transfer_engine(name, tg, X, "IB_4",
+                                              device="cpu")) is cls
     # a pallas_packed request is never answered by the XLA engine
     got = construct_transfer_engine("pallas_packed", tg, X, "IB_4",
                                     device="cpu")
     assert type(got) is PackedKernelInteraction
-    with pytest.raises(NotImplementedError, match="3D"):
-        TPacked(TGrid(n=(16, 16), x_lo=(0.0,) * 2, x_up=(1.0,) * 2),
-                device="cpu")
+    # the 2D packed engine builds as the reference's does
+    kw = dict(n=(16, 16), x_lo=(0.0,) * 2, x_up=(1.0,) * 2)
+    assert tuple(TPacked(TGrid(**kw), device="cpu").geom) == tuple(
+        JPacked(JGrid(**kw)).geom)
+    # no z tile fits n_z = 12: packed3 raises as the reference does, and a
+    # name outside the registry raises
+    jg12, tg12 = _grids((32, 32, 12))
+    with pytest.raises(ValueError) as ref:
+        jcons("packed3", jg12, X, "IB_4")
+    with pytest.raises(ValueError) as got:
+        construct_transfer_engine("packed3", tg12, X, "IB_4", device="cpu")
+    assert str(got.value) == str(ref.value)
+    with pytest.raises(ValueError, match="unknown transfer engine"):
+        construct_transfer_engine("warp9", tg, X, "IB_4", device="cpu")
 
 
 # -- auto resolution in the builder -------------------------------------------
@@ -517,17 +543,20 @@ def test_auto_build_follows_env_and_database(tmp_path, monkeypatch):
     # an explicit engine outranks the override, as in the reference
     integ, _ = tbuild(use_fast_interaction="pallas", **shell)
     assert integ.ib.engine_name == "pallas"
-    # engines still unported raise, from the override or from a database
+    # the torch-op engines build from the override or from a database
     for name in ("mxu_bf16", "mxu", "packed3"):
         monkeypatch.setenv(tres.ENV_ENGINE, name)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tbuild(**shell)
+        integ, _ = tbuild(**shell)
+        assert integ.ib.engine_name == name
+        assert (integ.ib.fast.compute_dtype is torch.bfloat16) \
+            == name.endswith("_bf16")
     monkeypatch.delenv(tres.ENV_ENGINE)
     env = _db(tmp_path, [{"engine": "packed3_bf16",
                           "provenance": {"platform": "cpu"}}])
     monkeypatch.setenv(tres.ENV_TUNING_DB, env[tres.ENV_TUNING_DB])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tbuild(**shell)
+    integ, _ = tbuild(**shell)
+    assert integ.ib.engine_name == "packed3_bf16"
+    assert integ.ib.fast.compute_dtype is torch.bfloat16
     # a cuda-measured entry does not steer a CPU build
     env = _db(tmp_path, [{"engine": "pallas",
                           "provenance": {"platform": "cuda"}}], "gpu.json")

@@ -8,8 +8,10 @@ the midpoint rule. On the composite two-level set-up of
 backward Euler at 10x the explicit limit, a regrid of the window and
 the 40-step regridding run, with the same Newton counts and windows
 (``slow``: a minute or more each on one core); and the tangent FGMRES of
-the two-level step against ``jax.jvp``. The engines that launch hand CUDA kernels refuse the implicit
-step (checked with the engine objects alone, built for the CPU)."""
+the two-level step against ``jax.jvp``. The engines that launch hand
+CUDA kernels refuse the implicit step (checked with the engine objects
+alone, built for the CPU); the torch-op engines ``mxu`` and ``packed3``
+run it as the reference does (``slow``)."""
 
 import jax
 import jax.numpy as jnp
@@ -290,6 +292,33 @@ def test_kernel_engines_refuse_the_implicit_step(engine):
     imp = tii.IBImplicitIntegrator(integ.ins, integ.ib)
     with pytest.raises(NotImplementedError, match=engine):
         imp.step(st, 1e-3)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("engine", ["mxu", "packed3"])
+def test_torch_op_engines_run_the_implicit_step_like_reference(engine):
+    """The reference's implicit step runs on the ``mxu`` and ``packed3``
+    engines (XLA einsums, which JAX linearizes), so the port's runs too:
+    one midpoint step of the 16^3 shell (8x8 markers) at f64, X and u
+    within 1e-10 of the reference's, Newton converged (``slow``: the
+    reference traces its step for ~45 s)."""
+    from ibamr_tpu.models.shell3d import build_shell_example as jshell
+
+    shell = dict(n_cells=16, n_lat=8, n_lon=8)
+    jinteg, js = jshell(use_fast_interaction=(True if engine == "mxu"
+                                              else engine),
+                        dtype=jnp.float64, engine_fallback=False, **shell)
+    tinteg, _ = build_shell_example(use_fast_interaction=engine,
+                                    dtype=torch.float64, device="cpu",
+                                    **shell)
+    ji = jii.IBImplicitIntegrator(jinteg.ins, jinteg.ib)
+    ti = tii.IBImplicitIntegrator(tinteg.ins, tinteg.ib)
+    js2 = ji.step(js, 5e-3)
+    ts2 = ti.step(convert.ib_state(js, "cpu"), 5e-3)
+    assert ti.last_solve_stats["converged"]
+    assert _max_err(js2.X, ts2.X) <= 1e-10 * float(jnp.max(jnp.abs(js2.X)))
+    for a, b in zip(js2.ins.u, ts2.ins.u):
+        assert _max_err(a, b) <= 1e-10 * float(jnp.max(jnp.abs(a)))
 
 
 def test_unknown_scheme_raises():

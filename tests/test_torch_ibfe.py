@@ -5,7 +5,10 @@ within 1e-10 of max|ref|: in 2D through the scatter oracle, in 3D also
 with ``fast=`` the port's ``packed`` engine against the reference's
 ``PackedInteraction`` and with the kernel engines' plain versions; a
 10-step ``build_fe_disc_example`` trajectory (32^2, 4 rings) for both
-couplings; the shared grid guard ``check_fast_grid``."""
+couplings; the shared grid guard ``check_fast_grid``; in 2D with
+``fast=`` each torch-op engine (``mxu``, ``packed``, ``packed3``) against
+the reference's engine of the same family and its scatter oracle, within
+1e-10 of max|ref|."""
 
 import jax
 import jax.numpy as jnp
@@ -221,12 +224,18 @@ def test_check_fast_grid_error_matches_reference():
 
 
 def test_2d_engine_and_kernel_mismatch_raise():
+    # a 2D structure takes a 2D engine (the transfers: the next test);
+    # a kernel mismatch still raises
     eng = PackedInteraction(TGrid(n=(16,) * 3, x_lo=(0.0,) * 3,
                                   x_up=(1.0,) * 3), device="cpu")
     mesh = convert.fe_mesh(jm.disc_mesh(n_rings=2))
-    with pytest.raises(NotImplementedError, match="no 2D transfer engine"):
-        tibfe.IBFEMethod(mesh, tf.neo_hookean(1.0, 1.0), fast=eng,
-                         device="cpu")
+    eng2 = PackedInteraction(TGrid(n=(16,) * 2, x_lo=(0.0,) * 2,
+                                   x_up=(1.0,) * 2), device="cpu")
+    assert tibfe.IBFEMethod(mesh, tf.neo_hookean(1.0, 1.0), fast=eng2,
+                            device="cpu").fast is eng2
+    with pytest.raises(ValueError, match="kernel"):
+        tibfe.IBFEMethod(mesh, tf.neo_hookean(1.0, 1.0), kernel="IB_6",
+                         fast=eng2, device="cpu")
     sph = ts.sphere_surface_mesh(n_subdiv=1)
     with pytest.raises(ValueError, match="kernel"):
         tibfe.IBFESurfaceMethod(sph, ts.neo_hookean_membrane(1.0, 1.0),
@@ -234,3 +243,64 @@ def test_2d_engine_and_kernel_mismatch_raise():
     with pytest.raises(ValueError, match="transfer_level"):
         tibfe.IBFEMethod(mesh, tf.neo_hookean(1.0, 1.0), coupling="nodal",
                          transfer_level=1, device="cpu")
+
+
+def _engines_2d(engine, n):
+    """The reference's and the port's 2D engine of one family on an n^2
+    grid, sized for the FE clouds below."""
+    from ibamr_tpu.ops.interaction_fast import FastInteraction as JFast
+    from ibamr_tpu.ops.interaction_packed3 import PackedInteraction3 as JP3
+    from ibamr_tpu_torch.ops.interaction_fast import FastInteraction
+    from ibamr_tpu_torch.ops.interaction_packed3 import PackedInteraction3
+
+    jgrid, tgrid = _grids(n, 2)
+    if engine == "mxu":
+        return (JFast(jgrid, tile=8, cap=64),
+                FastInteraction(tgrid, tile=8, cap=64, device="cpu"))
+    if engine == "packed":
+        return (JPacked(jgrid, tile=8, chunk=64, nchunks=32),
+                PackedInteraction(tgrid, tile=8, chunk=64, nchunks=32,
+                                  device="cpu"))
+    return (JP3(jgrid, tile=8, tile_last=8, chunk=64, nchunks=64),
+            PackedInteraction3(tgrid, tile=8, tile_last=8, chunk=64,
+                               nchunks=64, device="cpu"))
+
+
+@pytest.mark.parametrize("engine", ["mxu", "packed", "packed3"])
+@pytest.mark.parametrize("coupling", ["nodal", "unified"])
+@pytest.mark.parametrize("family", ["volume", "surface"])
+def test_fast_engine_2d_matches_reference(engine, coupling, family):
+    """The cases of ``tests/test_ibfe.py::test_fast_engine_matches_scatter``
+    (a disc or a ring on 32^2, displaced, random force and field) on each
+    2D engine: the port with ``fast=`` against the reference with its
+    engine of the same family, and against the reference's scatter
+    oracle, within 1e-10 of max|ref| at f64."""
+    jeng, teng = _engines_2d(engine, 32)
+    jgrid, tgrid = _grids(32, 2)
+    if family == "volume":
+        m = jm.disc_mesh(radius=0.15, center=(0.5, 0.5), n_rings=4)
+        W, jcls, tcls = (jf.neo_hookean(1.0, 4.0), jibfe.IBFEMethod,
+                         tibfe.IBFEMethod)
+        tW, tm = tf.neo_hookean(1.0, 4.0), convert.fe_mesh(m)
+    else:
+        m = js.ring_mesh(center=(0.5, 0.5), radius=0.15, n=48)
+        W, jcls, tcls = (js.neo_hookean_membrane(1.0, 2.0),
+                         jibfe.IBFESurfaceMethod, tibfe.IBFESurfaceMethod)
+        tW, tm = ts.neo_hookean_membrane(1.0, 2.0), convert.surface_mesh(m)
+    j0 = jcls(m, W, coupling=coupling, dtype=jnp.float64)
+    j1 = jcls(m, W, coupling=coupling, dtype=jnp.float64, fast=jeng)
+    t1 = tcls(tm, tW, coupling=coupling, dtype=torch.float64, fast=teng,
+              device="cpu")
+    X = np.asarray(m.nodes) * 1.1 - 0.05
+    ft, Ut = _transfer_pair(j1, t1, jgrid, tgrid, X, seed=3)
+    # the same force and field through the reference's scatter oracle
+    rng = np.random.default_rng(3)
+    F = rng.standard_normal(X.shape)
+    u = [rng.standard_normal(jgrid.n) for _ in range(2)]
+    mask = np.ones(X.shape[0])
+    mask[1] = 0.0
+    Xj, mj = jnp.asarray(X), jnp.asarray(mask)
+    for a, b in zip(j0.spread_force(jnp.asarray(F), jgrid, Xj, mj), ft):
+        _close(a, b)
+    _close(j0.interpolate_velocity(tuple(map(jnp.asarray, u)), jgrid, Xj,
+                                   mj), Ut)

@@ -131,3 +131,37 @@ def test_compact_overflow_static_size_nonzero():
                                  ocap)
     for a, b in zip(ref, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("case", ["random_2d", "overflow_2d"])
+def test_packed_2d_transfers_match_reference(case):
+    """The 2D ``packed`` engine against the reference's: the layouts slot
+    for slot, spread and interp within 1e-12·max|ref| at f64 (other sum
+    orders)."""
+    from ibamr_tpu.ops.interaction_packed import PackedInteraction as JP
+
+    n = (32, 16)
+    rng = np.random.default_rng(11)
+    X = _random(200, 2, 1)
+    F = rng.standard_normal((200, 2))
+    u = tuple(rng.standard_normal(n) for _ in range(2))
+    Q = 4 if case == "overflow_2d" else None
+    jg, tg = _grids(n)
+    if Q is None:
+        Q = jpk.suggest_chunks(jg, X, tile=8, chunk=16)
+    jeng = JP(jg, tile=8, chunk=16, nchunks=Q)
+    teng = tpk.PackedInteraction(tg, tile=8, chunk=16, nchunks=Q,
+                                 device="cpu")
+    jb, tb = jeng.buckets(jnp.asarray(X)), teng.buckets(torch.tensor(X))
+    _assert_same(jb, tb)
+    assert tb.any_overflow == (case == "overflow_2d")
+    jf = jeng.spread_vel(jnp.asarray(F), jnp.asarray(X), b=jb)
+    tf = teng.spread_vel(torch.tensor(F), torch.tensor(X), b=tb)
+    jU = jeng.interpolate_vel(tuple(map(jnp.asarray, u)), jnp.asarray(X),
+                              b=jb)
+    tU = teng.interpolate_vel(tuple(map(torch.tensor, u)), torch.tensor(X),
+                              b=tb)
+    for ref, got in list(zip(jf, tf)) + [(jU, tU)]:
+        ref = np.asarray(ref)
+        assert np.max(np.abs(got.numpy() - ref)) < 1e-12 * np.max(
+            np.abs(ref))

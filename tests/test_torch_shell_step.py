@@ -2,7 +2,9 @@
 flagship shell (8x8 markers) in ibamr_tpu_torch against ibamr_tpu at f64
 on the CPU, on the ``pallas_packed`` and ``pallas`` engines (the
 reference's Pallas programs in interpret mode, the port's plain kernel
-versions) and on the ``scatter`` oracle. The reference's initial state is carried over by
+versions), on the torch-op engines ``mxu`` and ``packed3`` and on the
+``scatter`` oracle; the bf16 engines within 1e-7 (f32 sums in another
+order). The reference's initial state is carried over by
 ``ibamr_tpu_torch.convert``. FFT backends and transfer sum orders
 differ, so X, its displacement, u and p agree to 1e-10 relative."""
 
@@ -18,8 +20,14 @@ from ibamr_tpu_torch import convert
 from ibamr_tpu_torch.models.shell3d import build_shell_example as tbuild
 
 RTOL = 1e-10
+BF16_STEP_RTOL = 1e-7
 DT = 5e-3
 SHELL = dict(n_cells=16, n_lat=8, n_lon=8)
+
+
+def _jname(engine):
+    """The reference builder's ``use_fast_interaction`` for a name."""
+    return {"scatter": False, "mxu": True}.get(engine, engine)
 
 
 def _rel(ref, got):
@@ -28,10 +36,10 @@ def _rel(ref, got):
                  / max(np.max(np.abs(ref)), 1e-300))
 
 
-@pytest.mark.parametrize("engine", ["pallas_packed", "pallas", "scatter"])
+@pytest.mark.parametrize("engine", ["pallas_packed", "pallas", "scatter",
+                                    "mxu", "packed3"])
 def test_three_midpoint_steps_match_reference(engine):
-    jinteg, js = jbuild(use_fast_interaction=(engine if engine != "scatter"
-                                              else False),
+    jinteg, js = jbuild(use_fast_interaction=_jname(engine),
                         dtype=jnp.float64, engine_fallback=False, **SHELL)
     tinteg, _ = tbuild(use_fast_interaction=engine, dtype=torch.float64,
                        device="cpu", **SHELL)
@@ -55,6 +63,28 @@ def test_three_midpoint_steps_match_reference(engine):
     assert int(ts.ins.k) == 3 and abs(float(ts.ins.t) - 3 * DT) < 1e-15
 
 
+@pytest.mark.parametrize("engine", ["mxu_bf16", "packed3_bf16"])
+def test_three_bf16_engine_steps_match_reference(engine):
+    """The bf16 engines: the same bf16 operands, f32 sums in another
+    order, so 3 steps agree within BF16_STEP_RTOL, not 1e-10."""
+    jinteg, js = jbuild(use_fast_interaction=engine, dtype=jnp.float64,
+                        engine_fallback=False, **SHELL)
+    tinteg, _ = tbuild(use_fast_interaction=engine, dtype=torch.float64,
+                       device="cpu", **SHELL)
+    assert tinteg.ib.engine_name == engine
+    assert tinteg.ib.fast.compute_dtype is torch.bfloat16
+    ts = convert.ib_state(js, device="cpu")
+    X0 = np.asarray(js.X)
+    jstep = jax.jit(jinteg.step, static_argnums=1)
+    for _ in range(3):
+        js = jstep(js, DT)
+        ts = tinteg.step(ts, DT)
+    assert _rel(np.asarray(js.X) - X0, ts.X - torch.tensor(X0)) \
+        < BF16_STEP_RTOL
+    for a, b in zip(js.ins.u, ts.ins.u):
+        assert _rel(a, b) < BF16_STEP_RTOL
+
+
 def test_forward_euler_scatter_step_matches_reference():
     from ibamr_tpu.integrators.ib import IBExplicitIntegrator as JInteg
     from ibamr_tpu_torch.integrators.ib import IBExplicitIntegrator as TInteg
@@ -75,8 +105,14 @@ def test_forward_euler_scatter_step_matches_reference():
 
 
 def test_flagship_options_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tbuild(use_fast_interaction="mxu", device="cpu", **SHELL)
+    # every engine of the registry builds now: "mxu" (True in the
+    # reference's vocabulary) is the per-tile torch-op engine
+    from ibamr_tpu_torch.ops.interaction_fast import FastInteraction
+
+    for name in ("mxu", True):
+        tinteg, _ = tbuild(use_fast_interaction=name, device="cpu", **SHELL)
+        assert tinteg.ib.engine_name == "mxu"
+        assert type(tinteg.ib.fast) is FastInteraction
     # bf16 / f64 spectral transforms and PPM convection are ported: one
     # step equals the reference's (f64 state; bf16 operands within the
     # reference suite's bf16 class)
