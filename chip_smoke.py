@@ -199,6 +199,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
    32^3 shell on ``pallas_packed`` with one poisoned lane); a
    ``profile_trace`` of 3 flagship steps named in the ledger; and
    ``entry()``'s step.
+20. prof -- device-time attribution: ``PROF_CHUNKS`` chunks of
+   ``PROF_CHUNK`` flagship steps (``pallas_packed``) of the supervised
+   ``HierarchyDriver`` under ``profile_trace`` and a run ledger, the
+   capture attributed by ``obs/deviceprof.py`` and the ``attribute`` /
+   ``check`` / ``diff`` commands of ``ibamr_tpu_torch/tools/prof.py``:
+   the summary valid, its total within ``TOL_PROF_TOTAL`` of the
+   profiler's own kernel, memcpy and memset sum, ``driver/chunk`` at
+   least ``PROF_CHUNK_SHARE`` of the attributed time, FFT time found,
+   both packed kernels attributed, the census sidecar of one step joined
+   into the roofline (achieved FFT GB/s), a clean self-diff.
+21. io -- host I/O at the flagship's sizes: the markers as ``.vtp``, the
+   pressure as a binary ``.vti``, the ``ibfe3d`` sphere as ``.vtu`` and a
+   99,856-row vertex table through the native C++ library
+   (``io/native.py``), each equal to the NumPy/stdlib path.
+22. assim -- the assimilation tenant: the four-injector drill of
+   ``tools/fault_injection.py`` at the reference's sizes (16^3, 6 lanes,
+   6 cycles, f64, scatter oracle) and its ledger summarized by
+   ``tools/obs.py``; then ``ASSIM_LANES`` lanes of the flagship at f32 on
+   ``pallas_packed``, ``ASSIM_CYCLES`` cycles of ``ASSIM_SPC`` steps with
+   the same injectors: every cycle recorded, exactly the injected
+   observations rejected, the quarantined lane frozen bitwise, two cache
+   entries (the observation piece a CUDA graph) and hits after them, and
+   the first analysis against the CPU's f64 ESRF of the same forecast
+   ensemble within an f32 bound scaled by the ensemble matrix's
+   condition number.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -4073,6 +4098,414 @@ def phase_resilience() -> dict:
     return total
 
 
+PROF_CHUNK, PROF_CHUNKS = 2, 3   # prof: steps a chunk, chunks captured
+TOL_PROF_TOTAL = 0.01     # |total_device_s - profiler sum| / profiler sum
+PROF_CHUNK_SHARE = 0.99   # driver/chunk's least share of attributed time
+ASSIM_LANES, ASSIM_CYCLES, ASSIM_SPC = 6, 3, 2   # assim: full-width leg
+ASSIM_RINGS = (79, 158)   # the two latitude-ring meters of the 316 x 316 shell
+ASSIM_SIGMA = 1e-5        # sensor noise of the twin experiment (the drill's)
+ASSIM_COLUMNS = 1 << 20   # state entries held against the CPU f64 ESRF
+EPS_F32 = 2.0 ** -24
+SMI_LINE = [""]           # the card's nvidia-smi name and power limit
+
+
+def _profiler_device_s(prof) -> float:
+    """Seconds of kernel, memcpy and memset device time the profiler
+    itself sums for a capture (``key_averages``), without the
+    ``gpu_user_annotation`` rows that overlap the kernels."""
+    names = {e.key for e in prof.key_averages()
+             if getattr(e, "is_user_annotation", False)}
+    return sum(_self_device_us(e) for e in prof.key_averages()
+               if e.key not in names) / 1e6
+
+
+def phase_prof() -> dict:
+    """Device-time attribution of the supervised flagship: PROF_CHUNKS
+    chunks of PROF_CHUNK steps of ``HierarchyDriver`` under
+    ``ResilientDriver`` and a run ledger, captured by ``profile_trace``;
+    the port's ``deviceprof`` and ``tools/prof.py`` (``attribute``,
+    ``check``, ``diff`` against itself) on the capture, the census
+    sidecar of one step and the roofline join. Returns the launches."""
+    from ibamr_tpu_torch import obs
+    from ibamr_tpu_torch.models.shell3d import build_shell_example
+    from ibamr_tpu_torch.obs import deviceprof
+    from ibamr_tpu_torch.obs.roofline import census_sidecar, render_roofline
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.tools import prof as prof_cli
+    from ibamr_tpu_torch.utils.health import HealthProbe
+    from ibamr_tpu_torch.utils.hierarchy_driver import (HierarchyDriver,
+                                                        RunConfig)
+    from ibamr_tpu_torch.utils.supervisor import ResilientDriver
+    from ibamr_tpu_torch.utils.timers import profile_trace
+
+    ci.reset_launch_counts()
+    integ, state = build_shell_example(use_fast_interaction="pallas_packed",
+                                       dtype=torch.float32, device=DEVICE,
+                                       **FLAGSHIP)
+    n = PROF_CHUNK * PROF_CHUNKS
+    for _ in range(2):                       # builds, plans, layouts
+        state = integ.step(state, DT_FLAGSHIP)
+    torch.cuda.synchronize()
+    warm = dict(ci.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        cap, ledger = os.path.join(tmp, "cap"), os.path.join(
+            tmp, "ledger.jsonl")
+        drv = HierarchyDriver(integ, RunConfig(
+            dt=DT_FLAGSHIP, num_steps=n, health_interval=PROF_CHUNK,
+            restart_interval=n), health_probe=HealthProbe.for_integrator(
+                integ))
+        ci.reset_launch_counts()
+        t0 = time.perf_counter()
+        with obs.ledger(ledger):
+            with profile_trace(cap, stage="flagship") as prof:
+                out = ResilientDriver(drv, os.path.join(tmp, "run"),
+                                      handle_signals=False).run(state)
+        wall = time.perf_counter() - t0
+        launches = dict(ci.LAUNCHES)
+        trace = os.path.join(cap, "trace.json")
+        log(f"[prof] {n} supervised flagship steps captured in {wall:.2f} "
+            f"s ({os.path.getsize(trace)} B of trace); launches {launches}")
+        t0 = time.perf_counter()
+        summary = deviceprof.attribute_capture(cap, ledger=ledger)
+        attr_s = time.perf_counter() - t0
+        probs = deviceprof.validate_summary(summary)
+        total = summary["total_device_s"]
+        ref = _profiler_device_s(prof)
+        spans = summary["spans"]
+        chunk_s = sum(v["device_s"] for k, v in spans.items()
+                      if k.endswith("driver/chunk"))
+        share = chunk_s / max(summary["attributed_s"], 1e-30)
+        oc = summary["op_classes"]
+        log(f"[prof] attributed in {attr_s:.2f} s: total_device_s {total:.6f} "
+            f"s vs the profiler's own kernel+memcpy+memset sum {ref:.6f} s "
+            f"({abs(total - ref) / max(ref, 1e-30):.2e} off); attributed "
+            f"{summary['attributed_s']:.6f} + unattributed "
+            f"{summary['unattributed_s']:.6f}; driver/chunk "
+            f"{chunk_s:.6f} s = {share:.5f} of attributed, fraction "
+            f"attributed {summary['fraction_attributed']}; op classes "
+            f"{oc}; lanes {[(d['thread'], d['events']) for d in summary['lanes']]}")
+        log(f"[prof] spans {json.dumps({k: v['device_s'] for k, v in spans.items()})}; "
+            f"unattributed {json.dumps(summary['unattributed'])[:600]}")
+        # every kernel of the capture by name, to find the packed ones
+        events, _ = deviceprof.trace_device_events(
+            deviceprof.load_trace(trace))
+        full = deviceprof.attribute_events(
+            events, deviceprof.spans_from_ledger(ledger), max_ops=10 ** 6)
+        ops = {name: dev_s for k, v in full["spans"].items()
+               if k.endswith("driver/chunk") for name, dev_s
+               in v["ops"].items()}
+        # the trace names a kernel with its signature
+        packed = {k: sum(v for name, v in ops.items() if k in name)
+                  for k in ("packed_spread_kernel", "packed_interp_kernel")}
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+        log(f"[prof] the packed kernels' attributed device time {packed}; "
+            f"driver/chunk's top kernels "
+            f"{[(name[:60], round(v, 6)) for name, v in top]}")
+        rc_attr = prof_cli.main(["attribute", cap, "--ledger", ledger])
+        rc_check = prof_cli.main(["check", cap])
+        census = census_sidecar(lambda s: integ.step(s, DT_FLAGSHIP),
+                                (out,), label="flagship", executions=n)
+        torch.cuda.synchronize()
+        # the warm-up's, the capture's and the census' launches
+        launches = {k: warm[k] + ci.LAUNCHES[k] for k in warm}
+
+        with open(os.path.join(cap, deviceprof.CENSUS_NAME), "w") as f:
+            json.dump(census, f)
+        joined = deviceprof.attribute_capture(cap, ledger=ledger)
+        roof = joined["roofline"]
+        fft = (roof or {}).get("fft") or {}
+        for ln in render_roofline(roof):
+            log(f"[prof] roofline {ln.strip()}")
+        log(f"[prof] census of one step: {census['fft_ops']} transforms, "
+            f"{census['fft_bytes']} B; {census['dot_count']} contractions; "
+            f"achieved FFT {fft.get('achieved_gb_per_s')} GB/s of "
+            f"{PEAK_BYTES_S / 1e9:.0f} GB/s on {SMI_LINE[0]}")
+        deviceprof.write_summary(cap, joined)
+        rc_diff = prof_cli.main(["diff", cap, cap])
+        dev_recs = [r for r in obs.read_ledger(ledger)
+                    if r["kind"] == "device_time"]
+        ok = (not probs and total > 0
+              and abs(total - ref) <= TOL_PROF_TOTAL * ref
+              and abs(summary["attributed_s"] + summary["unattributed_s"]
+                      - total) <= max(1e-6, 1e-4 * total)
+              and share >= PROF_CHUNK_SHARE and oc["fft_s"] > 0
+              and all(v > 0 for v in packed.values())
+              and rc_attr == 0 and rc_check == 0 and rc_diff == 0
+              and len(dev_recs) == 1 and fft.get("achieved_gb_per_s")
+              and int(out.ins.k) == n + 2)
+        if probs:
+            log(f"[prof] INVALID summary: {probs}")
+        if not ok:
+            raise AssertionError("the prof phase missed one of its checks "
+                                 "(see the log lines above)")
+    return dict(launches=launches, integ=integ, state=out)
+
+
+def phase_io(integ, state) -> None:
+    """Host I/O at the flagship's sizes: the markers as ``.vtp``, the
+    pressure as a binary ``.vti`` (base64 through the native encoder),
+    the ``ibfe3d`` sphere as ``.vtu``, and a 99,856-row vertex table
+    parsed by the native parser, each against the NumPy/stdlib path
+    (the native library switched off) byte for byte or value for
+    value, with both times."""
+    from ibamr_tpu_torch.fe.surface import sphere_surface_mesh
+    from ibamr_tpu_torch.io import native, structures, vtk
+
+    X = state.X.detach().cpu().numpy()
+    p = state.ins.p.detach().cpu().numpy()
+    mesh = sphere_surface_mesh(center=(0.5,) * 3, radius=IBFE3D["radius"],
+                               n_subdiv=IBFE3D["n_subdiv"])
+    if native.get_lib() is None:
+        raise AssertionError("the native host library did not build")
+    with tempfile.TemporaryDirectory() as tmp:
+        table = os.path.join(tmp, "flagship.vertex")
+        with open(table, "w") as f:
+            f.write(f"{X.shape[0]}\n")
+            np.savetxt(f, X, fmt="%.17g")
+
+        def writes(tag):
+            t = {}
+            t0 = time.perf_counter()
+            a = vtk.write_vtp(os.path.join(tmp, f"{tag}.vtp"), X,
+                              point_data={"X": X})
+            t["vtp"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            b = vtk.write_vti(os.path.join(tmp, f"{tag}.vti"),
+                              integ.ins.grid, {"p": p}, fmt="binary")
+            t["vti"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            c = vtk.write_vtu(os.path.join(tmp, f"{tag}.vtu"), mesh.nodes,
+                              mesh.elems, "TRI3",
+                              point_data={"X": mesh.nodes})
+            t["vtu"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rows = structures._read_table(table, 3, 3, "vertex")
+            t["vertex"] = time.perf_counter() - t0
+            files = [open(x, "rb").read() for x in (a, b, c)]
+            return files, rows, t
+
+        fn, rn, tn = writes("native")
+        saved = (native._lib, native._tried)
+        native._lib, native._tried = None, True   # the NumPy/stdlib path
+        try:
+            fp, rp, tp = writes("numpy")
+        finally:
+            native._lib, native._tried = saved
+        same = [a == b for a, b in zip(fn, fp)]
+        log(f"[io] native vs NumPy/stdlib: .vtp {len(fn[0])} B, .vti "
+            f"{len(fn[1])} B, .vtu {len(fn[2])} B equal {same}; vertex "
+            f"table {rn.shape} equal {np.array_equal(rn, rp)}, equal to "
+            f"the markers {np.array_equal(rn, X.astype(np.float64))}; "
+            f"seconds native {tn} NumPy {tp}")
+        if not (all(same) and np.array_equal(rn, rp)
+                and np.array_equal(rn, X.astype(np.float64))
+                and rn.shape == (FLAGSHIP["n_lat"] * FLAGSHIP["n_lon"], 3)):
+            raise AssertionError("a native I/O path disagrees with the NumPy "
+                                 "path")
+
+
+def _assim_drill(tmp: str) -> None:
+    """The four-injector drill at the reference's sizes on the card, and
+    the obs CLI's summary of its ledger."""
+    from ibamr_tpu_torch.tools import fault_injection as fi
+    from ibamr_tpu_torch.tools import obs as obs_cli
+
+    t0 = time.perf_counter()
+    res = fi.run_assim_smoke(os.path.join(tmp, "drill"), device=DEVICE)
+    log(f"[assim] drill on the card ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(res)}")
+    print("[assim] python -m ibamr_tpu_torch.tools.obs summary "
+          f"{res['ledger']}", flush=True)
+    if obs_cli.main(["summary", res["ledger"]]) != 0:
+        raise AssertionError("obs summary of the drill's ledger failed")
+    sys.stdout.flush()
+
+
+def _assim_full_width(tmp: str) -> dict:
+    """ASSIM_LANES lanes of the flagship (f32, ``pallas_packed``),
+    ASSIM_CYCLES cycles of ASSIM_SPC steps under the supervisor with the
+    drill's four injectors and two latitude-ring meters: one terminal
+    ``assim_cycle`` record a cycle, QC rejecting exactly the injected
+    triples, the quarantined lane's rows bitwise frozen through every
+    later analysis, two cache entries and hits after them, and the first
+    analysis against the plain f64 ESRF of the same forecast ensemble on
+    the CPU. Returns the launches."""
+    from ibamr_tpu_torch import assim, obs
+    from ibamr_tpu_torch.assim import qc as aqc
+    from ibamr_tpu_torch.instruments import InstrumentPanel, make_meters
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.serve.aot_cache import ExecutableCache
+    from ibamr_tpu_torch.tools import fault_injection as fi
+    from ibamr_tpu_torch.utils.health import HealthProbe
+    from ibamr_tpu_torch.utils.lanes import fleet_size, lane_slice
+    from ibamr_tpu_torch.utils.tree import leaves
+
+    B, spc, n_cyc = ASSIM_LANES, ASSIM_SPC, ASSIM_CYCLES
+    BAD = B - 1
+    t0 = time.perf_counter()
+    ci.reset_launch_counts()
+    integ, op, fleet0, batches, _ = fi.assim_shell_setup(
+        B, n_cyc, spc, DT_FLAGSHIP, device=DEVICE, dtype=torch.float32,
+        sigma=ASSIM_SIGMA, rings=ASSIM_RINGS,
+        use_fast_interaction="pallas_packed", **FLAGSHIP)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    truth = dict(ci.LAUNCHES)                # the truth run's
+    names = op.channel_names()
+    source, injected = fi.armed_obs_source(
+        batches, names, {"dropout": (0, 0), "outlier": (1, 1),
+                         "stale": (2, 2)})
+    member_inj = dict(at_step=spc + 1, lane=BAD, fleet_size=B,
+                      leaf_path="u[0]", step_attr="ins.k")
+    cache = ExecutableCache()
+    cyc = assim.AssimilationCycle(
+        integ, op, B, assim.AssimConfig(steps_per_cycle=spc,
+                                        dt=DT_FLAGSHIP,
+                                        qc=aqc.QCConfig(k_sigma=6.0)),
+        probe=HealthProbe.for_integrator(integ), cache=cache,
+        fleet_step_wrap=lambda s: fi.member_divergence_injector(
+            s, **member_inj))
+    seen = []
+    run_analysis = cyc._run_analysis
+
+    def watched(state, batch, cycle, step):
+        alive = cyc.driver.lane_alive.copy()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_analysis(state, batch, cycle, step)
+        torch.cuda.synchronize()
+        rec = dict(cycle=cycle, alive=alive, ms=1e3 * (
+            time.perf_counter() - t))
+        if not alive[BAD]:
+            rows = leaves(lane_slice(out, BAD))
+            rec.update(rows=[x.clone() for x in rows], frozen=all(
+                torch.equal(a, b) for a, b in zip(
+                    leaves(lane_slice(state, BAD)), rows)))
+        if not seen:
+            rec.update(forecast=state, analysis=out, batch=batch)
+        seen.append(rec)
+        return out
+
+    cyc._run_analysis = watched
+    ledger = os.path.join(tmp, "full_ledger.jsonl")
+    ci.reset_launch_counts()
+    t0 = time.perf_counter()
+    with obs.ledger(ledger):
+        with fi.recorded("member_divergence", **member_inj):
+            out = cyc.run(fleet0, batches, directory=os.path.join(tmp, "full"),
+                          obs_source=source, max_retries=1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    fleet_launches = dict(ci.LAUNCHES)
+    launches = {k: truth[k] + fleet_launches[k] for k in truth}
+    records = obs.read_ledger(ledger)
+    cyc_recs = [r for r in records if r.get("kind") == "assim_cycle"]
+    rej = {(r["cycle"], r["instrument"], r["reason"])
+           for r in records if r.get("kind") == "assim_qc_reject"}
+    stats = cache.stats()
+    modes = {cache.get(k).label: cache.get(k).mode for k in cache.keys()}
+    dead = [r for r in seen if not r["alive"][BAD]]
+    frozen = [r["frozen"] for r in dead]
+    # each later analysis and the final state hold the same rows
+    final_frozen = bool(dead) and all(
+        torch.equal(a, b) for r in dead[1:] + [dict(rows=leaves(
+            lane_slice(out, BAD)))] for a, b in zip(dead[0]["rows"],
+                                                     r["rows"]))
+    steps = B * spc * n_cyc
+    log(f"[assim] full width: {B} lanes of the flagship, {n_cyc} cycles of "
+        f"{spc} steps: set-up (build, truth run, fleet) {setup_s:.2f} s, "
+        f"supervised run {run_s:.2f} s ({steps / run_s:.3f} lane steps/s "
+        f"with checkpoints, QC and analyses); analysis ms "
+        f"{[round(r['ms'], 3) for r in seen]}; cycles recorded "
+        f"{sorted(r['cycle'] for r in cyc_recs)}; QC rejections "
+        f"{sorted(rej)}; cache {stats}, modes {modes}; quarantined "
+        f"{not cyc.driver.lane_alive[BAD]}, frozen through analyses "
+        f"{frozen}; escalations {cyc.escalations}; launches of the "
+        f"truth run {truth}, of the fleet {fleet_launches}")
+
+    # the first analysis against the plain f64 ESRF on the CPU
+    first = seen[0]
+    fc, an, batch = first["forecast"], first["analysis"], first["batch"]
+    pack, _, n = assim.state_packer(lane_slice(fc, 0))
+    idx = torch.as_tensor(np.sort(np.random.default_rng(7).choice(
+        n, ASSIM_COLUMNS, replace=False)), device=DEVICE)
+    ens = torch.stack([pack(lane_slice(fc, i))[idx] for i in range(B)])
+    ana_card = torch.stack([pack(lane_slice(an, i))[idx] for i in range(B)])
+    ens64 = ens.double().cpu()
+    cpu_panel = InstrumentPanel(integ.ins.grid, make_meters(
+        [[r * FLAGSHIP["n_lon"] + j for j in range(FLAGSHIP["n_lon"])]
+         for r in ASSIM_RINGS], closed=True, dtype=torch.float64,
+        device="cpu"))
+    cpu_op = assim.ObservationOperator(cpu_panel)
+
+    def lane64(i):
+        s = lane_slice(fc, i)
+        return s._replace(X=s.X.double().cpu(), ins=s.ins._replace(
+            u=tuple(c.double().cpu() for c in s.ins.u),
+            p=s.ins.p.double().cpu()))
+
+    obs64 = torch.stack([cpu_op(lane64(i)) for i in range(B)])
+    rejected = {r["instrument"] for r in records
+                if r.get("kind") == "assim_qc_reject"
+                and r["cycle"] == first["cycle"]}
+    om = torch.tensor([nm not in rejected for nm in names])
+    alive = torch.as_tensor(first["alive"])
+    y = torch.nan_to_num(torch.as_tensor(batch.values))
+    ana64, diag = assim.esrf_analysis(
+        ens64, obs64, y, torch.as_tensor(batch.r), alive, om,
+        torch.tensor(1.0, dtype=torch.float64))
+    _, Zx, neff = assim.masked_moments(ens64, alive)
+    _, Zy, _ = assim.masked_moments(obs64, alive)
+    rinv = om.double() / torch.as_tensor(batch.r)
+    G = (neff - 1.0) * torch.eye(B, dtype=torch.float64) + (
+        Zy * rinv[None, :]) @ Zy.T
+    kappa = float(torch.linalg.cond(G))
+    err = float((ana_card.double().cpu() - ana64).abs().max())
+    scale_x = float(ens64.abs().max())
+    scale_a = float(Zx.abs().max())
+    bound = 16 * EPS_F32 * scale_x + 16 * kappa * EPS_F32 * scale_a
+    log(f"[assim] first analysis (cycle {first['cycle']}) on {ASSIM_COLUMNS} "
+        f"of {n} state entries against the CPU f64 ESRF of the same "
+        f"forecast ensemble: max|card - f64| {err:.3e}, bound {bound:.3e} "
+        f"(16 eps_f32 x max|x| {scale_x:.3e} + 16 kappa(G) eps_f32 x "
+        f"max|anomaly| {scale_a:.3e}, kappa(G) {kappa:.3e}); update "
+        f"max|ana - x| {float((ana64 - ens64).abs().max()):.3e}; f64 "
+        f"innovation rms {float(diag.innov_rms):.3e}, spread "
+        f"{float(diag.spread_f):.3e} -> {float(diag.spread_a):.3e}")
+    ok = (sorted(r["cycle"] for r in cyc_recs) == list(range(n_cyc))
+          and rej == injected and not cyc.driver.lane_alive[BAD]
+          and frozen and all(frozen) and final_frozen
+          and stats["misses"] == 2
+          and stats["hits"] == 2 * len(seen) - 2
+          and modes.get("assim_observe") == "graph"
+          and modes.get("assim_analyze") == "eager"
+          and err <= bound and fleet_size(out) == B
+          and all(bool(torch.isfinite(t).all())
+                  for i in range(B - 1) for t in leaves(lane_slice(out, i))
+                  if t.is_floating_point()))
+    if not ok:
+        raise AssertionError("the full-width assimilation leg missed one of "
+                             "its checks (see the log lines above)")
+    return launches
+
+
+def phase_assim() -> dict:
+    """The assimilation tenant on the card: the drill at the reference's
+    sizes (scatter oracle, no hand kernel) and the full-width leg on the
+    flagship's ``pallas_packed``. Returns the launches."""
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ci.reset_launch_counts()
+        _assim_drill(tmp)
+        if any(ci.LAUNCHES.values()):
+            raise AssertionError(f"the drill (scatter oracle) launched a "
+                                 f"hand kernel: {ci.LAUNCHES}")
+        launches = _assim_full_width(tmp)
+    torch.cuda.empty_cache()
+    return launches
+
+
 class _PhaseClock:
     """Seconds of each phase, logged as it ends."""
 
@@ -4090,11 +4523,12 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,parity,path,hybrid,engines,driver,auto,"
                     "tune,ex0,ibfe3d,walls,open,ibfe,rigid,adv,amr,mlamr,"
-                    "implicit,multiphase,resilience",
+                    "implicit,multiphase,resilience,prof,io,assim",
                     help="comma-separated subset of kernels,parity,path,"
                     "hybrid,engines,driver,auto,tune,ex0,ibfe3d,walls,open,"
                     "ibfe,rigid,adv,amr,mlamr,implicit,multiphase,"
-                    "resilience and the shootout, which runs only when "
+                    "resilience,prof,io,assim and the shootout, which runs "
+                    "only when "
                     "named (add 'breakdown' for a profile of the step of "
                     "each that runs, the flagship's auto leg included; "
                     "hybrid and engines read the path phase's time, and "
@@ -4110,6 +4544,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     log(f"[device] {smi.stdout.strip()}")
+    SMI_LINE[0] = smi.stdout.strip()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
@@ -4181,6 +4616,27 @@ def main(argv=None) -> int:
         ran = phase_resilience()
         launches = {k: launches[k] + ran[k] for k in launches}
         clock.lap("resilience")
+    flag = None
+    if "prof" in phases:
+        flag = phase_prof()
+        launches = {k: launches[k] + flag["launches"][k] for k in launches}
+        clock.lap("prof")
+    if "io" in phases:
+        if flag is None:
+            from ibamr_tpu_torch.models.shell3d import build_shell_example
+
+            integ, state = build_shell_example(
+                use_fast_interaction="pallas_packed", dtype=torch.float32,
+                device=DEVICE, **FLAGSHIP)
+            flag = dict(integ=integ, state=state)
+        phase_io(flag["integ"], flag["state"])
+        clock.lap("io")
+    del flag
+    torch.cuda.empty_cache()
+    if "assim" in phases:
+        ran = phase_assim()
+        launches = {k: launches[k] + ran[k] for k in launches}
+        clock.lap("assim")
 
     table = [dict(name=k, route="cuda", source=KERNELS[k][0],
                   replaces=KERNELS[k][1], launches=launches[k], **v)

@@ -402,7 +402,7 @@ class CompositeProjection:
         its sharded preconditioner; the port runs on one device."""
         raise NotImplementedError(
             "the sharded composite projection is not ported: it waits for "
-            "the parallel/ item of ROADMAP.md §A7 (torch.distributed)")
+            "the parallel/ slice of ROADMAP.md queue A (torch.distributed)")
 
     def _phi_eff(self, phi_c, phi_f):
         out = phi_c.clone()

@@ -116,7 +116,7 @@ class MultiLevelCompositeProjection:
         its sharded preconditioner; the port runs on one device."""
         raise NotImplementedError(
             "the sharded L-level projection is not ported: it waits for "
-            "the parallel/ item of ROADMAP.md §A7 (torch.distributed)")
+            "the parallel/ slice of ROADMAP.md queue A (torch.distributed)")
 
     # -- composite operator ---------------------------------------------------
     def _effective(self, phis: Sequence[torch.Tensor]) -> List[torch.Tensor]:

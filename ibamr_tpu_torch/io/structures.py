@@ -14,9 +14,10 @@ structure data they fill (port of ``ibamr_tpu/io/structures.py``):
   name.source: line 1 = M;  then M lines  "idx strength"
   name.inst:   line 1 = M;  then M lines  "idx meter_idx node_idx"
 
-Indices are 0-based within the structure. Parsing is host-side numpy
-(the reference's Python parser; its C++ fast path waits for
-``io/native.py``). ``StructureData.force_specs`` turns springs, beams and
+Indices are 0-based within the structure. Parsing is host-side: the
+C++ tokenizer of ``io/native.py`` when ``g++`` is present, else the
+reference's Python parser, with the same result and the same strict
+rejections. ``StructureData.force_specs`` turns springs, beams and
 targets into device force specs, ``StructureData.source_specs`` the
 source table into point sources; anchors become targets through
 ``anchors_to_targets``. The rod, mass and instrument tables are read and
@@ -39,7 +40,11 @@ from ibamr_tpu_torch.ops import sources as source_mod
 def _read_table(path: str, min_cols: int, max_cols: int,
                 what: str) -> np.ndarray:
     """The count line, then ``count`` rows of ``min_cols..max_cols``
-    numbers (``#`` starts a comment), as a zero-padded float64 array."""
+    numbers (``#`` starts a comment), as a zero-padded float64 array:
+    the native parser when it is available, else the NumPy one."""
+    native = _read_table_native(path, min_cols, max_cols, what)
+    if native is not None:
+        return native
     with open(path) as f:
         tokens = f.read().split("\n")
     lines = [ln.split("#")[0].strip() for ln in tokens]
@@ -65,6 +70,49 @@ def _read_table(path: str, min_cols: int, max_cols: int,
     out = np.zeros((count, width))
     for i, r in enumerate(rows):
         out[i, :len(r)] = r
+    return out
+
+
+def _read_table_native(path: str, min_cols: int, max_cols: int,
+                       what: str) -> Optional[np.ndarray]:
+    """C++ fast path (``io/native.py``): same contract as the Python parser;
+    None when the native library is unavailable."""
+    from ibamr_tpu_torch.io.native import parse_table_native
+
+    with open(path, "rb") as f:
+        text = f.read()
+    try:
+        parsed = parse_table_native(text, max_cols)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}")
+    if parsed is None:
+        return None
+    rows, ncols = parsed
+    if rows.shape[0] == 0:
+        raise ValueError(f"{path}: empty {what} file")
+    count_f = rows[0, 0]
+    if not np.isfinite(count_f) or count_f != int(count_f) \
+            or count_f < 0:
+        raise ValueError(f"{path}: first line must be the {what} count")
+    count = int(count_f)
+    if rows.shape[0] - 1 < count:
+        raise ValueError(
+            f"{path}: declared {count} {what} entries, found "
+            f"{rows.shape[0] - 1}")
+    body = rows[1:count + 1]
+    nc = ncols[1:count + 1]
+    if count and not ((nc >= min_cols) & (nc <= max_cols)).all():
+        bad = int(np.argmax((nc < min_cols) | (nc > max_cols)))
+        raise ValueError(
+            f"{path}: expected {min_cols}..{max_cols} columns, got "
+            f"{int(nc[bad])} on entry {bad}")
+    width = int(nc.max()) if count else min_cols
+    out = body[:, :width].copy()
+    # zero ONLY the pad slots (columns beyond each row's true count) —
+    # a genuine 'nan' data value must survive, as in the Python parser
+    if count:
+        pad = np.arange(width)[None, :] >= nc[:, None]
+        out[pad] = 0.0
     return out
 
 

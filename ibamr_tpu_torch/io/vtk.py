@@ -5,8 +5,10 @@ of ``ibamr_tpu/io/vtk.py``).
 ``.vtp`` PolyData for markers and fiber polylines, and ``.pvd``
 collections indexing a time series, and the ``.vtm`` multiblock index of
 an AMR hierarchy (one ``.vti`` per level), byte for byte as the reference
-writes them. Fields come as numpy arrays (callers move tensors to the host
-once per dump). The FE mesh (``.vtu``) writer is not ported.
+writes them, and the ``.vtu`` UnstructuredGrid of an FE mesh. Fields come
+as numpy arrays (callers move tensors to the host once per dump). Binary
+payloads are encoded by the native C++ encoder of ``io/native.py`` when
+it is available, else by the stdlib: the same bytes either way.
 """
 
 from __future__ import annotations
@@ -27,9 +29,14 @@ def _ascii(flat: np.ndarray) -> str:
 
 
 def _b64(data: bytes) -> str:
-    """Standard base64 (the reference tries its native encoder first;
-    both give the same bytes)."""
-    return base64.b64encode(data).decode("ascii")
+    """Base64 via the native C++ encoder (``io/native.py``), with the
+    stdlib encoder when the library is unavailable."""
+    from ibamr_tpu_torch.io.native import base64_native
+
+    out = base64_native(data)
+    if out is None:
+        out = base64.b64encode(data)
+    return out.decode("ascii")
 
 
 def _binary_payload(arr: np.ndarray) -> str:
@@ -260,4 +267,85 @@ def write_vtm_hierarchy(path: str, level_grids, level_fields,
             + '\n  </vtkMultiBlockDataSet>\n</VTKFile>\n')
     with open(path, "w") as f:
         f.write(body)
+    return path
+
+
+# VTK cell-type ids for the FE element menu. Node orderings: VTK's
+# quadratic simplices list corners then edge midpoints over the same
+# edge sets as fe/fem.py's libMesh-order tables ((0,1),(1,2),(2,0)[,(0,3),
+# (1,3),(2,3)]) — midpoints are direction-free, so connectivity passes
+# through unchanged; QUAD4/HEX8 counterclockwise/bottom-top orders also
+# coincide.
+_VTK_CELL_TYPES = {
+    "TRI3": 5,
+    "QUAD4": 9,
+    "TET4": 10,
+    "HEX8": 12,
+    "TRI6": 22,
+    "TET10": 24,
+}
+
+
+def write_vtu(path: str, nodes: np.ndarray, elems: np.ndarray,
+              elem_type: str,
+              point_data: Optional[Dict[str, np.ndarray]] = None) -> str:
+    """Write an FE mesh (current or reference configuration) as VTK
+    UnstructuredGrid — the IBFE structure-viz analog of the reference's
+    libMesh Exodus output: ParaView renders the
+    deformed solid with its real element connectivity, not just a
+    marker cloud. ``point_data``: per-node scalars/vectors (zero-padded
+    to 3 components)."""
+    if elem_type not in _VTK_CELL_TYPES:
+        raise ValueError(f"unsupported element type {elem_type!r} "
+                         f"(menu: {sorted(_VTK_CELL_TYPES)})")
+    nodes = np.asarray(nodes, dtype=np.float64)
+    elems = np.asarray(elems, dtype=np.int64)
+    N, dim = nodes.shape
+    if dim < 3:
+        nodes = np.concatenate([nodes, np.zeros((N, 3 - dim))], axis=1)
+    E, nen = elems.shape
+    ctype = _VTK_CELL_TYPES[elem_type]
+    point_data = point_data or {}
+
+    parts = ['<?xml version="1.0"?>\n',
+             '<VTKFile type="UnstructuredGrid" version="0.1" '
+             'byte_order="LittleEndian">\n  <UnstructuredGrid>\n',
+             f'    <Piece NumberOfPoints="{N}" NumberOfCells="{E}">\n',
+             '      <Points>\n        <DataArray type="Float32" '
+             'NumberOfComponents="3" format="ascii">\n',
+             _ascii(nodes.reshape(-1)),
+             '\n        </DataArray>\n      </Points>\n',
+             '      <Cells>\n        <DataArray type="Int64" '
+             'Name="connectivity" format="ascii">\n',
+             " ".join(str(v) for v in elems.reshape(-1)),
+             '\n        </DataArray>\n        <DataArray type="Int64" '
+             'Name="offsets" format="ascii">\n',
+             " ".join(str(nen * (e + 1)) for e in range(E)),
+             '\n        </DataArray>\n        <DataArray type="UInt8" '
+             'Name="types" format="ascii">\n',
+             " ".join(str(ctype) for _ in range(E)),
+             '\n        </DataArray>\n      </Cells>\n']
+    if point_data:
+        parts.append('      <PointData>\n')
+        for name, arr in point_data.items():
+            a = np.asarray(arr, dtype=np.float64)
+            if a.ndim == 1:
+                ncomp = 1
+                flat = a
+            else:
+                if a.shape[1] < 3:
+                    a = np.concatenate(
+                        [a, np.zeros((a.shape[0], 3 - a.shape[1]))],
+                        axis=1)
+                ncomp = a.shape[1]
+                flat = a.reshape(-1)
+            parts.append(f'        <DataArray type="Float32" '
+                         f'Name="{name}" NumberOfComponents="{ncomp}" '
+                         'format="ascii">\n')
+            parts.append(_ascii(flat))
+            parts.append('\n        </DataArray>\n')
+        parts.append('      </PointData>\n')
+    parts.append('    </Piece>\n  </UnstructuredGrid>\n</VTKFile>\n')
+    with open(path, "w") as f:
+        f.write("".join(parts))
     return path

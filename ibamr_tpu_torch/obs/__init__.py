@@ -20,9 +20,12 @@ loop's existing one-read-per-chunk sync points, and
 ``RunLedger.overhead_s`` accounts for the ledger's own cost.
 :mod:`~ibamr_tpu_torch.obs.export` renders the registry in the
 Prometheus text format and :mod:`~ibamr_tpu_torch.obs.merge` interleaves
-per-process ledger shards. The reference's profiler-capture parser
-(``deviceprof``) and ``roofline`` read ``jax.profiler`` captures and
-graph censuses and are not ported.
+per-process ledger shards. The read-back half is offline and imported on
+demand: :mod:`~ibamr_tpu_torch.obs.deviceprof` attributes the device
+time of a ``utils/timers.profile_trace`` capture to span paths (the
+ledger's ``device_time`` record, ``prof_summary.json``), and
+:mod:`~ibamr_tpu_torch.obs.roofline` joins that time with a call-level
+FFT and contraction census into achieved rates.
 """
 
 from ibamr_tpu_torch.obs.bus import (  # noqa: F401

@@ -17,21 +17,26 @@
 - :func:`truncate_checkpoint` / :func:`corrupt_checkpoint` /
   :func:`drop_sidecar` / :func:`failing_checkpoint_writes` damage
   checkpoints the ways a crash or a bad disk does.
-- :func:`run_smoke`, :func:`run_silent_smoke`, :func:`run_replay_smoke`
-  and :func:`run_fleet_smoke` are the end-to-end drills; each raises on
-  a failed expectation and returns a one-line summary dict. They run on
-  ``device`` (the GPU unless ``device="cpu"``):
+- :func:`obs_dropout_injector`, :func:`obs_outlier_injector` and
+  :func:`stale_obs_injector` wrap an assimilation cycle's sensor stream;
+  :func:`member_divergence_injector` poisons one ensemble member.
+- :func:`run_smoke`, :func:`run_silent_smoke`, :func:`run_replay_smoke`,
+  :func:`run_fleet_smoke` and :func:`run_assim_smoke` are the end-to-end
+  drills; each raises on a failed expectation and returns a one-line
+  summary dict. They run on ``device`` (the GPU unless
+  ``device="cpu"``):
   ``python -m ibamr_tpu_torch.tools.fault_injection --smoke``.
 
 Every step wrapper acts with ``torch.where`` on device values, so it
-adds no host read to a step. The sharded, elastic, soak, design and
-assimilation drills wait for the ports of their subsystems.
+adds no host read to a step. The sharded, elastic, soak and design
+drills wait for the ports of their subsystems.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import tempfile
@@ -277,13 +282,14 @@ def lane_drift_injector(stacked_step, rate: float = 1.5, lane: int = 0,
 def apply_recorded_injectors(injectors: dict):
     """Re-arm the faults a replay manifest recorded: ``bf16_drift`` is
     entered for the block; step-level faults (``nan``, ``growth``,
-    ``volume_leak``, ``lane_nan``, ``lane_drift``) come through the
-    yielded ``wrap(step_fn)``. Unknown names raise: dropping a recorded
+    ``volume_leak``, ``lane_nan``, ``lane_drift``, ``member_divergence``)
+    come through the yielded ``wrap(step_fn)``. Unknown names raise: dropping a recorded
     fault would make every replay of it read as cured."""
     factories = {"nan": nan_injector_step, "growth": growth_injector_step,
                  "volume_leak": volume_leak_injector,
                  "lane_nan": lane_nan_injector,
-                 "lane_drift": lane_drift_injector}
+                 "lane_drift": lane_drift_injector,
+                 "member_divergence": member_divergence_injector}
     wrappers = []
     with contextlib.ExitStack() as stack:
         for name, params in (injectors or {}).items():
@@ -809,6 +815,304 @@ def run_fleet_smoke(directory: str | None = None, fleet_size: int = 8,
                 "incidents": sup.incidents, "state": out}
 
 
+# ---------------------------------------------------------------------------
+# assimilation faults: bad sensors and bad members
+# ---------------------------------------------------------------------------
+#
+# The first three injectors wrap the cycle's ``obs_source`` seam: a pure
+# schedule transform over the sensor stream (which channels go bad, at
+# which cycles), so an armed drill is reproducible from its parameters
+# alone. ``member_divergence_injector`` is a lane-confined STATE fault
+# (the lane_nan shape) and is ``recorded()`` so capsules of an
+# assimilating run carry it.
+
+def obs_dropout_injector(source, channels, at_cycles):
+    """Wrap an ``obs_source`` so the named channels read NaN (a dead
+    sensor) at the named cycles: the QC gate must reject each with
+    reason ``dropout`` and the analysis must proceed on the rest."""
+    chans, cycs = list(channels), {int(c) for c in at_cycles}
+
+    def wrapped(cycle, step):
+        b = source(cycle, step)
+        if b is None or cycle not in cycs:
+            return b
+        b = dataclasses.replace(b, values=b.values.copy())
+        b.values[chans] = np.nan
+        return b
+
+    return wrapped
+
+
+def obs_outlier_injector(source, channels, at_cycles,
+                         magnitude: float = 50.0):
+    """Wrap an ``obs_source`` so the named channels spike by
+    ``magnitude`` observation-sigmas (an electrical transient) at the
+    named cycles: the QC gate's background check must reject each with
+    reason ``outlier``."""
+    chans, cycs = list(channels), {int(c) for c in at_cycles}
+
+    def wrapped(cycle, step):
+        b = source(cycle, step)
+        if b is None or cycle not in cycs:
+            return b
+        b = dataclasses.replace(b, values=b.values.copy())
+        b.values[chans] += magnitude * np.sqrt(b.r[chans])
+        return b
+
+    return wrapped
+
+
+def stale_obs_injector(source, channels, at_cycles,
+                       age_s: float = 1e6):
+    """Wrap an ``obs_source`` so the named channels arrive ``age_s``
+    seconds old (a feed replaying its last value) at the named cycles:
+    the QC gate must reject each with reason ``stale``."""
+    chans, cycs = list(channels), {int(c) for c in at_cycles}
+
+    def wrapped(cycle, step):
+        b = source(cycle, step)
+        if b is None or cycle not in cycs:
+            return b
+        b = dataclasses.replace(b, age_s=b.age_s.copy())
+        b.age_s[chans] = age_s
+        return b
+
+    return wrapped
+
+
+def member_divergence_injector(stacked_step, at_step: int, lane: int,
+                               fleet_size: int, leaf_path: str = "u[0]",
+                               dt_gate: float | None = None,
+                               step_attr: str = "ins.k"):
+    """One ensemble MEMBER diverges mid-run: lane ``lane``'s rows go NaN
+    at its ``at_step`` (the :func:`lane_nan_injector` mechanics under the
+    assimilation drill's name). The fleet triage must quarantine the
+    member, and the masked analysis statistics must exclude it instead of
+    averaging a diverged state into every other lane."""
+    return lane_nan_injector(stacked_step, at_step=at_step, lane=lane,
+                             fleet_size=fleet_size, leaf_path=leaf_path,
+                             dt_gate=dt_gate, step_attr=step_attr)
+
+
+def assim_shell_setup(B: int, n_cyc: int, spc: int, dt0: float, *,
+                      device="cuda", dtype=torch.float64, sigma=1e-5,
+                      seed: int = 7, perturb: float = 2e-3,
+                      rings=(2, 5), **shell):
+    """The assimilation drill's twin experiment on the IB shell: the
+    integrator, two latitude-ring flow meters (``rings`` of the
+    ``n_lat`` x ``n_lon`` shell) as the observation operator, the noisy
+    sensor batches of a truth run (``n_cyc`` cycles of ``spc`` steps,
+    noise ``sigma`` from numpy's generator at ``seed``) and the B-lane
+    forecast fleet (additive velocity offsets ``perturb·(i+1)``: the
+    initial state is quiescent, so multiplicative perturbations would
+    leave the ensemble degenerate). Returns ``(integ, op, fleet0,
+    batches, kwargs)``, ``kwargs`` the shell's build arguments."""
+    from ibamr_tpu_torch.assim import ObservationOperator, \
+        synthesize_batches
+    from ibamr_tpu_torch.instruments import InstrumentPanel, make_meters
+    from ibamr_tpu_torch.models.shell3d import build_shell_example
+    from ibamr_tpu_torch.utils.lanes import stack_lanes
+
+    kwargs = dict(shell, dtype=str(dtype).replace("torch.", ""),
+                  device=str(device))
+    integ, st0 = build_shell_example(**dict(kwargs, dtype=dtype))
+    n_lon = int(shell["n_lon"])
+    loops = [[ring * n_lon + j for j in range(n_lon)] for ring in rings]
+    panel = InstrumentPanel(integ.ins.grid, make_meters(
+        loops, closed=True, dtype=dtype, device=device))
+    op = ObservationOperator(panel)
+    st, truth = st0, []
+    for _ in range(n_cyc):
+        for _ in range(spc):
+            st = integ.step(st, dt0)
+        truth.append(st)
+    batches = synthesize_batches(op, truth, sigma=sigma, seed=seed)
+    del truth, st
+    fleet0 = stack_lanes([st0._replace(ins=st0.ins._replace(
+        u=tuple(c + perturb * (i + 1) for c in st0.ins.u)))
+        for i in range(B)])
+    return integ, op, fleet0, batches, kwargs
+
+
+def armed_obs_source(batches, names, plan):
+    """The sensor stream of ``batches`` with the drill's three faults
+    armed: ``plan`` maps ``dropout`` / ``outlier`` / ``stale`` to its
+    (channel, cycle). Returns ``(source, injected)``, ``injected`` the
+    set of (cycle, instrument, reason) triples QC must reject. The
+    outlier spikes by 2e4 observation-sigmas, which clears the
+    background check however wide the ensemble is."""
+    from ibamr_tpu_torch.assim import stream_from_list
+
+    source = stream_from_list(batches)
+    ch, cy = plan["dropout"]
+    source = obs_dropout_injector(source, [ch], [cy])
+    ch, cy = plan["outlier"]
+    source = obs_outlier_injector(source, [ch], [cy], magnitude=2e4)
+    ch, cy = plan["stale"]
+    source = stale_obs_injector(source, [ch], [cy])
+    injected = {(cy, names[ch], reason)
+                for reason, (ch, cy) in plan.items()}
+    return source, injected
+
+
+def run_assim_smoke(directory: str | None = None, fleet_size: int = 6,
+                    cycles: int = 6, steps_per_cycle: int = 2,
+                    bad_lane: int | None = None, device="cuda",
+                    dtype=torch.float64) -> dict:
+    """Deterministic end-to-end ASSIMILATION drill at the reference's
+    sizes (the 16^3 shell, 8 x 16 markers, on the scatter oracle): the
+    B-lane shell fleet runs as a forecasting service while ALL FOUR
+    assimilation injectors are armed at once:
+
+    1. **bad sensors rejected, not assimilated**: a dropped channel
+       (NaN), an outlier spike and a stale feed each hit a distinct
+       channel at a distinct cycle; the QC gate must reject exactly
+       those (cycle, channel, reason) triples as ``assim_qc_reject``
+       ledger records while the analysis proceeds on the rest;
+    2. **bad member quarantined, not averaged in**: one lane's state
+       goes NaN mid-run; the supervisor quarantines it and the masked
+       ensemble statistics exclude it from every later analysis;
+    3. **zero lost cycles**: every cycle lands exactly one terminal
+       ``assim_cycle`` ledger record (skipped or analyzed);
+    4. **the filter earns its keep**: the final forecast error beats the
+       open-loop ensemble (same fleet, same member fault, no analysis)
+       against the same sensors;
+    5. **one signature, two builds**: the whole episode runs one input
+       signature per chunk length and exactly two analysis builds
+       (observe + analyze) through the executable cache, everything
+       after a hit.
+
+    Raises on any failed expectation; returns a one-line summary dict.
+    """
+    from ibamr_tpu_torch import obs as _obs
+    from ibamr_tpu_torch.assim import (AssimConfig, AssimilationCycle,
+                                       masked_moments)
+    from ibamr_tpu_torch.assim import qc as _aqc
+    from ibamr_tpu_torch.serve.aot_cache import ExecutableCache
+    from ibamr_tpu_torch.utils.flight_recorder import (FlightRecorder,
+                                                       factory_spec)
+    from ibamr_tpu_torch.utils.health import HealthProbe
+
+    B = int(fleet_size)
+    BAD = B - 1 if bad_lane is None else int(bad_lane)
+    n_cyc, spc = int(cycles), int(steps_per_cycle)
+    dt0 = 1e-3
+    t_all = time.perf_counter()
+    with _workdir(directory) as directory:
+        integ, op, fleet0, batches, kwargs = assim_shell_setup(
+            B, n_cyc, spc, dt0, device=device, dtype=dtype,
+            n_cells=16, n_lat=8, n_lon=16, mu=0.05)
+        names = op.channel_names()
+        source, injected = armed_obs_source(
+            batches, names, {"dropout": (0, 1), "outlier": (1, 2),
+                             "stale": (2, 3)})
+        member_inj = dict(at_step=spc + 1, lane=BAD, fleet_size=B,
+                          leaf_path="u[0]", step_attr="ins.k")
+
+        ledger_path = os.path.join(directory, "assim_ledger.jsonl")
+        cfg = AssimConfig(steps_per_cycle=spc, dt=dt0,
+                          qc=_aqc.QCConfig(k_sigma=6.0))
+        cache = ExecutableCache()
+        probe = HealthProbe.for_integrator(integ)
+        with _obs.ledger(ledger_path):
+            with recorded("member_divergence", **member_inj):
+                cyc = AssimilationCycle(
+                    integ, op, B, cfg, probe=probe, cache=cache,
+                    fleet_step_wrap=lambda s:
+                        member_divergence_injector(s, **member_inj),
+                    recorder=FlightRecorder(capacity=4, spec=factory_spec(
+                        "ibamr_tpu_torch.models.shell3d",
+                        "build_shell_example", **kwargs)))
+                out = cyc.run(fleet0, batches, directory=directory,
+                              obs_source=source, max_retries=1)
+
+        if cyc.driver.lane_alive[BAD]:
+            raise AssertionError("diverged member never quarantined")
+        if not all(cyc.driver.lane_alive[i] for i in range(B)
+                   if i != BAD):
+            raise AssertionError("a healthy member was quarantined")
+
+        records = list(_obs.read_ledger(ledger_path))
+        rej = {(r["cycle"], r["instrument"], r["reason"])
+               for r in records if r.get("kind") == "assim_qc_reject"}
+        if not injected <= rej:
+            raise AssertionError(
+                f"injected bad observations not all rejected: "
+                f"missing {injected - rej}")
+        if rej - injected:
+            raise AssertionError(
+                f"QC rejected healthy observations: {rej - injected}")
+
+        cyc_recs = [r for r in records if r.get("kind") == "assim_cycle"]
+        done = {r["cycle"] for r in cyc_recs}
+        if done != set(range(n_cyc)):
+            raise AssertionError(
+                f"lost cycles: {sorted(set(range(n_cyc)) - done)}")
+        if not [r for r in cyc_recs if not r.get("skipped")]:
+            raise AssertionError("no cycle ever analyzed")
+
+        if any(c != 1 for c in cyc.driver.trace_counts.values()):
+            raise AssertionError(
+                f"fleet chunk signature changed: "
+                f"{cyc.driver.trace_counts}")
+        stats = cache.stats()
+        if stats["misses"] != 2:
+            raise AssertionError(
+                f"expected exactly 2 analysis builds (observe + "
+                f"analyze), got {stats['misses']}")
+
+        ol = AssimilationCycle(
+            integ, op, B, AssimConfig(steps_per_cycle=spc, dt=dt0),
+            probe=HealthProbe.for_integrator(integ),
+            cache=ExecutableCache(),
+            fleet_step_wrap=lambda s:
+                member_divergence_injector(s, **member_inj))
+        ol_dir = os.path.join(directory, "open_loop")
+        os.makedirs(ol_dir, exist_ok=True)
+        ol_out = ol.run(fleet0, directory=ol_dir, n_cycles=n_cyc,
+                        obs_source=lambda c, s: None, max_retries=1)
+
+        def _forecast_err(fleet_state, alive, batch):
+            pred = op.fleet(fleet_state)
+            ybar, _, _ = masked_moments(
+                pred, torch.as_tensor(alive, device=pred.device))
+            d = np.asarray(batch.values) - ybar.detach().to(
+                "cpu", torch.float64).numpy()
+            d = d[np.isfinite(d)]
+            return float(np.sqrt(np.mean(d * d)))
+
+        err_assim = _forecast_err(out, cyc.driver.lane_alive, batches[-1])
+        err_open = _forecast_err(ol_out, ol.driver.lane_alive, batches[-1])
+        if not err_assim < err_open:
+            raise AssertionError(
+                f"assimilation did not beat the open loop: "
+                f"{err_assim:.3e} vs {err_open:.3e}")
+
+        # the drill's verdict lands in the ledger itself (append-only:
+        # reopening continues the seq); the open-loop baseline exists
+        # nowhere else
+        with _obs.ledger(ledger_path):
+            _obs.emit("assim_summary", cycles=n_cyc, fleet_size=B,
+                      bad_lane=BAD, forecast_error=err_assim,
+                      open_loop_error=err_open,
+                      analysis_compiles=stats["misses"],
+                      analysis_cache_hits=stats["hits"],
+                      final_inflation=cyc.inflation,
+                      inflation_escalations=len(cyc.escalations))
+
+        return {"assim_smoke": "ok", "fleet_size": B, "bad_lane": BAD,
+                "cycles": n_cyc,
+                "qc_rejections": sorted([list(t) for t in rej]),
+                "lost_cycles": 0,
+                "analysis_compiles": stats["misses"],
+                "analysis_cache_hits": stats["hits"],
+                "forecast_error": float(f"{err_assim:.6e}"),
+                "open_loop_error": float(f"{err_open:.6e}"),
+                "final_inflation": cyc.inflation,
+                "ledger": ledger_path,
+                "wall_s": round(time.perf_counter() - t_all, 3)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="run the port's resilience drills")
@@ -816,11 +1120,16 @@ def main(argv=None) -> int:
     ap.add_argument("--silent-smoke", action="store_true")
     ap.add_argument("--replay-smoke", action="store_true")
     ap.add_argument("--fleet-smoke", action="store_true")
+    ap.add_argument("--assim-smoke", action="store_true",
+                    help="the assimilation drill: QC-rejected bad "
+                         "sensors, a quarantined member, zero lost "
+                         "cycles, the filter beating the open loop")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     drills = [(args.smoke, run_smoke), (args.silent_smoke, run_silent_smoke),
               (args.replay_smoke, run_replay_smoke),
-              (args.fleet_smoke, run_fleet_smoke)]
+              (args.fleet_smoke, run_fleet_smoke),
+              (args.assim_smoke, run_assim_smoke)]
     if not any(on for on, _ in drills):
         ap.error("name at least one drill")
     for on, fn in drills:

@@ -230,7 +230,8 @@ def _run_once(manifest, arrays, overrides, dt_scale, device):
     lane_rec = manifest.get("lane")
     armed = {}
     for name, params in injectors.items():
-        if name in ("lane_nan", "lane_drift") and lane_rec is not None:
+        if name in ("lane_nan", "lane_drift", "member_divergence") \
+                and lane_rec is not None:
             # a fault aimed at THIS lane moves onto lane 0 of the B=1
             # replay fleet; one aimed at another lane cannot fire here
             p = dict(params)

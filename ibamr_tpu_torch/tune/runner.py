@@ -3,14 +3,18 @@ chunks (port of ``ibamr_tpu/tune/runner.py``).
 
 A trial is one :class:`~ibamr_tpu_torch.tune.space.Candidate` built into
 a real integrator (the port never degrades to another engine, so a trial
-always times the engine it names). The reference compiles each
-candidate's ``L``-step scan chunk once through its AOT executable cache
-(``serve/aot_cache.py``, not ported); here a chunk is ``L`` eager
-``integ.step`` calls, the first chunk is the warm-up and its time is the
-trial's ``compile_s`` (the kernels' build and first launch), and
-``cache_hit`` / ``recompiles`` keep their defaults. The timed leg runs
-``reps`` warm chunks between two ``torch.cuda.synchronize()`` calls (on
-the card), so a trial measures steady steps/s, not dispatch or build.
+always times the engine it names). As in the reference, each candidate's
+``L``-step chunk is built once through the executable cache
+(``serve/aot_cache.py``, key material ``kind: "tune_chunk"``, the chunk
+length and the argument signature): a chunk is ``L`` eager
+``integ.step`` calls, the cache's build is its warm-up call and its
+seconds are the trial's ``compile_s`` (the kernels' build and first
+launch), and ``cache_hit`` / ``recompiles`` are the cache's hit and miss
+deltas over the lookup, so a repeated candidate is a hit. The chunk
+reads the state to the host, so its entry is a warm eager callable, never
+a captured graph. The timed leg drains one chunk, then runs ``reps``
+warm chunks between two ``torch.cuda.synchronize()`` calls (on the
+card), so a trial measures steady steps/s, not dispatch or build.
 
 A chunk ends as a chunk of ``utils/hierarchy_driver.py`` ends: with the
 finite flag of the whole state read to the host, the driver's one
@@ -68,14 +72,17 @@ def _sync(device) -> None:
 
 def run_trial(candidate: Candidate, *, n_cells: int = 16,
               n_lat: int = 8, n_lon: int = 16, dt: float = 5e-5,
-              reps: int = 3, mu: float = 0.05,
-              device="cuda") -> TrialResult:
+              reps: int = 3, mu: float = 0.05, cache=None,
+              label: str = "", device="cuda") -> TrialResult:
     """One measured trial on ``device``. A build or step failure is
     reported in ``TrialResult.error`` (and counted), never raised: the
-    search finishes its grid even when one candidate dies."""
+    search finishes its grid even when one candidate dies. ``cache``
+    defaults to the process's executable cache."""
     from ibamr_tpu_torch.models.shell3d import build_shell_example
+    from ibamr_tpu_torch.serve import aot_cache
     from ibamr_tpu_torch.utils.hierarchy_driver import _finite_flag
 
+    cache = cache if cache is not None else aot_cache.get_cache()
     L = int(candidate.chunk_length)
     res = TrialResult(candidate=candidate)
     try:
@@ -93,17 +100,27 @@ def run_trial(candidate: Candidate, *, n_cells: int = 16,
                     f"{candidate.label()}: the state went non-finite")
             return s
 
+        fp = aot_cache.step_fingerprint(integ)
+        before = cache.stats()
+        _sync(device)
+        entry = cache.get_or_compile(
+            fp, lambda: aot_cache.aot_compile(chunk, (state,)),
+            extra={"kind": "tune_chunk", "length": L,
+                   "args": aot_cache.arg_signature((state, dt))},
+            label=label or f"tune:{candidate.label()}")
+        after = cache.stats()
+        res.compile_s = entry.compile_s
+        res.cache_hit = after["hits"] > before["hits"]
+        res.recompiles = after["misses"] - before["misses"]
+        exe = entry.executable
         with _obs.span("tune/trial", engine=candidate.engine,
                        spectral_dtype=candidate.spectral_dtype,
                        chunk_length=L, n=n_cells):
+            state = exe(state)               # drain the warm-up
             _sync(device)
-            t0 = time.perf_counter()
-            state = chunk(state)
-            _sync(device)
-            res.compile_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             for _ in range(int(reps)):
-                state = chunk(state)
+                state = exe(state)
             _sync(device)
             elapsed = time.perf_counter() - t0
         per_step = elapsed / max(int(reps) * L, 1)

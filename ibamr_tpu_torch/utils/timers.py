@@ -132,7 +132,9 @@ def profile_trace(log_dir: Optional[str], stage: Optional[str] = None):
     ``obs.span("profile_trace", capture_dir=..., stage=...)``, and a
     ``profile`` ledger record naming the trace file lands when it
     closes. The spans and timer scopes inside the region show up as
-    ``record_function`` ranges."""
+    ``record_function`` ranges. The block receives the
+    ``torch.profiler.profile`` (``None`` when ``log_dir`` is falsy), whose
+    ``key_averages()`` are readable once the block has closed."""
     if not log_dir:
         yield
         return
@@ -149,7 +151,7 @@ def profile_trace(log_dir: Optional[str], stage: Optional[str] = None):
         prof = torch.profiler.profile(activities=acts)
         prof.__enter__()
         try:
-            yield
+            yield prof
         finally:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()

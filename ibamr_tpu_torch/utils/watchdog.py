@@ -208,9 +208,11 @@ class RunWatchdog:
             if ledger_seq is not None:
                 self._ledger_seq = int(ledger_seq)
             self._armed = True          # re-arm: the run moved again
-            payload = self._payload_locked()
-        if self.heartbeat_path is not None:
-            write_heartbeat(self.heartbeat_path, payload)
+            # written under the lock, as the daemon writes: a daemon
+            # payload taken before this beat can never land after it
+            if self.heartbeat_path is not None:
+                write_heartbeat(self.heartbeat_path,
+                                self._payload_locked())
 
     def _payload_locked(self) -> dict:
         sps = None
@@ -285,11 +287,11 @@ class RunWatchdog:
         while not self._stop.wait(self.interval_s):
             if self.heartbeat_path is not None:
                 with self._lock:
-                    payload = self._payload_locked()
-                try:
-                    write_heartbeat(self.heartbeat_path, payload)
-                except OSError:
-                    pass                 # a full disk must not kill it
+                    try:
+                        write_heartbeat(self.heartbeat_path,
+                                        self._payload_locked())
+                    except OSError:
+                        pass             # a full disk must not kill it
             self.check()
 
     def start(self) -> "RunWatchdog":
