@@ -224,6 +224,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the first analysis against the CPU's f64 ESRF of the same forecast
    ensemble within an f32 bound scaled by the ensemble matrix's
    condition number.
+23. serve -- the serving layer (``ibamr_tpu_torch/serve``): the contract
+   drill of ``ibamr_tpu_torch/SERVE_CONTRACT.json`` (16^3, scatter, 2
+   lanes, 3 steps) with its four structural numbers; one family at the
+   flagship's sizes on ``pallas_packed`` (2 lanes, chunk 2) through
+   ``cold_warm_drill``: a cold request of ``SERVE_STEPS`` steps and
+   ``SERVE_WARM`` warm ones (2 cold builds, 0 warm builds, a cache hit per
+   chunk, no new signature; cold and warm first-step seconds, warm p50
+   and p99, lane steps/s, the pool's bytes beside
+   ``torch.cuda.memory_allocated``), a batch with a poisoned lane
+   (``perturb=inf``: quarantined, its neighbour ok), the cruise chunk's
+   healthy lane bitwise equal beside the poisoned lane and beside
+   padding, and 3 spread and 6 interp launches for every lane step; then
+   the soak drill (four chaos injectors) and the elastic drill (mix
+   shift, bytes squeeze into brownout, shrink, restart with zero fresh
+   builds) at the port's ``SLO.json`` sizes, each ledger summarized by
+   ``tools/obs.py`` and checked by ``tools/slo.py`` (the invariants gate;
+   the CPU-calibrated latencies are reported).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -4506,6 +4523,265 @@ def phase_assim() -> dict:
     return launches
 
 
+SERVE_LANES = 2          # serve: lanes of the full-width bucket
+SERVE_STEPS = 4          # serve: steps of each full-width request
+SERVE_WARM = 8           # serve: warm requests after the cold one
+
+
+def _serve_slo(flag: str, ledger: str, invariants) -> dict:
+    """``tools/slo.py check <flag>`` on a drill's ledger: its report
+    printed, its invariant SLIs gating (the latency ceilings are the
+    CPU's and are reported, not gated, on the card)."""
+    import contextlib
+    import io
+
+    from ibamr_tpu_torch.tools import slo
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = slo.main(["check", flag, "--ledger", ledger, "--json"])
+    doc = json.loads(buf.getvalue())
+    log(f"[serve] python -m ibamr_tpu_torch.tools.slo check {flag} --ledger "
+        f"{os.path.basename(ledger)} (on {SMI_LINE[0]}): exit {rc}, SLIs "
+        f"{json.dumps(doc['slis'], sort_keys=True)}; violated "
+        f"{doc['violated']}")
+    bad = {k: doc["slis"].get(k) for k, v in invariants.items()
+           if doc["slis"].get(k) != v}
+    if bad:
+        raise AssertionError(f"the {flag} invariants broke on the card: "
+                             f"{bad}")
+    return doc["slis"]
+
+
+def _serve_summary(ledger: str) -> None:
+    from ibamr_tpu_torch.tools import obs as obs_cli
+
+    print(f"[serve] python -m ibamr_tpu_torch.tools.obs summary {ledger}",
+          flush=True)
+    if obs_cli.main(["summary", ledger]) != 0:
+        raise AssertionError(f"obs summary of {ledger} failed")
+    sys.stdout.flush()
+
+
+def _chunk_calls(steps: int, chunk: int) -> int:
+    """Chunks the router runs for one request of ``steps`` steps: the
+    length-1 ack, then cruise chunks, then length-1 tails."""
+    calls, left, first = 0, steps, True
+    while left > 0:
+        n = chunk if not first and left >= chunk else 1
+        left -= n
+        calls += 1
+        first = False
+    return calls
+
+
+def _serve_contract() -> None:
+    """The contract drill of the port's SERVE_CONTRACT.json on the card:
+    its four structural numbers must equal the contract's."""
+    from ibamr_tpu_torch.serve.router import cold_warm_drill
+    from ibamr_tpu_torch.tools import serve as serve_cli
+
+    with open(serve_cli.CONTRACT_PATH) as f:
+        doc = json.load(f)
+    d = doc["drill"]
+    out = cold_warm_drill(n_cells=d["n"], lanes=d["lanes"], steps=d["steps"],
+                          engine=d["engine"], device=DEVICE)
+    got = {k: out[k] for k in serve_cli.CONTRACT_METRICS}
+    regressions, improvements = serve_cli.diff_contract(out,
+                                                        doc["contract"])
+    log(f"[serve] contract drill ({d['n']}^3, {out['engine']}, "
+        f"{d['lanes']} lanes, {d['steps']} steps) on the card: {got}, cold "
+        f"{out['cold_first_step_s']} s / warm {out['warm_first_step_s']} s "
+        f"first step; regressions {regressions}, improvements "
+        f"{improvements}")
+    if got != doc["contract"] or regressions:
+        raise AssertionError("the serve contract drill disagrees with "
+                             "SERVE_CONTRACT.json on the card")
+
+
+def _serve_full_width(tmp: str) -> dict:
+    """One family at the flagship's sizes on ``pallas_packed``:
+    ``cold_warm_drill`` with SERVE_WARM warm requests (2 cold builds, 0
+    warm builds, a hit per chunk, no new signature), a batch with a
+    poisoned lane (quarantined; its neighbour ends ok) and the cruise
+    chunk's healthy lane bitwise the same beside the poisoned lane as
+    beside padding. Returns the launches, which must be 3 spread and 6
+    interp launches for every lane step the leg took."""
+    from ibamr_tpu_torch import obs
+    from ibamr_tpu_torch.integrators.ib import IBExplicitIntegrator
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.serve.aot_cache import ExecutableCache
+    from ibamr_tpu_torch.serve.router import (BucketSpec, ScenarioRequest,
+                                              WarmPoolRouter,
+                                              cold_warm_drill)
+    from ibamr_tpu_torch.utils.lanes import lane_slice, pad_lanes, stack_lanes
+    from ibamr_tpu_torch.utils.tree import leaves
+
+    lane_steps = [0]
+    step = IBExplicitIntegrator.step
+
+    def counted(self, state, dt):
+        lane_steps[0] += 1
+        return step(self, state, dt)
+
+    ledger = os.path.join(tmp, "full_width_ledger.jsonl")
+    IBExplicitIntegrator.step = counted
+    ci.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        with obs.ledger(ledger):
+            out = cold_warm_drill(
+                lanes=SERVE_LANES, steps=SERVE_STEPS, dt=DT_FLAGSHIP,
+                engine="pallas_packed", warm_requests=SERVE_WARM,
+                device=DEVICE, **FLAGSHIP)
+            torch.cuda.synchronize()
+            drill_s = time.perf_counter() - t0
+            drill_steps = lane_steps[0]
+            spec = BucketSpec(lanes=SERVE_LANES, engine="pallas_packed",
+                              dt=DT_FLAGSHIP, **FLAGSHIP)
+            router = WarmPoolRouter([spec], cache=ExecutableCache(),
+                                    allow_dynamic=False, device=DEVICE)
+            router.warm(spec)
+            pool = router._pools[spec]
+            alloc = torch.cuda.memory_allocated()
+
+            def req(tag, **kw):
+                return ScenarioRequest(tenant=tag, steps=SERVE_STEPS,
+                                       dt=DT_FLAGSHIP,
+                                       engine="pallas_packed", **kw,
+                                       **FLAGSHIP)
+
+            res = router.serve([req("healthy"),
+                                req("poisoned", perturb=float("inf"))])
+            good = pool.request_state(req("g"))
+            bad = pool.request_state(req("b", perturb=float("inf")))
+            dt = pool._dt_vec
+            beside_bad, hb = pool.chunk(2)(stack_lanes([good, bad]), dt,
+                                           np.array([True, True]))
+            padded, _ = pad_lanes([good], SERVE_LANES)
+            beside_pad, hp = pool.chunk(2)(padded, dt,
+                                           np.array([True, False]))
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in zip(
+                leaves(lane_slice(beside_bad, 0)),
+                leaves(lane_slice(beside_pad, 0))))
+    finally:
+        IBExplicitIntegrator.step = step
+    launches = dict(ci.LAUNCHES)
+    hist = out["histograms"].get('serve_request_seconds{path="warm"}')
+    warm_steps = SERVE_WARM * SERVE_STEPS
+    steps_per_s = warm_steps / hist["sum"] if hist else float("nan")
+    by = {r.tenant: r for r in res}
+    calls = _chunk_calls(SERVE_STEPS, 2)
+    # the drill's pool warms its 1- and 2-step chunks on every lane,
+    # then serves one lane a request
+    want_steps = SERVE_LANES * 3 + (1 + SERVE_WARM) * SERVE_STEPS
+    log(f"[serve] full width ({FLAGSHIP['n_cells']}^3, "
+        f"{FLAGSHIP['n_lat']}x{FLAGSHIP['n_lon']} markers, f32, "
+        f"pallas_packed, {SERVE_LANES} lanes, chunk 2) on {SMI_LINE[0]}: "
+        f"cold first step {out['cold_first_step_s']} s, warm "
+        f"{out['warm_first_step_s']} s (ratio {out['warm_over_cold']}); "
+        f"warm p50 {out['warm_p50_s']} s, p99 {out['warm_p99_s']} s over "
+        f"{out['warm_requests']} warm requests of {SERVE_STEPS} steps; "
+        f"{steps_per_s:.3f} lane steps/s over the warm requests "
+        f"(serve_request_seconds sum {hist['sum'] if hist else None} s); "
+        f"builds cold {out['cold_compiles']} / warm {out['warm_compiles']}, "
+        f"warm hits {out['warm_hits']} (chunk calls a request: {calls}), "
+        f"new signatures {out['warm_new_trace_signatures']}; drill "
+        f"{drill_s:.2f} s, {drill_steps} lane steps (expected "
+        f"{want_steps})")
+    log(f"[serve] full-width pool bytes {pool.resident_bytes} "
+        f"({pool.resident_bytes / 2**30:.3f} GiB; the drill's pool "
+        f"{out['pool_bytes']}) beside torch.cuda.memory_allocated {alloc} "
+        f"({alloc / 2**30:.3f} GiB) with the pool warm; quarantine batch "
+        f"{[(r.tenant, r.ok, r.quarantined, r.steps_done) for r in res]}; "
+        f"cruise chunk health beside the poisoned lane {hb.tolist()}, "
+        f"beside padding {hp.tolist()}, lane 0 bitwise equal {bitwise}; "
+        f"launches {launches} over {lane_steps[0]} lane steps")
+    _serve_summary(ledger)
+    ok = (out["cold_compiles"] == 2 and out["warm_compiles"] == 0
+          and out["warm_hits"] == calls
+          and out["warm_new_trace_signatures"] == 0
+          and out["cold_ok"] and out["warm_ok"]
+          and out["engine"] == "pallas_packed"
+          and drill_steps == want_steps
+          and by["poisoned"].quarantined and not by["poisoned"].ok
+          and by["healthy"].ok and not by["healthy"].quarantined
+          and by["healthy"].steps_done == SERVE_STEPS
+          and hb.tolist() == [1.0, 0.0] and hp.tolist()[0] == 1.0
+          and bitwise
+          and pool.resident_bytes > 0 and out["pool_bytes"] > 0
+          and launches["packed_spread"] == 3 * lane_steps[0]
+          and launches["packed_interp"] == 6 * lane_steps[0]
+          and launches["tile_spread"] == 0 and launches["tile_interp"] == 0)
+    del router, pool, beside_bad, beside_pad, padded, good, bad
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the full-width serving leg missed one of its "
+                             "checks (see the log lines above)")
+    return launches
+
+
+def _serve_drills(tmp: str) -> None:
+    """The soak and elastic drills at the port's SLO.json sizes on the
+    card, then the SLO gate on their ledgers."""
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.tools import fault_injection as fi
+    from ibamr_tpu_torch.tools import slo
+
+    sizes = slo.load_contract()
+    sk, el = sizes["soak"], sizes["elastic"]
+    t0 = time.perf_counter()
+    soak = fi.run_soak_smoke(os.path.join(tmp, "soak"),
+                             duration_s=sk["duration_s"],
+                             rate_rps=sk["rate_rps"],
+                             time_scale=sk["time_scale"], device=DEVICE)
+    log(f"[serve] soak drill ({sk['n']}^3, {sk['n_lat']}x{sk['n_lon']} "
+        f"shell, {sk['lanes']} lanes, {sk['rate_rps']} rps, "
+        f"{sk['burst_factor']}x burst, time scale {sk['time_scale']}; "
+        f"four chaos injectors) on the card "
+        f"({time.perf_counter() - t0:.1f} s): {json.dumps(soak)}")
+    _serve_summary(soak["ledger"])
+    _serve_slo("--soak", soak["ledger"], {"soak_lost_requests": 0})
+    t0 = time.perf_counter()
+    elastic = fi.run_elastic_smoke(os.path.join(tmp, "elastic"),
+                                   duration_s=el["duration_s"],
+                                   rate_rps=el["rate_rps"],
+                                   time_scale=el["time_scale"],
+                                   shift_frac=el["shift_frac"],
+                                   device=DEVICE)
+    log(f"[serve] elastic drill (mix shift at {el['shift_frac']}, bytes "
+        f"squeeze, restart) on the card ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(elastic)}")
+    _serve_summary(elastic["ledger"])
+    _serve_slo("--elastic", elastic["ledger"],
+               {"elastic_lost_requests": 0,
+                "elastic_restart_fresh_compiles": 0})
+    if any(ci.LAUNCHES.values()):
+        raise AssertionError(f"the 8^3 drills (scatter oracle) launched a "
+                             f"hand kernel: {ci.LAUNCHES}")
+
+
+def phase_serve() -> dict:
+    """The serving layer on the card: the contract drill, the full-width
+    leg on the flagship's ``pallas_packed`` (the main path's launches)
+    and the soak and elastic drills with their SLO gates. Returns the
+    launches of the full-width leg."""
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ci.reset_launch_counts()
+        _serve_contract()
+        if any(ci.LAUNCHES.values()):
+            raise AssertionError(f"the contract drill (scatter oracle) "
+                                 f"launched a hand kernel: {ci.LAUNCHES}")
+        launches = _serve_full_width(tmp)
+        ci.reset_launch_counts()
+        _serve_drills(tmp)
+    torch.cuda.empty_cache()
+    return launches
+
+
 class _PhaseClock:
     """Seconds of each phase, logged as it ends."""
 
@@ -4523,11 +4799,12 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,parity,path,hybrid,engines,driver,auto,"
                     "tune,ex0,ibfe3d,walls,open,ibfe,rigid,adv,amr,mlamr,"
-                    "implicit,multiphase,resilience,prof,io,assim",
+                    "implicit,multiphase,resilience,prof,io,assim,serve",
                     help="comma-separated subset of kernels,parity,path,"
                     "hybrid,engines,driver,auto,tune,ex0,ibfe3d,walls,open,"
                     "ibfe,rigid,adv,amr,mlamr,implicit,multiphase,"
-                    "resilience,prof,io,assim and the shootout, which runs "
+                    "resilience,prof,io,assim,serve and the shootout, which "
+                    "runs "
                     "only when "
                     "named (add 'breakdown' for a profile of the step of "
                     "each that runs, the flagship's auto leg included; "
@@ -4637,6 +4914,10 @@ def main(argv=None) -> int:
         ran = phase_assim()
         launches = {k: launches[k] + ran[k] for k in launches}
         clock.lap("assim")
+    if "serve" in phases:
+        ran = phase_serve()
+        launches = {k: launches[k] + ran[k] for k in launches}
+        clock.lap("serve")
 
     table = [dict(name=k, route="cuda", source=KERNELS[k][0],
                   replaces=KERNELS[k][1], launches=launches[k], **v)

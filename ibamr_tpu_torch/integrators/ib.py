@@ -76,10 +76,11 @@ class IBMethod:
         return force_mod.compute_lagrangian_force(X, U, self.specs)
 
     def prepare(self, X: torch.Tensor, mask: torch.Tensor):
-        """Per-position transfer context (marker buckets), shared by all
-        spread/interp calls at the same X within a step."""
+        """Per-position transfer context (marker buckets; the stencil
+        memo on the scatter oracle), shared by all spread/interp calls at
+        the same X within a step."""
         if self.fast is None:
-            return None
+            return interaction.Stencils(X)
         return self.fast.buckets(X, mask)
 
     def refresh(self, ctx, X: torch.Tensor, mask: torch.Tensor):
@@ -100,7 +101,7 @@ class IBMethod:
             check_fast_grid(self.fast, grid)
             return self.fast.interpolate_vel(u, X, weights=mask, b=ctx)
         return interaction.interpolate_vel(u, grid, X, kernel=self.kernel,
-                                           weights=mask)
+                                           weights=mask, stencils=ctx)
 
     def spread_force(self, F: torch.Tensor, grid: StaggeredGrid,
                      X: torch.Tensor, mask: torch.Tensor,
@@ -109,7 +110,7 @@ class IBMethod:
             check_fast_grid(self.fast, grid)
             return self.fast.spread_vel(F, X, weights=mask, b=ctx)
         return interaction.spread_vel(F, grid, X, kernel=self.kernel,
-                                      weights=mask)
+                                      weights=mask, stencils=ctx)
 
 
 class IBExplicitIntegrator:

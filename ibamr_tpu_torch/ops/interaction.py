@@ -44,13 +44,16 @@ def _centering_offsets(grid: StaggeredGrid, centering) -> Tuple[float, ...]:
     return tuple(centering)
 
 
-def _axis_weights_indices(xi: torch.Tensor, n: int, support: int, phi):
+def _axis_weights_indices(xi: torch.Tensor, n: Optional[int], support: int,
+                          phi):
     """Per-axis stencil indices (wrapped periodically) and delta weights of
-    markers at grid-unit coordinate ``xi`` (N,) -> ``j, w`` (N, support)."""
-    j = (torch.floor(xi - 0.5 * support).to(torch.int64) + 1)[:, None] \
-        + torch.arange(support, dtype=torch.int64, device=xi.device)[None, :]
-    w = phi(xi[:, None] - j.to(xi.dtype))
-    return torch.remainder(j, n), w
+    markers at grid-unit coordinate ``xi`` (N,) -> ``j, w`` (N, support);
+    ``xi`` may carry more axes, (N, dim) -> (N, dim, support). ``n=None``
+    leaves the indices unwrapped."""
+    j = (torch.floor(xi - 0.5 * support).to(torch.int64) + 1)[..., None] \
+        + torch.arange(support, dtype=torch.int64, device=xi.device)
+    w = phi(xi[..., None] - j.to(xi.dtype))
+    return (j if n is None else torch.remainder(j, n)), w
 
 
 def _stencil(grid: StaggeredGrid, X: torch.Tensor, centering, kernel):
@@ -59,16 +62,57 @@ def _stencil(grid: StaggeredGrid, X: torch.Tensor, centering, kernel):
     order along the face-normal axis, ``delta.get_kernel_axes``)."""
     specs = get_kernel_axes(kernel, centering, grid.dim)
     offsets = _centering_offsets(grid, centering)
-    idxs, ws = [], []
-    for d in range(grid.dim):
-        support_d, phi_d = specs[d]
-        xi = (X[:, d] - grid.x_lo[d]) / grid.dx[d] - offsets[d]
-        idx, w = _axis_weights_indices(xi, grid.n[d], support_d, phi_d)
-        idxs.append(idx)
-        ws.append(w)
+    xis = [(X[:, d] - grid.x_lo[d]) / grid.dx[d] - offsets[d]
+           for d in range(grid.dim)]
+    if all(sp == specs[0] for sp in specs[1:]):
+        # an isotropic kernel: every axis's weights in one pass (the
+        # same elementwise arithmetic, a third of the launches)
+        support, phi = specs[0]
+        j, w = _axis_weights_indices(torch.stack(xis, dim=1), None,
+                                     support, phi)
+        idxs = [torch.remainder(j[:, d], grid.n[d])
+                for d in range(grid.dim)]
+        ws = [w[:, d] for d in range(grid.dim)]
+    else:
+        idxs, ws = [], []
+        for d in range(grid.dim):
+            support_d, phi_d = specs[d]
+            idx, w = _axis_weights_indices(xis[d], grid.n[d], support_d,
+                                           phi_d)
+            idxs.append(idx)
+            ws.append(w)
     N = X.shape[0]
     return (_combine_linear(idxs, specs, grid, N),
             _combine_tensor(ws, specs, N))
+
+
+class Stencils:
+    """The stencils of one marker position ``X``, each built once on
+    first use and shared by every spread and interp at ``X`` (a midpoint
+    step spreads and interpolates at the same half-step position): the
+    same values as :func:`_stencil`, without building them again."""
+
+    def __init__(self, X: torch.Tensor):
+        self.X = X
+        self._memo = {}
+
+    def get(self, grid: StaggeredGrid, X: torch.Tensor, centering, kernel):
+        if X is not self.X:
+            return _stencil(grid, X, centering, kernel)
+        key = (grid, centering, kernel)
+        try:
+            st = self._memo.get(key)
+        except TypeError:              # an unhashable user-defined kernel
+            return _stencil(grid, X, centering, kernel)
+        if st is None:
+            st = self._memo[key] = _stencil(grid, X, centering, kernel)
+        return st
+
+
+def _stencil_of(grid, X, centering, kernel, stencils):
+    if stencils is None:
+        return _stencil(grid, X, centering, kernel)
+    return stencils.get(grid, X, centering, kernel)
 
 
 def _combine_linear(idxs, specs, grid: StaggeredGrid, N: int):
@@ -113,9 +157,10 @@ def scatter_add(flat: torch.Tensor, index: torch.Tensor,
 
 def interpolate(field: torch.Tensor, grid: StaggeredGrid, X: torch.Tensor,
                 centering="cell", kernel="IB_4",
-                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                weights: Optional[torch.Tensor] = None,
+                stencils: Optional[Stencils] = None) -> torch.Tensor:
     """U_m = sum_g field(x_g) * delta_h(x_g - X_m) * h^dim  -> (N,)"""
-    lin, wgt = _stencil(grid, X, centering, kernel)
+    lin, wgt = _stencil_of(grid, X, centering, kernel, stencils)
     out = torch.sum(field.reshape(-1)[lin] * wgt, dim=-1)
     if weights is not None:
         out = out * weights
@@ -125,10 +170,11 @@ def interpolate(field: torch.Tensor, grid: StaggeredGrid, X: torch.Tensor,
 def spread(F: torch.Tensor, grid: StaggeredGrid, X: torch.Tensor,
            centering="cell", kernel="IB_4",
            weights: Optional[torch.Tensor] = None,
-           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+           out: Optional[torch.Tensor] = None,
+           stencils: Optional[Stencils] = None) -> torch.Tensor:
     """f(x_g) += sum_m F_m * delta_h(x_g - X_m); delta_h carries the
     1/h^dim factor. Accumulates into ``out`` (not modified) if given."""
-    lin, wgt = _stencil(grid, X, centering, kernel)
+    lin, wgt = _stencil_of(grid, X, centering, kernel, stencils)
     inv_vol = 1.0 / math.prod(grid.dx)
     vals = (F * inv_vol)[:, None] * wgt
     if weights is not None:
@@ -141,20 +187,23 @@ def spread(F: torch.Tensor, grid: StaggeredGrid, X: torch.Tensor,
 
 def interpolate_vel(u: Sequence[torch.Tensor], grid: StaggeredGrid,
                     X: torch.Tensor, kernel="IB_4",
-                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    weights: Optional[torch.Tensor] = None,
+                    stencils: Optional[Stencils] = None) -> torch.Tensor:
     """Interpolate a MAC velocity to markers -> (N, dim); component d is
     sampled at its own face centering."""
     return torch.stack([interpolate(u[d], grid, X, centering=d,
-                                    kernel=kernel, weights=weights)
+                                    kernel=kernel, weights=weights,
+                                    stencils=stencils)
                         for d in range(grid.dim)], dim=-1)
 
 
 def spread_vel(F: torch.Tensor, grid: StaggeredGrid, X: torch.Tensor,
-               kernel="IB_4", weights: Optional[torch.Tensor] = None) -> Vel:
+               kernel="IB_4", weights: Optional[torch.Tensor] = None,
+               stencils: Optional[Stencils] = None) -> Vel:
     """Spread marker forces (N, dim) onto the MAC grid, one scatter per
     component at its own centering (includes the 1/h^dim factor)."""
     return tuple(spread(F[:, d], grid, X, centering=d, kernel=kernel,
-                        weights=weights)
+                        weights=weights, stencils=stencils)
                  for d in range(grid.dim))
 
 

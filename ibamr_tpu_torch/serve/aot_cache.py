@@ -63,9 +63,12 @@ _obs.describe("aot_cache_misses_total",
 _obs.describe("aot_cache_build_seconds",
               "Executable build wall time on a miss, by "
               "source=compile|persistent.")
+# the reference's help text, verbatim: a merged ledger renders the same
+# Prometheus text in both packages (in the port the bytes are captured
+# graphs' buffers and warm pools' resident tensors)
 _obs.describe("aot_cache_bytes",
-              "Estimated device bytes held by the executable cache's "
-              "captured graphs (the brownout watermark input).")
+              "Estimated bytes of compiled code held by the "
+              "executable cache (the brownout watermark input).")
 _obs.describe("aot_cache_released_total",
               "Entries explicitly released (elastic pool shrink), "
               "distinct from LRU/bytes-ceiling evictions.")
@@ -143,10 +146,12 @@ def enable_persistent_cache(directory: Optional[str] = None,
 
 
 def estimate_executable_bytes(executable) -> int:
-    """Device bytes an entry holds for the bytes watermark: a captured
-    graph's static input and output buffers (``size_bytes`` of a
-    :class:`WarmCallable`); 0 for an eager callable, which holds no
-    buffer of its own (the watermark then degrades to count-only LRU)."""
+    """Device bytes an entry holds for the bytes watermark: the
+    ``size_bytes`` of a :class:`WarmCallable`. A captured graph holds
+    its static input and output buffers; a warm pool's eager chunks
+    carry the pool's resident bytes (``serve/router.py``, split across
+    its ack and cruise entries); any other eager callable holds no
+    buffer of its own and reports 0."""
     try:
         return int(getattr(executable, "size_bytes", 0) or 0)
     except (TypeError, ValueError):

@@ -20,16 +20,23 @@
 - :func:`obs_dropout_injector`, :func:`obs_outlier_injector` and
   :func:`stale_obs_injector` wrap an assimilation cycle's sensor stream;
   :func:`member_divergence_injector` poisons one ensemble member.
+- :func:`compile_storm_injector`, :func:`slow_lane_injector`,
+  :func:`failing_build_injector` and :func:`kill_router_thread_injector`
+  patch the warm-pool router's seams (slow builds, stragglers, failed
+  and killed builds); :func:`mix_shift_injector` rotates an arrival
+  schedule onto an unseen family and :func:`memory_pressure_injector`
+  squeezes the executable cache's bytes ceiling.
 - :func:`run_smoke`, :func:`run_silent_smoke`, :func:`run_replay_smoke`,
-  :func:`run_fleet_smoke` and :func:`run_assim_smoke` are the end-to-end
-  drills; each raises on a failed expectation and returns a one-line
-  summary dict. They run on ``device`` (the GPU unless
+  :func:`run_fleet_smoke`, :func:`run_assim_smoke`,
+  :func:`run_soak_smoke` and :func:`run_elastic_smoke` are the
+  end-to-end drills; each raises on a failed expectation and returns a
+  one-line summary dict. They run on ``device`` (the GPU unless
   ``device="cpu"``):
   ``python -m ibamr_tpu_torch.tools.fault_injection --smoke``.
 
 Every step wrapper acts with ``torch.where`` on device values, so it
-adds no host read to a step. The sharded, elastic, soak and design
-drills wait for the ports of their subsystems.
+adds no host read to a step. The sharded and design drills wait for the
+ports of their subsystems.
 """
 
 from __future__ import annotations
@@ -38,8 +45,10 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -816,6 +825,643 @@ def run_fleet_smoke(directory: str | None = None, fleet_size: int = 8,
 
 
 # ---------------------------------------------------------------------------
+# serving-path chaos: faults against the warm-pool router
+# ---------------------------------------------------------------------------
+#
+# The four monkey-patching injectors patch the router's seams for the
+# duration of a ``with`` block and restore them on exit. They are
+# deliberately NOT ``recorded()``: they perturb latency and liveness,
+# never state values, so there is no bitwise replay story — the soak
+# drill's invariants are the reproduction.
+
+
+@contextlib.contextmanager
+def compile_storm_injector(extra_s: float = 0.5):
+    """Every bucket build (the whole cost of a serving miss) takes
+    ``extra_s`` longer — the host-side model of a build storm, where
+    novel families pile onto the build threads and cold requests wait.
+    Warm pools are untouched (the patch sits on
+    ``WarmPool.ensure_compiled``, which only runs at build time)."""
+    from ibamr_tpu_torch.serve.router import WarmPool
+
+    orig = WarmPool.ensure_compiled
+
+    def stormy(self):
+        time.sleep(float(extra_s))
+        return orig(self)
+
+    WarmPool.ensure_compiled = stormy
+    try:
+        yield
+    finally:
+        WarmPool.ensure_compiled = orig
+
+
+@contextlib.contextmanager
+def slow_lane_injector(extra_s: float = 0.25, match=None):
+    """Straggler: every warm-chunk invocation on pools whose spec
+    satisfies ``match`` (default: all pools) eats a host-side
+    ``extra_s`` sleep first. Scoping ``match`` to the chaos family is
+    how the soak proves a straggling tenant cannot drag a healthy
+    tenant's p99 — slots, not speed, are the shared resource."""
+    from ibamr_tpu_torch.serve.router import WarmPool
+
+    orig = WarmPool.chunk
+
+    def straggler(self, length):
+        ex = orig(self, length)
+        if match is not None and not match(self.spec):
+            return ex
+
+        def slow_exec(*a, **k):
+            time.sleep(float(extra_s))
+            return ex(*a, **k)
+
+        return slow_exec
+
+    WarmPool.chunk = straggler
+    try:
+        yield
+    finally:
+        WarmPool.chunk = orig
+
+
+@contextlib.contextmanager
+def failing_build_injector(n_failures: int = 1,
+                           message: str = "injected build failure"):
+    """The first ``n_failures`` bucket builds raise — the transient
+    build failure the router's jittered-backoff retry budget exists
+    for. Yields the live countdown list (``[remaining]``) so a drill
+    can assert the faults were actually consumed."""
+    from ibamr_tpu_torch.serve.router import WarmPool
+
+    orig = WarmPool.ensure_compiled
+    remaining = [int(n_failures)]
+    lock = threading.Lock()
+
+    def flaky(self):
+        with lock:
+            fail = remaining[0] > 0
+            if fail:
+                remaining[0] -= 1
+        if fail:
+            raise RuntimeError(message)
+        return orig(self)
+
+    WarmPool.ensure_compiled = flaky
+    try:
+        yield remaining
+    finally:
+        WarmPool.ensure_compiled = orig
+
+
+@contextlib.contextmanager
+def kill_router_thread_injector(n_kills: int = 1):
+    """The first ``n_kills`` pool-build threads DIE without publishing
+    (``_build_pool`` returns before setting the flight event) — the
+    harshest router liveness fault: every waiter on that flight would
+    hang forever if the sliced-wait dead-thread failover did not
+    exist. Yields the live countdown list (``[remaining]``)."""
+    from ibamr_tpu_torch.serve import router as _router
+
+    orig = _router.WarmPoolRouter._build_pool
+    remaining = [int(n_kills)]
+    lock = threading.Lock()
+
+    def killed(self, spec, flight):
+        with lock:
+            kill = remaining[0] > 0
+            if kill:
+                remaining[0] -= 1
+        if kill:
+            return  # thread exits: no pool, no error, no event
+        return orig(self, spec, flight)
+
+    _router.WarmPoolRouter._build_pool = killed
+    try:
+        yield remaining
+    finally:
+        _router.WarmPoolRouter._build_pool = orig
+
+
+def mix_shift_injector(seed: int, duration_s: float, rate_rps: float,
+                       shift_frac: float = 0.5,
+                       shifted_family=(("n_lon", 12),),
+                       burst_factor: float = 2.0):
+    """Mix-shift fault: a deterministic arrival schedule whose mix
+    ROTATES to an unseen bucket family at ``shift_frac`` of the run —
+    the traffic pattern a fixed warm-pool set cannot survive (every
+    post-shift request would cold-build or shed). Pure schedule
+    transform, no monkey-patching: the same seed replays the same shift
+    bit-for-bit. Returns ``(arrivals, shifted_family_str)`` where the
+    string matches the ``family`` field of
+    ``request_admit``/``pool_scale`` ledger records."""
+    from ibamr_tpu_torch.serve.loadgen import (SCENARIO_MIX,
+                                               ScenarioRequest,
+                                               poisson_burst_schedule)
+
+    shifted_mix = tuple(
+        dataclasses.replace(s, family=tuple(shifted_family))
+        for s in SCENARIO_MIX)
+    arrivals = poisson_burst_schedule(
+        seed=seed, duration_s=duration_s, rate_rps=rate_rps,
+        burst_factor=burst_factor,
+        mix_schedule=[(0.0, SCENARIO_MIX),
+                      (float(shift_frac), shifted_mix)])
+    fam = dict(shifted_family)
+    probe = ScenarioRequest(
+        tenant="probe", n_cells=fam.get("n_cells", 8),
+        n_lat=fam.get("n_lat", 6), n_lon=fam.get("n_lon", 8),
+        engine=fam.get("engine"),
+        spectral_dtype=fam.get("spectral_dtype"),
+        mu=fam.get("mu", 0.05))
+    return arrivals, str(probe.family())
+
+
+@contextlib.contextmanager
+def memory_pressure_injector(cache, max_bytes: int):
+    """Memory-pressure fault: squeeze the executable cache's bytes
+    ceiling mid-run (the ``aot_cache_bytes`` watermark the brownout
+    pressure signal reads: the warm pools' resident bytes), restoring
+    the original ceiling on exit. Yields the live eviction count ``[n]``
+    from the initial squeeze so a drill can assert what the pressure
+    actually cost."""
+    orig = cache.max_bytes
+    evicted = [cache.set_max_bytes(int(max_bytes))]
+    try:
+        yield evicted
+    finally:
+        cache.set_max_bytes(orig)
+
+
+def _terminal_join(records):
+    """(admitted ids, lost ids, doubled ids): every ``request_admit``
+    trace id against its terminal ``request`` / ``request_shed``
+    records."""
+    admits = [r["trace_id"] for r in records
+              if r.get("kind") == "request_admit"]
+    terminals: dict = {}
+    for r in records:
+        if r.get("kind") in ("request", "request_shed"):
+            tid = r.get("trace_id")
+            terminals[tid] = terminals.get(tid, 0) + 1
+    lost = [t for t in admits if terminals.get(t, 0) == 0]
+    doubled = [t for t in admits if terminals.get(t, 0) > 1]
+    return admits, lost, doubled
+
+
+def run_elastic_smoke(directory: str | None = None,
+                      duration_s: float = 5.0, rate_rps: float = 8.0,
+                      time_scale: float = 0.5,
+                      shift_frac: float = 0.4, device="cuda") -> dict:
+    """Deterministic elasticity drill on ``device`` (the GPU unless
+    ``device="cpu"``): a mid-soak MIX SHIFT onto an unseen family plus
+    MEMORY PRESSURE on the executable cache drive the
+    ``ElasticPoolManager`` through grow, brownout, shrink, and a
+    crash-safe restart, and the invariants are pinned from the ledger:
+
+    1. **no lost request** — every admitted ``trace_id`` reaches
+       exactly one terminal record, shift or no shift;
+    2. **scale-up before shed** — the shifted family's ``pool_scale``
+       grow decision lands BEFORE any of its requests shed, and the
+       family is eventually served warm;
+    3. **brownout without oscillation** — the build backlog pushes the
+       mode ladder into brownout, the squeezed bytes watermark holds it
+       there (``pressure()`` read while the squeeze holds: the pools'
+       resident bytes at or above ``brownout_cache_frac`` of the
+       ceiling, which still fits both pools), it de-escalates through
+       the dwell guard once the squeeze lifts, and the total number of
+       mode transitions stays bounded (no flapping);
+    4. **elastic shrink** — the pre-shift family decays cold and is
+       released (entries + bytes), never while serving;
+    5. **restart drill** — ``serving_manifest.json`` is checkpointed,
+       a FRESH router+cache restores it with bounded-concurrency
+       re-warm and ZERO fresh builds (executable-cache ``cold_source``:
+       every family re-warmed is one this cache directory has seen),
+       then serves warm on the first request.
+
+    Raises on any failed expectation; returns a one-line summary
+    (``python -m ibamr_tpu_torch.tools.slo check --elastic`` evaluates
+    the same ledger against the port's SLO.json ``elastic_slos``)."""
+    from ibamr_tpu_torch import obs as _obs
+    from ibamr_tpu_torch.serve import aot_cache
+    from ibamr_tpu_torch.serve.autoscale import (ElasticPoolManager,
+                                                 ScalePolicy,
+                                                 restore_serving_manifest)
+    from ibamr_tpu_torch.serve.capacity import capacity_report
+    from ibamr_tpu_torch.serve.loadgen import (SOAK_POLICIES,
+                                               run_open_loop,
+                                               traffic_summary)
+    from ibamr_tpu_torch.serve.router import (BucketSpec, ScenarioRequest,
+                                              WarmPool, WarmPoolRouter)
+
+    max_transitions = 6
+    tmp = None
+    if directory is None:
+        tmp = tempfile.TemporaryDirectory(prefix="ibamr_elastic_smoke_")
+        directory = tmp.name
+    try:
+        ledger_path = os.path.join(directory, "elastic_ledger.jsonl")
+        manifest_path = os.path.join(directory,
+                                     "serving_manifest.json")
+        # the cross-process layer: the cache directory's manifest
+        # sidecars, from which the restart re-warms
+        cache = aot_cache.ExecutableCache(
+            directory=os.path.join(directory, "cache"))
+        spec = BucketSpec(n_cells=8, n_lat=6, n_lon=8, lanes=2,
+                          chunk_steps=2)
+        router = WarmPoolRouter([spec], cache=cache,
+                                allow_dynamic=True,
+                                policies=dict(SOAK_POLICIES),
+                                device=device)
+        # backlog>=1 trips brownout: one async grow IS the pressure
+        # this drill exercises; de-escalation dwell bounds flapping
+        policy = ScalePolicy(grow_share=0.08, grow_min_arrivals=2,
+                             shrink_share=0.02, min_dwell_s=2.0,
+                             idle_evict_s=6.0,
+                             brownout_backlog=1,
+                             brownout_exit_backlog=0,
+                             urgent_share=0.15,
+                             mode_min_dwell_s=0.5)
+        manager = ElasticPoolManager(router, policy=policy,
+                                     manifest_path=manifest_path)
+
+        shifted = (("n_lon", 12),)
+        arrivals, shifted_family = mix_shift_injector(
+            seed=0, duration_s=duration_s, rate_rps=rate_rps,
+            shift_frac=shift_frac, shifted_family=shifted)
+        shift_t = shift_frac * duration_s
+        pre = [a for a in arrivals if a.t < shift_t]
+        post = [dataclasses.replace(a, t=a.t - shift_t)
+                for a in arrivals if a.t >= shift_t]
+
+        with _obs.ledger(ledger_path):
+            with _obs.span("elastic_smoke/warm"):
+                router.warm(spec)
+            base_family = str(spec.family())
+
+            with _obs.span("elastic_smoke/pre_shift",
+                           arrivals=len(pre)):
+                run1 = run_open_loop(router, pre,
+                                     time_scale=time_scale,
+                                     join_timeout_s=120.0)
+            # mid-soak: the mix rotates to the unseen family while the
+            # cache's bytes ceiling is squeezed so that both families'
+            # resident bytes fit and read at 95 % of it (the dynamic
+            # bucket the grow builds, sized here by its pool's bytes):
+            # the watermark is pressure, not sabotage
+            fam = dict(shifted)
+            grown = BucketSpec(n_cells=8, n_lat=6,
+                               n_lon=fam["n_lon"],
+                               lanes=router.default_lanes)
+            grown_bytes = WarmPool(grown, cache,
+                                   device=device).resident_bytes
+            target_frac = 0.5 * (policy.brownout_cache_frac + 1.0)
+            ceiling = max(int((cache.bytes() + grown_bytes)
+                              / target_frac), 1)
+            with _obs.span("elastic_smoke/shifted_open_loop",
+                           arrivals=len(post)), \
+                    memory_pressure_injector(cache, ceiling) as evicted:
+                run2 = run_open_loop(router, post,
+                                     time_scale=time_scale,
+                                     join_timeout_s=180.0)
+                squeeze = manager.pressure()
+                squeeze_target = manager._target_mode(squeeze)
+                squeeze_mode = manager.mode
+
+            # settle: idle ticks decay the mix + drain the mode
+            # ladder back to healthy and let the cold family shrink
+            t_settle = time.monotonic()
+            while time.monotonic() - t_settle < 20.0:
+                manager.tick()
+                shrunk = any(e["action"] == "shrink"
+                             for e in manager.scale_events)
+                if manager.mode == "healthy" and shrunk:
+                    break
+                time.sleep(0.25)
+            manager.tick()
+
+            # -- 5. the restart drill --------------------------------
+            manager.save_manifest()
+            if manager.drain(timeout_s=120.0):
+                raise AssertionError("builds/watchers never finished "
+                                     "before the restart drill")
+            router2, manager2, restore_stats = \
+                restore_serving_manifest(manifest_path, device=device)
+            probe = router2.serve([ScenarioRequest(
+                tenant="interactive-restart", n_cells=8, n_lat=6,
+                n_lon=fam["n_lon"], steps=2,
+                tenant_class="interactive")])[0]
+            router2.drain_builds(timeout_s=60.0)
+            _obs.chunk_boundary()
+
+        # -- invariant 1: no lost request ----------------------------
+        for run in (run1, run2):
+            if run["hung_threads"]:
+                raise AssertionError(
+                    f"{run['hung_threads']} producer threads never "
+                    f"finished — the elastic drill deadlocked")
+            if run["errors"]:
+                raise AssertionError(
+                    f"serve() raised under the mix shift: "
+                    f"{run['errors'][:3]}")
+        records = list(_obs.read_ledger(ledger_path))
+        admits = [r for r in records
+                  if r.get("kind") == "request_admit"]
+        _, lost, doubled = _terminal_join(records)
+        if lost or doubled:
+            raise AssertionError(
+                f"terminal-record invariant broken: {len(lost)} lost, "
+                f"{len(doubled)} doubled (first: "
+                f"{(lost + doubled)[:3]})")
+
+        # -- invariant 2: scale-up before shed for the shifted mix ---
+        grows = [r for r in records if r.get("kind") == "pool_scale"
+                 and r.get("action") == "grow"
+                 and r.get("family") == shifted_family]
+        if not grows:
+            raise AssertionError(
+                f"the shifted family {shifted_family} never got a "
+                f"grow decision — the mix estimator is blind")
+        first_grow_seq = min(r["seq"] for r in grows)
+        shifted_tids = {r["trace_id"] for r in admits
+                        if r.get("family") == shifted_family}
+        shifted_sheds = [r for r in records
+                         if r.get("kind") == "request_shed"
+                         and r.get("trace_id") in shifted_tids]
+        early = [r for r in shifted_sheds
+                 if r.get("seq", 0) < first_grow_seq]
+        if early:
+            raise AssertionError(
+                f"{len(early)} shifted-family requests shed BEFORE "
+                f"the grow decision (seq {first_grow_seq})")
+        warmed = [r for r in records if r.get("kind") == "pool_scale"
+                  and r.get("action") == "warmed"
+                  and r.get("family") == shifted_family]
+        shifted_warm = [r for r in records if r.get("kind") == "request"
+                        and r.get("trace_id") in shifted_tids
+                        and not r.get("cold")]
+        if not warmed or not shifted_warm:
+            raise AssertionError(
+                f"shifted family never published warm "
+                f"(warmed={len(warmed)}, warm_served="
+                f"{len(shifted_warm)})")
+
+        # -- invariant 3: brownout entry/exit without oscillation ----
+        modes = [r for r in records if r.get("kind") == "serve_mode"]
+        if not any(r["mode"] == "brownout" for r in modes):
+            raise AssertionError(
+                "the grow backlog never tripped brownout — the "
+                "pressure signal is dead")
+        if (squeeze["cache_frac"] < policy.brownout_cache_frac
+                or squeeze_target == "healthy"
+                or squeeze_mode == "healthy" or evicted[0]):
+            raise AssertionError(
+                f"the bytes squeeze did not hold brownout: pressure "
+                f"{squeeze} (target {squeeze_target}, mode "
+                f"{squeeze_mode}) against the ceiling {ceiling} B, "
+                f"{evicted[0]} entries evicted by it")
+        if len(modes) > max_transitions:
+            raise AssertionError(
+                f"{len(modes)} mode transitions (> {max_transitions})"
+                f" — the ladder is oscillating")
+        if manager.mode != "healthy":
+            raise AssertionError(
+                f"mode never de-escalated (stuck {manager.mode})")
+
+        # -- invariant 4: elastic shrink of the cold family ----------
+        shrinks = [r for r in records if r.get("kind") == "pool_scale"
+                   and r.get("action") == "shrink"]
+        if not any(r.get("family") == base_family for r in shrinks):
+            raise AssertionError(
+                f"the pre-shift family {base_family} was never "
+                f"shrunk after going cold")
+        if shifted_family not in {str(f)
+                                  for f in router.live_families()}:
+            raise AssertionError(
+                "the shifted (hot) family is not live after shrink")
+
+        # -- invariant 5: restart reached warm with zero fresh builds
+        if restore_stats["fresh_compiles"] != 0:
+            raise AssertionError(
+                f"restart drill paid {restore_stats['fresh_compiles']}"
+                f" fresh builds (cold_source attribution) — the cache "
+                f"directory's manifests did not survive the crash")
+        if restore_stats["warmed"] == 0 or restore_stats["errors"]:
+            raise AssertionError(
+                f"restart re-warm failed: {restore_stats}")
+        if probe.shed or probe.cold or not probe.ok:
+            raise AssertionError(
+                f"first post-restart request was not a warm serve: "
+                f"cold={probe.cold} shed={probe.shed} ok={probe.ok}")
+
+        results = run1["results"] + run2["results"]
+        wall = run1["wall_s"] + run2["wall_s"]
+        summary = traffic_summary(results, wall)
+        cap = capacity_report(records, p99_ceiling_s=2.0)
+        if cap["prediction"]["rps"] is None:
+            raise AssertionError(
+                "capacity model unevaluable — no warm samples in the "
+                "elastic ledger")
+        return {"elastic_smoke": "ok",
+                "arrivals": len(arrivals),
+                "admitted": len(admits),
+                "lost": 0,
+                "shed": summary["shed"],
+                "mode_transitions": len(modes),
+                "grows": len(grows),
+                "shrinks": len(shrinks),
+                "scale_up_s": max(r.get("warm_s", 0.0)
+                                  for r in warmed),
+                "squeeze_ceiling_bytes": ceiling,
+                "squeeze_cache_frac": round(squeeze["cache_frac"], 4),
+                "squeeze_mode": squeeze_mode,
+                "restart_warm_s": restore_stats["warm_s"],
+                "restart_fresh_compiles":
+                    restore_stats["fresh_compiles"],
+                "cache_bytes": cache.bytes(),
+                "predicted_rps": cap["prediction"]["rps"],
+                "measured_rps": summary["requests_per_s"],
+                "wall_s": round(wall, 3),
+                "ledger": (None if tmp is not None else ledger_path)}
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
+
+
+def run_soak_smoke(directory: str | None = None,
+                   duration_s: float = 5.0, rate_rps: float = 8.0,
+                   time_scale: float = 0.5,
+                   chaos_rate_rps: float = 3.0, device="cuda") -> dict:
+    """Deterministic traffic-robustness drill on ``device`` (the GPU
+    unless ``device="cpu"``): the open-loop load generator drives a
+    warm-pool router under ALL FOUR serving chaos injectors at once,
+    and the liveness invariants are pinned from the ledger.
+
+    1. **healthy traffic, chaos tenant burning** — seeded Poisson
+       arrivals with a 4x burst window over the heavy-tailed
+       interactive/batch mix share the router with a ``chaos``-class
+       tenant whose requests land on NOVEL families (fresh bucket
+       builds) while a build storm slows every build, the first build
+       raises (retry fuel), one build thread is killed mid-flight, and
+       the chaos families' lanes straggle;
+    2. **no deadlock** — every producer thread joins inside the
+       drill's bounded window (``hung_threads == 0``);
+    3. **no lost request** — every ``request_admit`` trace_id in the
+       ledger reaches EXACTLY one terminal record (``request`` or
+       ``request_shed``), storm or no storm;
+    4. **bounded shed** — healthy classes shed at most
+       ``max_healthy_shed_rate``; the chaos class may shed freely
+       (that is admission control doing its job, not a failure);
+    5. **healthy p99 within band** — healthy tenants' warm first-step
+       p99 stays inside the band while the chaos tenant burns.
+
+    Raises on any failed expectation; returns a one-line summary.
+    """
+    from ibamr_tpu_torch import obs as _obs
+    from ibamr_tpu_torch.serve import aot_cache
+    from ibamr_tpu_torch.serve.loadgen import (SOAK_POLICIES, Scenario,
+                                               poisson_burst_schedule,
+                                               run_open_loop,
+                                               traffic_summary)
+    from ibamr_tpu_torch.serve.router import BucketSpec, WarmPoolRouter
+
+    max_healthy_shed_rate = 0.10
+    healthy_warm_p99_band_s = 2.0
+
+    tmp = None
+    if directory is None:
+        tmp = tempfile.TemporaryDirectory(prefix="ibamr_soak_smoke_")
+        directory = tmp.name
+    try:
+        ledger_path = os.path.join(directory, "soak_ledger.jsonl")
+        spec = BucketSpec(n_cells=8, n_lat=6, n_lon=8, lanes=2,
+                          chunk_steps=2)
+        router = WarmPoolRouter(
+            [spec],
+            cache=aot_cache.ExecutableCache(
+                directory=os.path.join(directory, "cache")),
+            allow_dynamic=True, policies=dict(SOAK_POLICIES),
+            device=device)
+
+        with _obs.ledger(ledger_path):
+            with _obs.span("soak_smoke/warm"):
+                router.warm(spec)
+
+            # healthy mix on the pre-warmed family; chaos tenant on
+            # two NOVEL families (distinct n_lon -> fresh builds)
+            arrivals = poisson_burst_schedule(
+                seed=0, duration_s=duration_s, rate_rps=rate_rps,
+                burst_factor=4.0)
+            chaos_mix = (Scenario("chaos/storm_probe", 1.0, "chaos",
+                                  steps=1),)
+            for j, n_lon in enumerate((10, 12)):
+                arrivals += poisson_burst_schedule(
+                    seed=100 + j, duration_s=duration_s,
+                    rate_rps=chaos_rate_rps / 2.0, burst_factor=4.0,
+                    mix=chaos_mix, n_lon=n_lon, tenants_per_class=1)
+            arrivals.sort(key=lambda a: a.t)
+
+            chaos_family = (lambda s: s.n_lon != 8)
+            with _obs.span("soak_smoke/chaos_open_loop",
+                           arrivals=len(arrivals)), \
+                    compile_storm_injector(extra_s=0.2), \
+                    failing_build_injector(n_failures=1) as build_faults, \
+                    kill_router_thread_injector(n_kills=1) as kills, \
+                    slow_lane_injector(extra_s=0.2, match=chaos_family):
+                run = run_open_loop(router, arrivals,
+                                    time_scale=time_scale,
+                                    join_timeout_s=120.0)
+            _obs.chunk_boundary()
+
+        # -- 2. no deadlock ------------------------------------------
+        # deadline-shed chaos requests leave their bucket builds
+        # running; those threads must also terminate (and must do so
+        # before interpreter exit)
+        still = router.drain_builds(timeout_s=120.0)
+        if still:
+            raise AssertionError(
+                f"{still} pool builds never finished — a build "
+                f"thread is wedged")
+        if run["hung_threads"]:
+            raise AssertionError(
+                f"{run['hung_threads']} producer threads never "
+                f"finished — the router deadlocked under chaos")
+        if run["errors"]:
+            raise AssertionError(
+                f"serve() raised under chaos (every fault must "
+                f"terminate as a shed, not an exception): "
+                f"{run['errors'][:3]}")
+        if build_faults[0] != 0 or kills[0] != 0:
+            raise AssertionError(
+                f"injected faults not consumed: {build_faults[0]} "
+                f"build failures, {kills[0]} kills left — the drill "
+                f"did not exercise what it claims")
+
+        # -- 3. no lost request, from the ledger alone ---------------
+        records = list(_obs.read_ledger(ledger_path))
+        admits, lost, doubled = _terminal_join(records)
+        if lost:
+            raise AssertionError(
+                f"{len(lost)} admitted requests have NO terminal "
+                f"record (first: {lost[:3]}) — requests were lost")
+        if doubled:
+            raise AssertionError(
+                f"{len(doubled)} admitted requests have multiple "
+                f"terminal records (first: {doubled[:3]})")
+
+        # -- 4. bounded shed for healthy classes ---------------------
+        summary = traffic_summary(run["results"], run["wall_s"])
+        healthy_sub = healthy_shed = 0
+        for cls, c in summary["classes"].items():
+            if cls != "chaos":
+                healthy_sub += c["submitted"]
+                healthy_shed += c["shed"]
+        healthy_rate = (healthy_shed / healthy_sub) if healthy_sub else 0.0
+        if healthy_rate > max_healthy_shed_rate:
+            raise AssertionError(
+                f"healthy classes shed {healthy_rate:.2%} "
+                f"(> {max_healthy_shed_rate:.0%}) — the chaos tenant "
+                f"stole healthy capacity")
+
+        # -- 5. healthy warm p99 within band -------------------------
+        healthy_warm = sorted(
+            r["first_step_s"] for r in records
+            if r.get("kind") == "request"
+            and r.get("tenant_class") in ("interactive", "batch")
+            and not r.get("cold"))
+        if not healthy_warm:
+            raise AssertionError("no healthy warm completions — the "
+                                 "soak never reached the warm path")
+        p99 = healthy_warm[min(len(healthy_warm) - 1,
+                               max(0, math.ceil(0.99 * len(healthy_warm))
+                                   - 1))]
+        if p99 > healthy_warm_p99_band_s:
+            raise AssertionError(
+                f"healthy warm p99 {p99:.3f}s blew the "
+                f"{healthy_warm_p99_band_s}s band while the chaos "
+                f"tenant burned")
+
+        chaos = summary["classes"].get("chaos", {})
+        return {"soak_smoke": "ok",
+                "arrivals": len(arrivals),
+                "admitted": len(admits),
+                "lost": 0,
+                "healthy_shed_rate": round(healthy_rate, 4),
+                "chaos_submitted": chaos.get("submitted", 0),
+                "chaos_shed": chaos.get("shed", 0),
+                "chaos_completed": chaos.get("completed", 0),
+                "retried": summary["retried"],
+                "healthy_warm_p99_s": round(float(p99), 4),
+                "hung_threads": 0,
+                "wall_s": round(run["wall_s"], 3),
+                "ledger": (None if tmp is not None else ledger_path)}
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
+
+
+# ---------------------------------------------------------------------------
 # assimilation faults: bad sensors and bad members
 # ---------------------------------------------------------------------------
 #
@@ -1124,14 +1770,28 @@ def main(argv=None) -> int:
                     help="the assimilation drill: QC-rejected bad "
                          "sensors, a quarantined member, zero lost "
                          "cycles, the filter beating the open loop")
+    ap.add_argument("--soak-smoke", action="store_true",
+                    help="the traffic-robustness soak drill: four "
+                         "serving chaos injectors, no deadlock, no "
+                         "lost request, bounded healthy shed")
+    ap.add_argument("--elastic-smoke", action="store_true",
+                    help="the elastic warm-pool drill: mix shift, "
+                         "memory pressure, brownout, shrink, restart "
+                         "with zero fresh builds")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     drills = [(args.smoke, run_smoke), (args.silent_smoke, run_silent_smoke),
               (args.replay_smoke, run_replay_smoke),
               (args.fleet_smoke, run_fleet_smoke),
-              (args.assim_smoke, run_assim_smoke)]
+              (args.assim_smoke, run_assim_smoke),
+              (args.soak_smoke, run_soak_smoke),
+              (args.elastic_smoke, run_elastic_smoke)]
     if not any(on for on, _ in drills):
         ap.error("name at least one drill")
+    if args.device == "cpu" and (args.soak_smoke or args.elastic_smoke):
+        # the serving drills run many request threads of small ops at
+        # once: intra-op threads only contend for the cores
+        torch.set_num_threads(1)
     for on, fn in drills:
         if on:
             res = fn(device=args.device)

@@ -131,6 +131,14 @@ def _fsync_dir(directory: str) -> None:
         os.close(fd)
 
 
+def _atomic_write(path: str, write_fn) -> None:
+    """Write via a pid- and thread-unique temp name + fsync +
+    os.replace: the file at ``path`` is always absent, the old complete
+    version or the new complete version, never torn (the serving
+    manifest's writer, ``serve/autoscale.py``)."""
+    _atomic_write_digest(path, write_fn)
+
+
 def _atomic_write_digest(path: str, write_fn):
     """Write via a pid- and thread-unique temp name + fsync + os.replace;
     returns ``(crc32, size)`` of the bytes, read from the temp file

@@ -138,3 +138,38 @@ def test_scatter_oracle_is_run_to_run_deterministic():
     runs = [tinter.spread(F, tg, X, 0) for _ in range(4)]
     assert all(torch.equal(runs[0], r) for r in runs[1:])
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.parametrize("kernel", ["IB_4", "BSPLINE_3", "IB_6"])
+def test_stencil_memo_matches_fresh_stencils_bitwise(kernel):
+    """``Stencils`` (the scatter oracle's per-position context, built
+    by ``IBMethod.prepare``) builds each stencil once and gives the same
+    bits as building it anew; the isotropic one-pass stencil equals
+    the reference's per-axis weights."""
+    rng = np.random.default_rng(6)
+    jg = jgrid.StaggeredGrid(n=N, **BOX)
+    tg = tgrid.StaggeredGrid(n=N, **BOX)
+    lo, hi = np.array(BOX["x_lo"]), np.array(BOX["x_up"])
+    X = torch.tensor(lo + rng.uniform(-0.1, 1.1, (150, 3)) * (hi - lo))
+    F = torch.tensor(rng.standard_normal((150, 3)))
+    u = tuple(torch.tensor(f) for f in _fields(7))
+    memo = tinter.Stencils(X)
+    got_f = tinter.spread_vel(F, tg, X, kernel=kernel, stencils=memo)
+    got_u = tinter.interpolate_vel(u, tg, X, kernel=kernel, stencils=memo)
+    assert len(memo._memo) == 3
+    again = memo.get(tg, X, 1, kernel)
+    assert again is memo.get(tg, X, 1, kernel) and len(memo._memo) == 3
+    ref_f = tinter.spread_vel(F, tg, X, kernel=kernel)
+    ref_u = tinter.interpolate_vel(u, tg, X, kernel=kernel)
+    assert all(torch.equal(a, b) for a, b in zip(got_f, ref_f))
+    assert torch.equal(got_u, ref_u)
+    # another position never reads the memo
+    Y = X + 0.01
+    assert torch.equal(tinter.interpolate_vel(u, tg, Y, kernel=kernel,
+                                              stencils=memo),
+                       tinter.interpolate_vel(u, tg, Y, kernel=kernel))
+    if kernel == "IB_4":
+        for d in range(3):
+            _close(jinter.interpolate(jnp.asarray(u[d].numpy()), jg,
+                                      jnp.asarray(X.numpy()), d),
+                   got_u[:, d])
