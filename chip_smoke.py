@@ -241,6 +241,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
    builds) at the port's ``SLO.json`` sizes, each ledger summarized by
    ``tools/obs.py`` and checked by ``tools/slo.py`` (the invariants gate;
    the CPU-calibrated latencies are reported).
+24. grad -- reverse mode through the solver, no hand kernel: the
+   flagship's adjoint on ``packed`` (f32, one step from rest first)
+   through ``ibamr_tpu_torch/tools/microbench_grad.run``: primal and VJP
+   milliseconds of the substep, the spread, the interp and the whole
+   step, the substep's VJP at exactly twice the primal's FFT calls, the
+   spread's backward adding no accumulating scatter, the whole step's
+   gradient with the adjoint Functions against the same gradient under
+   ``plain_autodiff_substep()`` + ``plain_autodiff_transfers()`` within
+   ``TOL_GRAD_PLAIN`` of each leaf's max, bitwise run to run, and the
+   peak memory of the primal, the custom and the plain VJP; the 32^3
+   shell's f64 gradient on the card against the CPU's within
+   ``TOL_GRAD_F64``; the design drill of ``tools/fault_injection.py``
+   (eel gait, 24^2, f64) and the cantilever at its defaults for 3 Adam
+   iterations, strictly descending; ``pallas_packed`` and ``pallas``
+   refusing a force that requires grad. ``microbench`` (run only when
+   named) runs ``tools/microbench_fluid.py`` and
+   ``tools/microbench_transfer.py`` at the flagship, each result on one
+   JSON line.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -4782,6 +4800,177 @@ def phase_serve() -> dict:
     return launches
 
 
+GRAD_REPS = 3             # grad: timed calls of each piece at the flagship
+TOL_GRAD_PLAIN = 1e-4     # custom vs plain whole-step gradient, per leaf,
+#                           relative to max|plain leaf| (f32)
+TOL_GRAD_F64 = 1e-10      # card vs CPU whole-step gradient at f64, per leaf
+GRAD_SHELL = dict(n_cells=32, n_lat=16, n_lon=16)
+GRAD_DT = 1e-3            # grad: dt of the 32^3 card-vs-CPU leg
+CANTILEVER_ITERS = 3
+
+
+def _grad_flagship() -> dict:
+    """The flagship's adjoint on ``packed`` through
+    ``microbench_grad.run``: primal and VJP milliseconds of each piece,
+    the FFT and scatter counts, the custom gradient against the plain one
+    leaf by leaf, bitwise run to run, and the peak memory of each leg."""
+    from ibamr_tpu_torch.tools import microbench_grad
+
+    t0 = time.perf_counter()
+    out = microbench_grad.run(n=FLAGSHIP["n_cells"], reps=GRAD_REPS,
+                              dt=DT_FLAGSHIP, device=DEVICE, shell=FLAGSHIP,
+                              plain=True, quiet=True)
+    wall = time.perf_counter() - t0
+    for piece in ("substep", "spread", "interp", "step"):
+        log(f"[grad] {piece}: primal {out[f'{piece}_primal_ms']:.4f} ms, "
+            f"VJP {out[f'{piece}_vjp_ms']:.4f} ms (x"
+            f"{out[f'{piece}_grad_ratio']:.3f}); FFT calls "
+            f"{out[f'{piece}_primal_fft_ops']}/{out[f'{piece}_vjp_fft_ops']},"
+            f" scatters {out[f'{piece}_primal_scatter_ops']}/"
+            f"{out[f'{piece}_vjp_scatter_ops']}, f64 widenings "
+            f"{out[f'{piece}_primal_f64_widenings']}/"
+            f"{out[f'{piece}_vjp_f64_widenings']} (primal/VJP; census "
+            f"threads {out[f'{piece}_vjp_census_threads']})")
+    log(f"[grad] whole step under plain_autodiff_*: "
+        f"{out['step_vjp_plain_ms']:.4f} ms (x"
+        f"{out['step_plain_grad_ratio']:.3f}), scatters "
+        f"{out['step_vjp_plain_scatter_ops']}, FFT calls "
+        f"{out['step_vjp_plain_fft_ops']}")
+    log(f"[grad] peak device memory (MiB, max_memory_allocated): primal step "
+        f"{out['step_primal_peak_mib']}, custom VJP "
+        f"{out['step_vjp_peak_mib']}, plain VJP "
+        f"{out['step_vjp_plain_peak_mib']}")
+    dev = out["step_plain_rel_dev"]
+    log(f"[grad] custom vs plain whole-step gradient, max|d|/max|plain| per "
+        f"leaf (tol {TOL_GRAD_PLAIN:g}): {json.dumps(dev)}; max|plain| "
+        f"{json.dumps(out['step_plain_max_abs'])}; bitwise run to run "
+        f"{out['step_vjp_bitwise']}")
+    log(f"[grad] flagship {FLAGSHIP} ({out['shell_markers']} markers) on "
+        f"packed, f32, dt={DT_FLAGSHIP:g}, {GRAD_REPS} reps: {wall:.1f} s")
+    ok = (out["substep_vjp_fft_ops"] == 2 * out["substep_primal_fft_ops"]
+          and out["substep_primal_fft_ops"] > 0
+          and out["spread_vjp_scatter_ops"]
+          == out["spread_primal_scatter_ops"]
+          and out["shell_markers"] == FLAGSHIP["n_lat"] * FLAGSHIP["n_lon"]
+          and all(v <= TOL_GRAD_PLAIN for v in dev.values())
+          and out["step_vjp_bitwise"])
+    if not ok:
+        raise AssertionError("the flagship's adjoint missed one of its "
+                             "checks (see the [grad] lines above)")
+    return out
+
+
+def _grad_card_vs_cpu() -> float:
+    """The whole step's gradient on the 32^3 shell at f64 on the card and
+    on the CPU from the same state (one step from rest on the CPU)."""
+    from ibamr_tpu_torch.models.shell3d import build_shell_example
+    from ibamr_tpu_torch.tools.microbench_grad import step_grads
+
+    kw = dict(use_fast_interaction="packed", dtype=torch.float64,
+              **GRAD_SHELL)
+    cpu, cs = build_shell_example(device="cpu", **kw)
+    cs = cpu.step(cs, GRAD_DT)
+    gpu, _ = build_shell_example(device=DEVICE, **kw)
+    gg = step_grads(gpu, _to(cs, DEVICE), GRAD_DT)
+    cg = step_grads(cpu, cs, GRAD_DT)
+    devs = [float((a.cpu() - b).abs().max())
+            / max(float(b.abs().max()), 1e-300) for a, b in zip(gg, cg)]
+    log(f"[grad] {GRAD_SHELL} on packed at f64, dt={GRAD_DT:g}: whole-step "
+        f"gradient card vs CPU, max|d|/max|cpu| per leaf (u, p, n_prev, X) "
+        f"{[f'{d:.3e}' for d in devs]} (tol {TOL_GRAD_F64:g})")
+    if not all(d <= TOL_GRAD_F64 for d in devs):
+        raise AssertionError("the card's f64 gradient disagrees with the "
+                             "CPU's")
+    return max(devs)
+
+
+def _grad_drills() -> None:
+    """The design drill on the card, its ledger summarized by
+    ``tools/obs.py``, and the cantilever at its defaults."""
+    from ibamr_tpu_torch.design import DesignLoop, build_cantilever_problem
+    from ibamr_tpu_torch.serve.aot_cache import ExecutableCache
+    from ibamr_tpu_torch.tools import fault_injection as fi
+
+    from ibamr_tpu_torch.tools import obs as obs_cli
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = fi.run_design_smoke(tmp, device=DEVICE)
+        log(f"[grad] design drill (eel 24^2, 17 markers, 10 steps, f64) on "
+            f"the card ({time.perf_counter() - t0:.1f} s): "
+            f"{json.dumps(res)}")
+        log(f"[grad] python -m ibamr_tpu_torch.tools.obs summary "
+            f"{res['ledger']}")
+        if obs_cli.main(["summary", res["ledger"]]) != 0:
+            raise AssertionError("obs summary of the design ledger failed")
+        sys.stdout.flush()
+    t0 = time.perf_counter()
+    obj, p0 = build_cantilever_problem(device=DEVICE)
+    loop = DesignLoop(obj, p0, lr=0.05, cache=ExecutableCache(),
+                      label="cantilever")
+    hist = loop.run(CANTILEVER_ITERS).history
+    objs = [h.objective for h in hist]
+    log(f"[grad] cantilever (32^2, 8x2 quads, 10 steps, f32, remat full) "
+        f"{CANTILEVER_ITERS} Adam iterations: objectives {objs}, grad norms "
+        f"{[h.grad_norm for h in hist]}, walls (s) "
+        f"{[round(h.wall_s, 4) for h in hist]} (the first holds the "
+        f"build's warm-up iterate), misses/hits "
+        f"{[(h.cache_misses, h.cache_hits) for h in hist]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not all(b < a for a, b in zip(objs, objs[1:])):
+        raise AssertionError(f"the cantilever's objective did not strictly "
+                             f"decrease: {objs}")
+
+
+def _grad_refusals() -> None:
+    """``pallas_packed`` and ``pallas`` spreads refuse a force that
+    requires grad (no launch)."""
+    from ibamr_tpu_torch.models.shell3d import build_shell_example
+
+    for engine in ("pallas_packed", "pallas"):
+        integ, st = build_shell_example(use_fast_interaction=engine,
+                                        dtype=torch.float32, device=DEVICE,
+                                        **GRAD_SHELL)
+        F = torch.ones_like(st.X).requires_grad_(True)
+        try:
+            integ.ib.fast.spread_vel(F, st.X)
+        except NotImplementedError as e:
+            log(f"[grad] {engine} refuses autograd: {e}")
+            continue
+        raise AssertionError(f"{engine} spread a force that requires grad")
+
+
+def phase_grad() -> dict:
+    """Reverse mode on the card: the flagship's adjoint on ``packed``,
+    the f64 gradient against the CPU's, the design drill and the
+    cantilever, and the kernel engines refusing autograd. No hand kernel
+    runs."""
+    out = _grad_flagship()
+    torch.cuda.empty_cache()
+    _grad_card_vs_cpu()
+    _grad_drills()
+    _grad_refusals()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_microbench() -> None:
+    """The fluid and transfer microbenchmarks at the flagship size, each
+    result on one ``[microbench]`` JSON line (run only when named)."""
+    from ibamr_tpu_torch.ops import cuda_interaction as ci
+    from ibamr_tpu_torch.tools import microbench_fluid, microbench_transfer
+
+    n = FLAGSHIP["n_cells"]
+    fluid = microbench_fluid.run(n=n, device=DEVICE, quiet=True)
+    log(f"[microbench] fluid {json.dumps(fluid)}")
+    torch.cuda.empty_cache()
+    ci.reset_launch_counts()
+    transfer = microbench_transfer.run(n=n, device=DEVICE, quiet=True)
+    log(f"[microbench] transfer {json.dumps(transfer)}; kernel launches "
+        f"{dict(ci.LAUNCHES)}")
+    torch.cuda.empty_cache()
+
+
 class _PhaseClock:
     """Seconds of each phase, logged as it ends."""
 
@@ -4799,13 +4988,13 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,parity,path,hybrid,engines,driver,auto,"
                     "tune,ex0,ibfe3d,walls,open,ibfe,rigid,adv,amr,mlamr,"
-                    "implicit,multiphase,resilience,prof,io,assim,serve",
+                    "implicit,multiphase,resilience,prof,io,assim,serve,"
+                    "grad",
                     help="comma-separated subset of kernels,parity,path,"
                     "hybrid,engines,driver,auto,tune,ex0,ibfe3d,walls,open,"
                     "ibfe,rigid,adv,amr,mlamr,implicit,multiphase,"
-                    "resilience,prof,io,assim,serve and the shootout, which "
-                    "runs "
-                    "only when "
+                    "resilience,prof,io,assim,serve,grad and the shootout "
+                    "and microbench, which run only when "
                     "named (add 'breakdown' for a profile of the step of "
                     "each that runs, the flagship's auto leg included; "
                     "hybrid and engines read the path phase's time, and "
@@ -4918,6 +5107,12 @@ def main(argv=None) -> int:
         ran = phase_serve()
         launches = {k: launches[k] + ran[k] for k in launches}
         clock.lap("serve")
+    if "grad" in phases:
+        _assert_no_launches("grad", phase_grad)
+        clock.lap("grad")
+    if "microbench" in phases:
+        phase_microbench()
+        clock.lap("microbench")
 
     table = [dict(name=k, route="cuda", source=KERNELS[k][0],
                   replaces=KERNELS[k][1], launches=launches[k], **v)

@@ -478,16 +478,51 @@ def deformation_gradients(asm: FEAssembly, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("eai,eqaj->eqij", xe, asm.dNdX)
 
 
-def neg_grad(energy: Callable, x: torch.Tensor) -> torch.Tensor:
-    """-d energy(x) / dx, taken on a detached leaf with autograd enabled
-    whatever the caller's grad mode."""
+def _reaches_other_leaves(t: torch.Tensor, own) -> bool:
+    """Whether the autograd graph of ``t`` reaches a tensor that requires
+    grad other than the leaves ``own`` (a material constant the energy
+    closes over, say)."""
+    own_ids = {id(x) for x in own}
+    seen = set()
+    stack = [t.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        var = getattr(fn, "variable", None)     # an AccumulateGrad node
+        if var is not None:
+            if id(var) not in own_ids:
+                return True
+            continue
+        stack.extend(nxt for nxt, _ in fn.next_functions)
+    return False
+
+
+def energy_grads(energy: Callable, *xs: torch.Tensor) -> tuple:
+    """``d energy(*xs) / d xs`` with autograd enabled whatever the
+    caller's grad mode. Without an outer gradient (grad mode off, or
+    neither ``xs`` nor any tensor the energy closes over requires grad)
+    it is taken on detached leaves and holds no graph. With one, it is
+    taken on the live tensors with ``create_graph=True``, so that an
+    outer backward sees its derivatives with respect to the positions
+    and the material constants (the reference's grad of ``jax.grad``)."""
     if torch.is_inference_mode_enabled():
         raise RuntimeError("FE forces need autograd: do not step under "
                            "torch.inference_mode")
+    outer = torch.is_grad_enabled()
     with torch.enable_grad():
-        xx = x.detach().requires_grad_(True)
-        (g,) = torch.autograd.grad(energy(xx), xx)
-    return -g
+        live = [x if outer and x.requires_grad
+                else x.detach().requires_grad_(True) for x in xs]
+        e = energy(*live)
+        create = outer and (any(x.requires_grad for x in xs)
+                            or _reaches_other_leaves(e, live))
+        return torch.autograd.grad(e, live, create_graph=create)
+
+
+def neg_grad(energy: Callable, x: torch.Tensor) -> torch.Tensor:
+    """-d energy(x) / dx (:func:`energy_grads`)."""
+    return -energy_grads(energy, x)[0]
 
 
 # -- strain-energy densities (W: FF -> scalar) -------------------------------

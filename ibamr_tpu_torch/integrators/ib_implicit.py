@@ -29,7 +29,10 @@ iteration counts, as ``jax.linearize`` of the reference's loops does.
 The transfer engines that launch hand CUDA kernels (``pallas``,
 ``pallas_packed``, the hybrid engines) have no derivative and raise
 ``NotImplementedError``, as the reference's ``pallas_call`` refuses a
-JVP; the ``scatter`` and ``packed`` engines run.
+JVP; the ``scatter`` and ``packed`` engines run. The Newton solve runs
+under ``plain_autodiff_transfers()`` and ``plain_autodiff_substep()``,
+where the reference's does: its products differentiate a reverse pass
+again, which the packed transfers' adjoint Functions refuse.
 """
 
 from __future__ import annotations
@@ -43,25 +46,22 @@ from ibamr_tpu_torch.integrators.ib import (IBExplicitIntegrator, IBMethod,
                                             IBState)
 from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator
 from ibamr_tpu_torch.ops.cuda_interaction import (HybridKernelInteraction,
-                                                  _KernelEngine)
+                                                  _KernelEngine,
+                                                  refuse_autograd)
+from ibamr_tpu_torch.ops.interaction_packed import plain_autodiff_transfers
 from ibamr_tpu_torch.solvers.escalation import record_solve_stats
 from ibamr_tpu_torch.solvers.krylov import (fgmres_flat_jvp,
                                             linearize_by_vjp, newton_krylov)
+from ibamr_tpu_torch.solvers.spectral_plan import plain_autodiff_substep
 from ibamr_tpu_torch.utils.tree import ravel
 
 
 def refuse_kernel_engines(ib) -> None:
     """Raise for a transfer engine that launches hand CUDA kernels: they
-    have no derivative."""
+    have no derivative (``cuda_interaction.refuse_autograd``)."""
     fast = getattr(ib, "fast", None)
     if isinstance(fast, (_KernelEngine, HybridKernelInteraction)):
-        name = getattr(ib, "engine_name", None) or type(fast).__name__
-        raise NotImplementedError(
-            f"the implicit IB step differentiates the transfers, and the "
-            f"{name!r} engine launches hand CUDA kernels, which have no "
-            "derivative (the reference's pallas_call refuses a JVP "
-            "likewise); use 'scatter' or a torch-op engine ('packed', "
-            "'mxu', 'packed3' or their bf16 twins)")
+        refuse_autograd(getattr(ib, "engine_name", None) or fast.engine)
 
 
 def _check_scheme(scheme: str) -> None:
@@ -99,10 +99,12 @@ class IBImplicitIntegrator:
     def _newton(self, residual, X_pred, jvp=None):
         """Newton-Krylov on the residual (``jvp``: its Jacobian products,
         else autograd's through the residual)."""
-        sol = newton_krylov(residual, X_pred, tol=self.newton_tol,
-                            maxiter=self.newton_maxiter, inner_m=self.inner_m,
-                            inner_restarts=self.inner_restarts,
-                            inner_tol=self.inner_tol, jvp=jvp)
+        with plain_autodiff_transfers(), plain_autodiff_substep():
+            sol = newton_krylov(residual, X_pred, tol=self.newton_tol,
+                                maxiter=self.newton_maxiter,
+                                inner_m=self.inner_m,
+                                inner_restarts=self.inner_restarts,
+                                inner_tol=self.inner_tol, jvp=jvp)
         record_solve_stats(self, sol, solver="newton_krylov")
         return sol.x
 

@@ -27,7 +27,13 @@ Kernels (sources in ``csrc/``, notes on design and bound there):
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain PyTorch version beside it for CPU tensors; nothing falls back
 from the GPU. The kernels evaluate IB_4 only: every engine here raises
-``NotImplementedError`` for another delta. ``LAUNCHES`` counts the kernel launches. The plain
+``NotImplementedError`` for another delta. The kernels have no
+derivative (nor has the reference's ``pallas_call``): every engine here
+raises ``NotImplementedError`` when asked to transfer, with grad mode on,
+a force, a field or positions that require grad
+(:func:`check_no_autograd`), on every device, rather than hand autograd
+a result that lacks the kernels' share of the gradient.
+``LAUNCHES`` counts the kernel launches. The plain
 versions are the reference's dense weight preamble with a batched
 contraction and, for the packed spread, an ``index_add_`` over
 ``tile_of_chunk``; the spread versions compose the reference's program
@@ -390,6 +396,24 @@ def tile_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
 
 # -- the engines ------------------------------------------------------------------
 
+def refuse_autograd(engine: str) -> None:
+    """Raise for reverse mode through an engine whose transfers launch
+    hand CUDA kernels."""
+    raise NotImplementedError(
+        f"the {engine!r} transfer engine launches hand CUDA kernels, which "
+        "have no derivative (the reference's pallas_call refuses "
+        "autodiff likewise): differentiate through 'scatter', 'packed' / "
+        "'packed_bf16', 'mxu' / 'mxu_bf16' or 'packed3' / 'packed3_bf16'")
+
+
+def check_no_autograd(engine: str, *tensors) -> None:
+    """:func:`refuse_autograd` when grad mode is on and any of
+    ``tensors`` requires grad."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        refuse_autograd(engine)
+
+
 def _require_ib4(engine: str, kernel) -> None:
     if not is_ib4(kernel):
         raise NotImplementedError(
@@ -403,7 +427,10 @@ class _KernelEngine:
     per component one spread launch (its grid, then the overflow
     scatter) and one interp launch per transfer (then the unbucketing
     and the overflow gather). Each engine's hooks turn a component into
-    its grid and a field into per-slot interpolants."""
+    its grid and a field into per-slot interpolants. They refuse
+    autograd (:func:`check_no_autograd`)."""
+
+    engine = ""
 
     def _spread_grid(self, offs, b, Xb, coef):
         raise NotImplementedError
@@ -413,6 +440,7 @@ class _KernelEngine:
 
     def spread(self, F: torch.Tensor, X: torch.Tensor, centering,
                b) -> torch.Tensor:
+        check_no_autograd(self.engine, F, X, b.Xb)
         grid = self.grid
         inv_vol = 1.0 / math.prod(grid.dx)
         offs = _centering_offsets(grid, centering)
@@ -430,6 +458,7 @@ class _KernelEngine:
 
     def interpolate(self, f: torch.Tensor, X: torch.Tensor, centering,
                     b) -> torch.Tensor:
+        check_no_autograd(self.engine, f, X, b.Xb)
         grid = self.grid
         offs = _centering_offsets(grid, centering)
         Ub = self._interp_slots(offs, b, b.Xb.to(f.dtype), f) * b.wb
@@ -452,6 +481,8 @@ class PackedKernelInteraction(_KernelEngine):
     velocity. Both write or read the grid themselves, with no overlap-add
     or tile extraction. Overflow markers go through the exact scatter
     fallback."""
+
+    engine = "pallas_packed"
 
     def __init__(self, grid: StaggeredGrid, kernel="IB_4", tile: int = 8,
                  chunk: int = 128, nchunks: int = 1024,
@@ -495,6 +526,8 @@ class TileKernelInteraction(_KernelEngine):
     through the exact scatter fallback. Like the reference engine it has
     no ``refresh``: the midpoint step buckets the half-step positions
     anew."""
+
+    engine = "pallas"
 
     def __init__(self, grid: StaggeredGrid, kernel="IB_4", tile: int = 8,
                  cap: int = 256, overflow_cap: Optional[int] = None,
@@ -548,6 +581,8 @@ class HybridKernelInteraction:
         self.nchunks = int(nchunks)
         self.overflow_cap = overflow_cap
         self.compute_dtype = compute_dtype
+        self.engine = ("hybrid_bf16" if compute_dtype == torch.bfloat16
+                       else "hybrid_packed")
 
     def buckets(self, X: torch.Tensor,
                 weights: Optional[torch.Tensor] = None):
@@ -561,6 +596,7 @@ class HybridKernelInteraction:
 
     def spread_vel(self, F: torch.Tensor, X: torch.Tensor,
                    weights: Optional[torch.Tensor] = None, b=None) -> tuple:
+        check_no_autograd(self.engine, F, X)
         if b is None:
             b = self.buckets(X, weights)
         return self._spread.spread_vel(F, X, weights=weights, b=b)
@@ -568,6 +604,7 @@ class HybridKernelInteraction:
     def interpolate_vel(self, u, X: torch.Tensor,
                         weights: Optional[torch.Tensor] = None,
                         b=None) -> torch.Tensor:
+        check_no_autograd(self.engine, *u, X)
         if b is None:
             b = self.buckets(X, weights)
         return self._packed.interpolate_vel(u, X, weights=weights, b=b)

@@ -134,9 +134,11 @@ def _combine_tensor(factors, specs, N: int):
 
 
 @contextlib.contextmanager
-def _deterministic():
+def deterministic():
     """PyTorch's deterministic algorithms for the enclosed ops (serial on
-    the CPU, sort-based on CUDA), restoring the global setting after."""
+    the CPU, sort-based on CUDA), restoring the global setting after. A
+    reverse pass run inside it is run-to-run reproducible too: the
+    backward of a gather is an accumulating scatter."""
     if torch.are_deterministic_algorithms_enabled():
         yield
         return
@@ -151,7 +153,7 @@ def scatter_add(flat: torch.Tensor, index: torch.Tensor,
                 vals: torch.Tensor) -> torch.Tensor:
     """``flat`` plus ``vals`` accumulated at ``index`` (duplicates sum),
     out of place and run-to-run deterministic on every device."""
-    with _deterministic():
+    with deterministic():
         return flat.index_put((index,), vals, accumulate=True)
 
 

@@ -427,10 +427,12 @@ def spread_overflow_fallbacks(out: torch.Tensor, b, F: torch.Tensor,
 
 def unbucket_with_overflow(Ub: torch.Tensor, b, f: torch.Tensor,
                            X: torch.Tensor, grid: StaggeredGrid,
-                           centering, kernel) -> torch.Tensor:
+                           centering, kernel, merge=None) -> torch.Tensor:
     """Per-slot interpolants Ub back to marker order, plus the overflow
     markers' contribution (compact gather of the buffered overflow, or
-    an exact full gather when the buffer itself overflowed)."""
+    an exact full gather when the buffer itself overflowed). ``merge(U,
+    o_idx, vals)`` adds the buffered values at their markers (default
+    ``U.index_add``)."""
     slot = b.slot_of_marker.to(torch.int64)
     flat = Ub.reshape(-1)
     U = flat[torch.clamp(slot, max=flat.numel() - 1)]
@@ -445,7 +447,7 @@ def unbucket_with_overflow(Ub: torch.Tensor, b, f: torch.Tensor,
         o = b.o_idx.to(torch.int64)
         Uo = interaction.interpolate(f, grid, X[o], centering=centering,
                                      kernel=kernel, weights=b.o_w)
-        return U.index_add(0, o, Uo)
+        return U.index_add(0, o, Uo) if merge is None else merge(U, o, Uo)
     return U
 
 

@@ -1,6 +1,6 @@
 """Occupancy-packed chunk layout of the markers and the ``packed`` /
 ``packed_bf16`` transfer engines on it, 2D and 3D (port of
-``ibamr_tpu/ops/interaction_packed.py``; forward only).
+``ibamr_tpu/ops/interaction_packed.py``).
 
 Markers are bucketed by (x, y) tile and packed into ``Q`` chunks of
 ``c`` slots, allocated compactly in tile order: chunk q holds up to c
@@ -22,10 +22,28 @@ chunks onto their tiles (deterministic: no atomics on the card), then the
 overlap-add (spread); or the tile extraction, the contraction and a sum
 over the footprint (interp). It is not the ``pallas_packed`` engine,
 which runs the hand-written kernels (``ops/cuda_interaction.py``).
+
+Reverse mode (the reference's custom VJPs): under autograd
+:func:`spread_packed` and :func:`interpolate_packed` run as
+``torch.autograd.Function`` subclasses. The spread's force cotangent is
+an interp of the grid cotangent through the same buckets times
+``1/h^dim`` with no accumulating scatter (the overflow merge is a sort,
+a prefix sum and two ``searchsorted`` probes); the interp's field
+cotangent is a spread through the same buckets times ``h^dim``. The
+position cotangent of either is the scatter oracle's weight derivative,
+pulled back through :func:`.interaction.interpolate` of the other side's
+field. The bucket layout gets no cotangent: its integers are piecewise
+constant in X, and the whole position gradient flows through the
+explicit ``X``, which must be the positions the buckets were packed
+from. So the Functions are differentiable once: a reverse pass taken
+with ``create_graph`` (to be differentiated again) raises, and
+:func:`plain_autodiff_transfers` (``GRAD_TRANSFERS = False``), which
+differentiates the plain ops, serves it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -34,6 +52,7 @@ import torch
 
 from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.grid import StaggeredGrid
+from ibamr_tpu_torch.ops import interaction
 from ibamr_tpu_torch.ops.delta import get_kernel
 from ibamr_tpu_torch.ops.interaction import scatter_add
 from ibamr_tpu_torch.ops.interaction_fast import (
@@ -41,6 +60,25 @@ from ibamr_tpu_torch.ops.interaction_fast import (
     _interp_rows, _marker_tile_ids, _overlap_add, _spread_rows,
     _tile_origins, compact_overflow, default_overflow_cap, make_geometry,
     spread_overflow_fallbacks, unbucket_with_overflow)
+
+# Reverse-mode policy of the packed transfers: True routes autograd
+# through the adjoint Functions, False differentiates the plain ops.
+GRAD_TRANSFERS = True
+
+
+@contextlib.contextmanager
+def plain_autodiff_transfers():
+    """Differentiate the plain packed ops inside the block instead of the
+    adjoint Functions (their backward emits the transposed scatters of
+    the gathers; the implicit Newton's Jacobian products run under it,
+    as the reference's)."""
+    global GRAD_TRANSFERS
+    prev = GRAD_TRANSFERS
+    GRAD_TRANSFERS = False
+    try:
+        yield
+    finally:
+        GRAD_TRANSFERS = prev
 
 
 class PackedBuckets(NamedTuple):
@@ -179,14 +217,9 @@ def refresh_packed(geom: BucketGeometry, grid: StaggeredGrid,
 
 # -- the packed engine ---------------------------------------------------------
 
-def spread_packed(geom: BucketGeometry, grid: StaggeredGrid,
-                  b: PackedBuckets, F: torch.Tensor, X: torch.Tensor,
-                  centering, kernel, compute_dtype=None) -> torch.Tensor:
-    """Spread marker values F (N,) to the grid component at
-    ``centering``; the overflow markers go through the exact scatter.
-    ``compute_dtype=torch.bfloat16`` rounds the contraction's operands to
-    bf16 (f32 sum). The reference's ``_spread_raw``: its custom VJP is
-    not ported."""
+def _spread_raw(geom: BucketGeometry, grid: StaggeredGrid,
+                b: PackedBuckets, F: torch.Tensor, X: torch.Tensor,
+                centering, kernel, compute_dtype=None) -> torch.Tensor:
     tid = b.tile_of_chunk.to(torch.int64)
     Tq = _spread_rows(geom, grid, b, tid, F, centering, kernel,
                       compute_dtype)
@@ -198,16 +231,160 @@ def spread_packed(geom: BucketGeometry, grid: StaggeredGrid,
                                      grid, centering, kernel)
 
 
+def _interp_raw(geom: BucketGeometry, grid: StaggeredGrid,
+                b: PackedBuckets, f: torch.Tensor, X: torch.Tensor,
+                centering, kernel, compute_dtype=None,
+                merge=None) -> torch.Tensor:
+    tid = b.tile_of_chunk.to(torch.int64)
+    Ub = _interp_rows(geom, grid, b, tid, _extract_tiles(geom, grid, f)[tid],
+                      centering, kernel, compute_dtype)
+    return unbucket_with_overflow(Ub, b, f, X, grid, centering, kernel,
+                                  merge=merge)
+
+
+# -- reverse mode ------------------------------------------------------------
+
+def _marker_weights(b: PackedBuckets) -> torch.Tensor:
+    """The per-marker weights from the layout: the pack-time weight of a
+    packed marker (its slot is its own) plus ``w_overflow`` for the
+    others."""
+    wb = b.wb.reshape(-1)
+    slot = b.slot_of_marker.to(torch.int64)
+    packed = wb[torch.clamp(slot, max=wb.numel() - 1)]
+    return torch.where(slot < wb.numel(), packed,
+                       torch.zeros_like(packed)) + b.w_overflow
+
+
+def _merge_overflow_gather(U: torch.Tensor, o_idx: torch.Tensor,
+                           vals: torch.Tensor) -> torch.Tensor:
+    """``U.index_add(0, o_idx, vals)`` without an accumulating scatter:
+    sort the overflow list by marker, prefix-sum the sorted values and
+    take each marker's run sum by two ``searchsorted`` probes (pad entries
+    alias a real marker with value 0; repeated markers sum)."""
+    perm = torch.argsort(o_idx, stable=True)
+    so = o_idx[perm]
+    cs = torch.cat([vals.new_zeros(1), torch.cumsum(vals[perm], 0)])
+    ar = torch.arange(U.shape[0], dtype=so.dtype, device=so.device)
+    lo = torch.searchsorted(so, ar)
+    hi = torch.searchsorted(so, ar, right=True)
+    return U + (cs[hi] - cs[lo])
+
+
+def _position_cotangent(grid: StaggeredGrid, field: torch.Tensor,
+                        X: torch.Tensor, centering, kernel,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """``scale`` (the per-marker chain factor) pulled back through the
+    oracle's stencil evaluation ``X -> sum_cells field delta_h(cells -
+    X)``: the stencil indices are floors (no derivative), so only the
+    kernel weights differentiate, by gathers and elementwise ops."""
+    with torch.enable_grad():
+        Xp = X.detach().requires_grad_(True)
+        y = interaction.interpolate(field.detach(), grid, Xp,
+                                    centering=centering, kernel=kernel)
+        (g,) = torch.autograd.grad(y, Xp, scale.to(y.dtype))
+    return g
+
+
+def _refuse_create_graph() -> None:
+    """Raise for a reverse pass taken with ``create_graph`` (one that is
+    to be differentiated again): the adjoint formulas hold the layout
+    constant, so their own derivative in the positions would be wrong,
+    and a wrong second derivative must not pass silently."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            "the packed transfers' adjoint Functions are differentiable "
+            "once: take a reverse pass that is to be differentiated again "
+            "(create_graph=True, the implicit Newton's Jacobian products) "
+            "under plain_autodiff_transfers()")
+
+
+class _SpreadAdjoint(torch.autograd.Function):
+    """:func:`_spread_raw` with the reference's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, F, X, geom, grid, b, centering, kernel, compute_dtype):
+        ctx.save_for_backward(F, X)
+        ctx.args = (geom, grid, b, centering, kernel, compute_dtype)
+        return _spread_raw(geom, grid, b, F, X, centering, kernel,
+                           compute_dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        _refuse_create_graph()
+        F, X = ctx.saved_tensors
+        geom, grid, b, centering, kernel, compute_dtype = ctx.args
+        inv_vol = 1.0 / math.prod(grid.dx)
+        F_ct = X_ct = None
+        if ctx.needs_input_grad[0]:
+            # an interp of the grid cotangent that runs no accumulating
+            # scatter: the overflow merge by _merge_overflow_gather
+            F_ct = inv_vol * _interp_raw(geom, grid, b, ct, X, centering,
+                                         kernel, compute_dtype,
+                                         merge=_merge_overflow_gather)
+        if ctx.needs_input_grad[1]:
+            X_ct = _position_cotangent(grid, ct, X, centering, kernel,
+                                       F * _marker_weights(b) * inv_vol)
+        return F_ct, X_ct, None, None, None, None, None, None
+
+
+class _InterpAdjoint(torch.autograd.Function):
+    """:func:`_interp_raw` with the reference's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, f, X, geom, grid, b, centering, kernel, compute_dtype):
+        ctx.save_for_backward(f, X)
+        ctx.args = (geom, grid, b, centering, kernel, compute_dtype)
+        return _interp_raw(geom, grid, b, f, X, centering, kernel,
+                           compute_dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        _refuse_create_graph()
+        f, X = ctx.saved_tensors
+        geom, grid, b, centering, kernel, compute_dtype = ctx.args
+        f_ct = X_ct = None
+        if ctx.needs_input_grad[0]:
+            f_ct = math.prod(grid.dx) * _spread_raw(
+                geom, grid, b, ct, X, centering, kernel, compute_dtype)
+        if ctx.needs_input_grad[1]:
+            X_ct = _position_cotangent(grid, f, X, centering, kernel,
+                                       ct * _marker_weights(b))
+        return f_ct, X_ct, None, None, None, None, None, None
+
+
+def _adjoint_wanted(b: PackedBuckets, *xs) -> bool:
+    return GRAD_TRANSFERS and torch.is_grad_enabled() and any(
+        x.requires_grad for x in xs + (b.Xb, b.wb))
+
+
+def spread_packed(geom: BucketGeometry, grid: StaggeredGrid,
+                  b: PackedBuckets, F: torch.Tensor, X: torch.Tensor,
+                  centering, kernel, compute_dtype=None) -> torch.Tensor:
+    """Spread marker values F (N,) to the grid component at
+    ``centering``; the overflow markers go through the exact scatter.
+    ``compute_dtype=torch.bfloat16`` rounds the contraction's operands to
+    bf16 (f32 sum). Under autograd the adjoint Function (module
+    docstring): its force cotangent runs no accumulating scatter."""
+    if _adjoint_wanted(b, F, X):
+        return _SpreadAdjoint.apply(F, X, geom, grid, b, centering, kernel,
+                                    compute_dtype)
+    return _spread_raw(geom, grid, b, F, X, centering, kernel,
+                       compute_dtype)
+
+
 def interpolate_packed(geom: BucketGeometry, grid: StaggeredGrid,
                        b: PackedBuckets, f: torch.Tensor, X: torch.Tensor,
                        centering, kernel,
                        compute_dtype=None) -> torch.Tensor:
     """Interpolate the grid component ``f`` at the markers -> (N,), the
-    adjoint of :func:`spread_packed` (the reference's ``_interp_raw``)."""
-    tid = b.tile_of_chunk.to(torch.int64)
-    Ub = _interp_rows(geom, grid, b, tid, _extract_tiles(geom, grid, f)[tid],
-                      centering, kernel, compute_dtype)
-    return unbucket_with_overflow(Ub, b, f, X, grid, centering, kernel)
+    adjoint of :func:`spread_packed`; under autograd the adjoint
+    Function, whose field cotangent is a spread through the same
+    buckets."""
+    if _adjoint_wanted(b, f, X):
+        return _InterpAdjoint.apply(f, X, geom, grid, b, centering, kernel,
+                                    compute_dtype)
+    return _interp_raw(geom, grid, b, f, X, centering, kernel,
+                       compute_dtype)
 
 
 class PackedInteraction:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ibamr_tpu_torch.device import resolve_device
+from ibamr_tpu_torch.fe.fem import energy_grads
 
 
 class RodSpecs(NamedTuple):
@@ -129,13 +130,11 @@ def rod_energy(X: torch.Tensor, D: torch.Tensor,
 def rod_force_torque(X: torch.Tensor, D: torch.Tensor, specs: RodSpecs
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nodal forces (n, 3) and torques (n, 3): minus the gradients of the
-    discrete energy (autograd on detached leaves, so callers under
-    ``torch.no_grad`` get them too), the torque by the rotational
-    gradient N_i = -sum_rows d_row x dE/dd_row."""
-    with torch.enable_grad():
-        Xl = X.detach().requires_grad_(True)
-        Dl = D.detach().requires_grad_(True)
-        gX, gD = torch.autograd.grad(rod_energy(Xl, Dl, specs), (Xl, Dl))
+    discrete energy (``fe.fem.energy_grads``: callers under
+    ``torch.no_grad`` get them too, and an outer gradient sees their
+    derivatives), the torque by the rotational gradient
+    N_i = -sum_rows d_row x dE/dd_row."""
+    gX, gD = energy_grads(lambda Xl, Dl: rod_energy(Xl, Dl, specs), X, D)
     return -gX, -torch.sum(torch.linalg.cross(D, gD, dim=-1), dim=1)
 
 

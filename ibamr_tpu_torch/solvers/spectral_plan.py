@@ -18,13 +18,23 @@ reference's transform runs at f32 too, so the rounding is emulated by a
 cast to bf16 and back. ``torch.float64`` runs the whole substep on the
 f64 twin plan and casts the result back.
 
-The custom adjoint of the reference's substep is not ported; the
-closed-form adjoint algebra :meth:`SpectralPlan.kspace_algebra_adjoint`
-is.
+Reverse mode: under autograd the substep is a ``torch.autograd.Function``
+(the reference's custom VJP) whose backward applies the same plan to the
+stacked ``dim + 1`` output cotangents: one batched ``rfftn``,
+:meth:`SpectralPlan.kspace_algebra_adjoint`, one batched ``irfftn``, with
+the bf16 operand rounding mirrored. It saves the coefficients and
+``filter_sym``, no spectrum, so a VJP round trip costs twice the primal's
+transforms. The backward is itself torch ops, linear in the cotangents,
+so a reverse pass taken with ``create_graph`` can be differentiated
+again. The coefficients ``alpha``, ``beta`` and ``pinc_coeffs`` get zero
+cotangents, as in the reference; :func:`plain_autodiff_substep`
+(``DIFFERENTIATE_COEFFS``) differentiates the plain algebra instead, for
+a caller that needs them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
@@ -34,6 +44,27 @@ import torch
 from ibamr_tpu_torch.solvers import fft
 
 Vel = Tuple[torch.Tensor, ...]
+
+# Reverse-mode policy of the fused substep: False routes autograd
+# through the adjoint Function (coefficients held constant); True
+# differentiates the plain k-space algebra (coefficient gradients).
+DIFFERENTIATE_COEFFS = False
+
+
+@contextlib.contextmanager
+def plain_autodiff_substep():
+    """Differentiate the plain k-space algebra inside the block instead
+    of the adjoint Function: coefficient gradients become available (the
+    implicit Newton's Jacobian products run under it, as the
+    reference's)."""
+    global DIFFERENTIATE_COEFFS
+    prev = DIFFERENTIATE_COEFFS
+    DIFFERENTIATE_COEFFS = True
+    try:
+        yield
+    finally:
+        DIFFERENTIATE_COEFFS = prev
+
 
 _SPECTRAL_DTYPE_ALIASES = {
     None: None, "none": None, "f32": None, "float32": None,
@@ -137,18 +168,13 @@ class SpectralPlan:
                 pinc_coeffs, filter_sym=filter_sym)
             return (tuple(c.to(self.rdtype) for c in u64),
                     p64.to(self.rdtype))
-        x = torch.stack(tuple(rhs))
-        if sdtype is not None:
-            x = _round_real(x.to(torch.float32), sdtype)
-        uh = torch.fft.rfftn(x, dim=self.axes)
-        outh = self.kspace_algebra(uh, alpha, beta, pinc_coeffs,
-                                   f32=sdtype is not None,
-                                   filter_sym=filter_sym)
-        if sdtype is not None:
-            outh = _round_complex(outh, sdtype)
-        out = torch.fft.irfftn(outh, s=self.shape, dim=self.axes)
-        out = out.to(self.rdtype)
-        return tuple(out[d] for d in range(self.dim)), out[self.dim]
+        coeffs = (alpha, beta) + tuple(pinc_coeffs)
+        if not DIFFERENTIATE_COEFFS and _wants_grad(*rhs, *coeffs,
+                                                     filter_sym):
+            outs = _SubstepAdjoint.apply(self, sdtype, filter_sym, *coeffs,
+                                         *rhs)
+            return tuple(outs[:self.dim]), outs[self.dim]
+        return _substep_raw(self, sdtype, tuple(rhs), *coeffs, filter_sym)
 
     def kspace_algebra(self, uh: torch.Tensor, alpha, beta,
                        pinc_coeffs: Tuple[float, float], f32: bool = False,
@@ -236,6 +262,70 @@ class SpectralPlan:
         out = torch.fft.irfftn(uh, s=self.shape, dim=self.axes)
         out = out.to(self.rdtype)
         return tuple(out[d] for d in range(dim)), out[dim]
+
+
+# -- the fused substep and its adjoint ---------------------------------------
+
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
+
+
+def _substep_raw(plan: SpectralPlan, sdtype, rhs: Vel, alpha, beta, a, b,
+                 filter_sym: Optional[torch.Tensor]
+                 ) -> Tuple[Vel, torch.Tensor]:
+    """The substep's math: one batched rfftn, the algebra, one batched
+    irfftn (bf16 operand rounding when ``sdtype`` is bf16)."""
+    x = torch.stack(tuple(rhs))
+    if sdtype is not None:
+        x = _round_real(x.to(torch.float32), sdtype)
+    uh = torch.fft.rfftn(x, dim=plan.axes)
+    outh = plan.kspace_algebra(uh, alpha, beta, (a, b),
+                               f32=sdtype is not None,
+                               filter_sym=filter_sym)
+    if sdtype is not None:
+        outh = _round_complex(outh, sdtype)
+    out = torch.fft.irfftn(outh, s=plan.shape, dim=plan.axes)
+    out = out.to(plan.rdtype)
+    return tuple(out[d] for d in range(plan.dim)), out[plan.dim]
+
+
+class _SubstepAdjoint(torch.autograd.Function):
+    """The fused substep with the reference's custom VJP: the backward is
+    the same plan around the conjugate-transposed block symbol, applied
+    to the stacked output cotangents. Only the coefficients and the
+    filter table are kept for it."""
+
+    @staticmethod
+    def forward(ctx, plan, sdtype, filter_sym, alpha, beta, a, b, *rhs):
+        ctx.plan, ctx.sdtype, ctx.filter_sym = plan, sdtype, filter_sym
+        ctx.coeffs = (alpha, beta, a, b)
+        u, p = _substep_raw(plan, sdtype, rhs, alpha, beta, a, b,
+                            filter_sym)
+        return (*u, p)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        # torch ops, linear in the cotangents: a reverse pass taken with
+        # create_graph differentiates this map again exactly
+        plan, sdtype = ctx.plan, ctx.sdtype
+        alpha, beta, a, b = ctx.coeffs
+        c = torch.stack(cts).to(torch.float32 if sdtype is not None
+                                else plan.rdtype)
+        if sdtype is not None:
+            # the primal's operand compression, on the cotangents
+            c = _round_real(c, sdtype)
+        ch = torch.fft.rfftn(c, dim=plan.axes)
+        gh = plan.kspace_algebra_adjoint(ch, alpha, beta, (a, b),
+                                         f32=sdtype is not None,
+                                         filter_sym=ctx.filter_sym)
+        if sdtype is not None:
+            gh = _round_complex(gh, sdtype)
+        g = torch.fft.irfftn(gh, s=plan.shape, dim=plan.axes)
+        g = g.to(plan.rdtype)
+        # the coefficients and the filter table are held constant
+        return (None, None, None, None, None, None, None,
+                *(g[d] for d in range(plan.dim)))
 
 
 # -- the LRU cache ------------------------------------------------------------

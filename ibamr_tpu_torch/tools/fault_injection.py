@@ -28,15 +28,16 @@
   squeezes the executable cache's bytes ceiling.
 - :func:`run_smoke`, :func:`run_silent_smoke`, :func:`run_replay_smoke`,
   :func:`run_fleet_smoke`, :func:`run_assim_smoke`,
-  :func:`run_soak_smoke` and :func:`run_elastic_smoke` are the
+  :func:`run_soak_smoke`, :func:`run_elastic_smoke` and
+  :func:`run_design_smoke` (the inverse-design drill) are the
   end-to-end drills; each raises on a failed expectation and returns a
   one-line summary dict. They run on ``device`` (the GPU unless
   ``device="cpu"``):
   ``python -m ibamr_tpu_torch.tools.fault_injection --smoke``.
 
 Every step wrapper acts with ``torch.where`` on device values, so it
-adds no host read to a step. The sharded and design drills wait for the
-ports of their subsystems.
+adds no host read to a step. The sharded drills wait for the port of
+``parallel/``.
 """
 
 from __future__ import annotations
@@ -1759,6 +1760,98 @@ def run_assim_smoke(directory: str | None = None, fleet_size: int = 6,
                 "wall_s": round(time.perf_counter() - t_all, 3)}
 
 
+# ---------------------------------------------------------------------------
+# the inverse-design drill
+# ---------------------------------------------------------------------------
+
+def run_design_smoke(directory: str | None = None, num_iters: int = 3,
+                     lr: float = 0.05, device="cuda") -> dict:
+    """The inverse-design drill at the reference's size: the eel2d gait
+    objective (``design.eel_gait``: the swim displacement differentiated
+    through the ConstraintIB rollout) at 24^2, 17 markers, 10 steps, f64,
+    with four gates:
+
+    1. the adjoint gradient on the gait amplitude ``A0`` agrees with an
+       f64 central difference within 1e-6 relative;
+    2. ``num_iters`` Adam iterations through :class:`~ibamr_tpu_torch.
+       design.DesignLoop` strictly decrease the objective;
+    3. iteration 1 builds the cached iterate (exactly one miss), every
+       later iteration is one hit and no miss;
+    4. each iteration leaves one ``design_iter`` record in the attached
+       run ledger.
+
+    Raises on a failed gate; returns a one-line summary dict."""
+    from ibamr_tpu_torch import obs as _obs
+    from ibamr_tpu_torch.design import DesignLoop, build_eel_gait_problem
+    from ibamr_tpu_torch.serve.aot_cache import ExecutableCache
+
+    with _workdir(directory) as directory:
+        t_all = time.perf_counter()
+        objective, params0 = build_eel_gait_problem(
+            n=24, ns=17, num_steps=10, dtype=torch.float64, device=device)
+
+        # 1. the adjoint against a central difference on the amplitude
+        loop = DesignLoop(objective, params0, lr=lr, cache=ExecutableCache(),
+                          label="eel_smoke")
+        _, grads = loop.value_and_grad_fn()(params0)
+        g_a0 = float(grads["A0"])
+        a0 = float(params0["A0"])
+        fd_eps = 1e-5
+
+        def at(a):
+            p = dict(params0)
+            p["A0"] = torch.tensor(a, dtype=torch.float64,
+                                   device=params0["A0"].device)
+            with torch.no_grad():
+                return float(objective(p))
+
+        fd = (at(a0 + fd_eps) - at(a0 - fd_eps)) / (2.0 * fd_eps)
+        fd_rel = abs(g_a0 - fd) / max(abs(fd), 1e-30)
+        if fd_rel > 1e-6:
+            raise AssertionError(
+                f"adjoint disagrees with central difference: grad "
+                f"{g_a0:.12e} vs FD {fd:.12e} (rel {fd_rel:.3e} > 1e-6)")
+
+        # 2-4. the loop itself, with a run ledger attached
+        ledger_path = os.path.join(directory, "design_ledger.jsonl")
+        with _obs.ledger(ledger_path):
+            res = loop.run(num_iters)
+        objs = [it.objective for it in res.history]
+        for earlier, later in zip(objs, objs[1:]):
+            if not later < earlier:
+                raise AssertionError(
+                    f"objective did not strictly decrease: {objs}")
+        first = res.history[0]
+        if first.cache_misses != 1:
+            raise AssertionError(f"iteration 1 should build the iterate "
+                                 f"once, built {first.cache_misses}")
+        for it in res.history[1:]:
+            if it.cache_misses != 0 or it.cache_hits != 1:
+                raise AssertionError(
+                    f"warm iteration {it.iteration} not served from the "
+                    f"cache: hits={it.cache_hits} "
+                    f"misses={it.cache_misses}")
+        recs = [r for r in _obs.read_ledger(ledger_path)
+                if r.get("kind") == "design_iter"]
+        if len(recs) != num_iters:
+            raise AssertionError(f"expected {num_iters} design_iter ledger "
+                                 f"records, found {len(recs)}")
+        return {"design_smoke": "ok",
+                "iterations": num_iters,
+                "objectives": [round(v, 10) for v in objs],
+                "fd_rel_err": float(f"{fd_rel:.3e}"),
+                "grad_A0": float(f"{g_a0:.6e}"),
+                "cold_misses": first.cache_misses,
+                "warm_misses": sum(it.cache_misses
+                                   for it in res.history[1:]),
+                "warm_wall_s": round(sum(it.wall_s
+                                         for it in res.history[1:]), 3),
+                "cold_wall_s": round(first.wall_s, 3),
+                "ledger_records": len(recs),
+                "ledger": ledger_path,
+                "wall_s": round(time.perf_counter() - t_all, 3)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="run the port's resilience drills")
@@ -1778,6 +1871,10 @@ def main(argv=None) -> int:
                     help="the elastic warm-pool drill: mix shift, "
                          "memory pressure, brownout, shrink, restart "
                          "with zero fresh builds")
+    ap.add_argument("--design-smoke", action="store_true",
+                    help="the inverse-design drill: the eel gait's "
+                         "adjoint against a central difference, strict "
+                         "Adam descent, one build then cache hits")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     drills = [(args.smoke, run_smoke), (args.silent_smoke, run_silent_smoke),
@@ -1785,7 +1882,8 @@ def main(argv=None) -> int:
               (args.fleet_smoke, run_fleet_smoke),
               (args.assim_smoke, run_assim_smoke),
               (args.soak_smoke, run_soak_smoke),
-              (args.elastic_smoke, run_elastic_smoke)]
+              (args.elastic_smoke, run_elastic_smoke),
+              (args.design_smoke, run_design_smoke)]
     if not any(on for on, _ in drills):
         ap.error("name at least one drill")
     if args.device == "cpu" and (args.soak_smoke or args.elastic_smoke):

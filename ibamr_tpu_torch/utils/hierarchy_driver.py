@@ -155,7 +155,8 @@ REMAT_POLICIES = {
 
 
 def checkpointed_step(step, remat: str):
-    """Wrap ``step(state, dt)`` in non-reentrant
+    """Wrap ``step(state, dt)`` (or any function of tensors and pytrees
+    of them, a design objective say) in non-reentrant
     ``torch.utils.checkpoint`` under the named policy."""
     from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                         create_selective_checkpoint_contexts)
@@ -173,8 +174,8 @@ def checkpointed_step(step, remat: str):
             create_selective_checkpoint_contexts, policy)
 
     @functools.wraps(step)
-    def wrapped(state, dt):
-        return checkpoint(step, state, dt, use_reentrant=False, **kw)
+    def wrapped(*args):
+        return checkpoint(step, *args, use_reentrant=False, **kw)
 
     return wrapped
 
