@@ -259,6 +259,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
    named) runs ``tools/microbench_fluid.py`` and
    ``tools/microbench_transfer.py`` at the flagship, each result on one
    JSON line.
+25. parallel -- the parallel layer (``ibamr_tpu_torch/parallel``), no
+   hand kernel: the flagship on an 8-shard (4, 2) mesh of ``cuda:0``
+   through ``make_sharded_step`` (pencil-FFT fluid solves, co-partitioned
+   marker transfers), ``PAR_WARM`` warm and ``PAR_STEPS`` timed steps,
+   against the same steps of the unsharded ``scatter`` step within
+   ``1e-6·max|X|`` and ``1e-4·max|u|``, bitwise run to run, ms/step of
+   both; ``PencilFFT.project_divergence_free`` at 256^3 against
+   ``solvers/fft.py``'s (``SpectralPlan``) projection; the flagship
+   state saved as an 8-shard checkpoint and restored onto 4 shards and
+   onto 1, bitwise (write and restore seconds, bytes per shard file);
+   the sharded-checkpoint drill and the fleet drill with its lane-mesh
+   leg (8 lanes on 8 shards, the healthy lanes bitwise the replicated
+   fleet's) at the reference's drill sizes.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -352,13 +365,14 @@ OPEN_DIV_BOUND = 1e-4     # f32 solver floor (tol 1e-5 relative)
 TOL_OPEN_FIELDS = 1e-4    # GPU vs CPU after the f32 parity steps, rel. to max|.|
 IBFE_EX0_INPUT = "examples/IBFE/explicit/ex0/input2d"
 IBFE_PARITY_STEPS = 20    # ibfe: steps of the GPU-vs-CPU check
-IBFE_WARM = 100           # ibfe: steps of the warm leg after them
+IBFE_WARM = 50            # ibfe: steps of the warm leg after them; cut
+# from 100 to make room for the parallel phase
 IBFE_AREA_DRIFT = 0.02    # |area - area0| / area0: tests/test_ibfe.py:176
 BEAM_INPUT = "examples/IBFE/explicit/beam2d/input2d"
 BEAM_STEPS = 2            # of the input's 1500 (f32: 12 restarts a step;
 # cut from 5 to make room for the multiphase phase)
 BEAM_PARITY_STEPS = 1     # cut from 2 to make room for the resilience phase
-BEAM_F64_STEPS = 100
+BEAM_F64_STEPS = 50       # cut from 100 to make room for the parallel phase
 # the ibfe3d leg: a geodesic sphere membrane (4,098 nodes, 8,192 TRI3S
 # facets, 24,576 quadrature points) pre-stretched in a 128^3 box
 IBFE3D = dict(n_cells=128, radius=0.25, n_subdiv=5,
@@ -385,7 +399,7 @@ EEL_INPUT = "examples/ConstraintIB/eel2d/input2d"
 EEL_STEPS = 300           # of the input's 2000 (the swimmer moves against
 # the wave from step ~150 on); cut to 500 to make room for the resilience
 # phase, and to 300 for the engines and tune phases
-EEL_PARITY_STEPS = 20
+EEL_PARITY_STEPS = 10     # cut from 20 to make room for the parallel phase
 FIL_INPUT = "examples/IB/explicit/filament2d/input2d"
 FIL_STEPS = 2             # of the input's 4000 (f32: 12 restarts a step;
 # cut from 5 to make room for the multiphase phase)
@@ -404,7 +418,8 @@ EX4_AMR_INPUT = "examples/IB/explicit/ex4_amr/input3d"
 # the CPU legs of the AMR drivers, cut in steps (each past a regrid)
 EX0_AMR_CPU_STEPS = 21    # of 400: the regrid at step 20 and one step
 EX4_AMR_CPU_STEPS = 11    # of 120: the regrid at step 10 and one step
-AMR_WARM = 20             # amr: steps of the warm legs at the last window
+AMR_WARM = 10             # amr: steps of the warm legs at the last window;
+# cut from 20 to make room for the parallel phase
 # |volume drift| of the shell's radial-sample proxy, which moves ~2% as a
 # taut shell settles: the bound of tests/test_amr_ins.py:197
 AMR_VOLUME_DRIFT = 3e-2
@@ -431,8 +446,8 @@ ML_ADV = dict(kappa=1e-3, steps=100, tol=1e-5)
 MB = dict(n=48, box=14, kappa=2e-3, amp=0.25, threshold=0.02, steps=60,
           regrid=6, dt=2.5e-4)
 # implicit: the ex0 membrane (f64), the first IMP1_CPU steps also on the CPU
-IMP1_STEPS = 6            # cut from 20 (PR 13: 10) to make room for the
-# multiphase and resilience phases
+IMP1_STEPS = 4            # cut from 20 to 10, 6 and 4 to make room for
+# the multiphase, resilience and parallel phases
 IMP1_CPU = 3
 IMPLICIT_AREA_DRIFT = 0.02
 # implicit: ex0_amr at 10x its dt, a regrid every 2 steps (f64)
@@ -458,7 +473,8 @@ MP_WARM = 10              # multiphase: warm steps after each driver's run
 MP_DAM_BOUND_T = 0.12
 MP_DAM_REF_DRIFT = 3.769441711099415e-02
 MP_DAM_DRIFT_RTOL = 0.05
-MP_PARITY_STEPS = 10      # falling drop: f64 steps GPU vs CPU
+MP_PARITY_STEPS = 5       # falling drop: f64 steps GPU vs CPU; cut from 10
+# to make room for the parallel phase
 MP_LEG_STEPS = 3          # the other multiphase legs: f64 steps each
 MP_CHANNEL_ITERS = 3000   # the k-omega channel's iterations on each side
 MP_DROP_DRIFT = 5e-2      # falling drop |V - V0| / V0 after 300 steps:
@@ -4954,6 +4970,215 @@ def phase_grad() -> dict:
     return out
 
 
+PAR_SHARDS = 8            # parallel: shards of the flagship's (4, 2) mesh
+PAR_WARM, PAR_STEPS = 3, 5  # parallel: warm and timed steps of each path
+TOL_PAR_PROJ = 1e-5       # pencil vs SpectralPlan projection, rel. max|ref|
+
+
+def _par_flagship(mesh) -> dict:
+    """The flagship through ``make_sharded_step`` on ``mesh`` against the
+    unsharded ``scatter`` step from the same state, twice for the bits."""
+    from ibamr_tpu_torch.models.shell3d import build_shell_example
+    from ibamr_tpu_torch.parallel import workload
+    from ibamr_tpu_torch.parallel.mesh import make_sharded_step, place_state
+    from ibamr_tpu_torch.parallel.spmd import sharding_of
+    from ibamr_tpu_torch.utils.tree import leaves
+
+    integ, st0 = build_shell_example(use_fast_interaction="scatter",
+                                     dtype=torch.float32, device=DEVICE,
+                                     **FLAGSHIP)
+    grid = integ.ins.grid
+
+    def run(step, s):
+        for _ in range(PAR_WARM):
+            s = step(s, DT_FLAGSHIP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAR_STEPS):
+            s = step(s, DT_FLAGSHIP)
+        torch.cuda.synchronize()
+        return s, (time.perf_counter() - t0) * 1e3 / PAR_STEPS
+
+    ref, ref_ms = run(integ.step, st0)
+    sstep = make_sharded_step(integ, mesh)
+    if (sstep.integ.ib.engine_name != "sharded"
+            or sstep.integ.ins.fused_stokes is not None):
+        raise AssertionError("the sharded step did not swap in the "
+                             "co-partitioned transfers and pencil solves")
+    a, sh_ms = run(sstep, place_state(st0, grid, mesh))
+    b, _ = run(sstep, place_state(st0, grid, mesh))
+    bitwise = all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+    on_card = all(x.device.type == torch.device(DEVICE).type
+                  for x in leaves(a))
+    lay = sharding_of(a.ins.u[0])
+    dX = float((a.X - ref.X).abs().max() / ref.X.abs().max())
+    umax = max(float(c.abs().max()) for c in ref.ins.u)
+    du = max(float((x - y).abs().max()) for x, y in zip(a.ins.u,
+                                                         ref.ins.u)) / umax
+    eng = sstep.integ.ib.engine(a.X.shape[0])
+    bk = eng.buckets(a.X, a.mask)
+    counts = workload.shard_marker_counts(a.X.cpu().numpy(), grid,
+                                          eng.sizes)
+    log(f"[parallel] flagship {FLAGSHIP} ({st0.X.shape[0]} markers), f32, "
+        f"dt={DT_FLAGSHIP:g}, {PAR_WARM} warm + {PAR_STEPS} timed steps: "
+        f"sharded on {dict(mesh.shape)} shards of {mesh.first_device} "
+        f"{sh_ms:.3f} ms/step, unsharded scatter {ref_ms:.3f} ms/step "
+        f"(x{sh_ms / ref_ms:.3f}); markers per shard "
+        f"{counts.ravel().tolist()} (cap {eng.cap}, overflow "
+        f"{bk.overflow})")
+    log(f"[parallel] sharded vs unsharded after {PAR_WARM + PAR_STEPS} "
+        f"steps: max|dX|/max|X|={dX:.3e} (tol {TOL_PARITY_X:g}), "
+        f"max_d |du|/max|u|={du:.3e} (tol {TOL_PARITY_U:g}); bitwise run "
+        f"to run {bitwise}; every leaf on the card {on_card}; layout of "
+        f"u[0] {lay}")
+    if not (dX <= TOL_PARITY_X and du <= TOL_PARITY_U and bitwise
+            and on_card and lay is not None and lay.mesh is mesh):
+        raise AssertionError("the sharded flagship missed one of its "
+                             "checks (see the [parallel] lines above)")
+    return dict(integ=integ, state=a, sh_ms=sh_ms, ref_ms=ref_ms,
+                step=sstep)
+
+
+def _par_breakdown(sstep, state, step_ms: float) -> None:
+    """Where the sharded step's time goes: each stage alone on the state
+    the timed leg reached (host clock around a synchronize, and the
+    profiler's device busy time), then the whole step's device time and
+    the top host ops by self CPU time."""
+    integ, s, dt = sstep.integ, state, DT_FLAGSHIP
+    ib, grid = integ.ib, integ.ins.grid
+    ctx = ib.prepare(s.X, s.mask)
+    U = ib.interpolate_velocity(s.ins.u, grid, s.X, s.mask, ctx=ctx)
+    F = ib.compute_force(s.X, U, s.ins.t)
+    f = ib.spread_force(F, grid, s.X, s.mask, ctx=ctx)
+    stages = [("bucket", 2, lambda: ib.prepare(s.X, s.mask)),
+              ("interp", 2, lambda: ib.interpolate_velocity(
+                  s.ins.u, grid, s.X, s.mask, ctx=ctx)),
+              ("spread", 1, lambda: ib.spread_force(F, grid, s.X, s.mask,
+                                                    ctx=ctx)),
+              ("fluid", 1, lambda: integ.ins.step(s.ins, dt, f=f))]
+    for name, per_step, fn in stages:
+        host = _host_ms(fn, 3)
+        dev, kernels, _ = _device_ms(fn, 1)
+        log(f"[parallel] breakdown {name:7s} x{per_step}/step: host "
+            f"{host:.3f} ms, device busy {dev:.3f} ms in {kernels:.0f} "
+            f"kernels per call")
+    dev, kernels, prof = _device_ms(lambda: sstep(s, dt), 1)
+    log(f"[parallel] breakdown whole sharded step: device busy {dev:.3f} "
+        f"ms in {kernels:.0f} kernels of {step_ms:.3f} ms/step: idle share "
+        f"{1 - dev / step_ms:.3f}")
+    rows = sorted(prof.key_averages(),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in rows[:12]:
+        log(f"[parallel] breakdown host op {e.key[:60]:60s} calls "
+            f"{e.count:6d} self CPU {e.self_cpu_time_total / 1e3:.3f} ms")
+
+
+def _par_projection(mesh, grid) -> float:
+    """``PencilFFT.project_divergence_free`` at the flagship's grid
+    against ``solvers/fft.py``'s (``SpectralPlan``) projection."""
+    from ibamr_tpu_torch.ops import stencils
+    from ibamr_tpu_torch.parallel.fftpar import PencilFFT
+    from ibamr_tpu_torch.solvers import fft
+
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    u = tuple(torch.randn(grid.n, generator=gen, device=DEVICE)
+              for _ in range(grid.dim))
+    pencil = PencilFFT(grid, mesh)
+    got, _ = pencil.project_divergence_free(u, grid.dx)
+    want, _ = fft.project_divergence_free(u, grid.dx)
+    dev = max(float((g - w).abs().max()) / float(w.abs().max())
+              for g, w in zip(got, want))
+    div = float(stencils.divergence(got, grid.dx).abs().max())
+    p_ms = _host_ms(lambda: pencil.project_divergence_free(u, grid.dx), 5)
+    s_ms = _host_ms(lambda: fft.project_divergence_free(u, grid.dx), 5)
+    log(f"[parallel] projection at {grid.n} on {dict(mesh.shape)} shards: "
+        f"pencil vs SpectralPlan max|d|/max|ref|={dev:.3e} (tol "
+        f"{TOL_PAR_PROJ:g}), max|div u| after the pencil's {div:.3e}; "
+        f"{p_ms:.3f} ms pencil, {s_ms:.3f} ms SpectralPlan (host clock "
+        f"around a synchronize, 5 calls)")
+    if not dev <= TOL_PAR_PROJ:
+        raise AssertionError("the pencil projection disagrees with "
+                             "SpectralPlan's")
+    return dev
+
+
+def _par_checkpoint(integ, state, mesh, tmp: str) -> None:
+    """The flagship state as an 8-shard checkpoint, restored onto 4
+    shards and onto 1, bitwise."""
+    from ibamr_tpu_torch.parallel.mesh import make_mesh, place_state
+    from ibamr_tpu_torch.parallel.spmd import sharding_of
+    from ibamr_tpu_torch.utils import checkpoint_sharded as cs
+    from ibamr_tpu_torch.utils.tree import leaves, tree_map
+
+    grid = integ.ins.grid
+    placed = place_state(state, grid, mesh)
+    d = os.path.join(tmp, "sharded_ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sdir = cs.save_sharded_checkpoint(d, placed, 8, mesh=mesh)
+    write_s = time.perf_counter() - t0
+    sizes = [os.path.getsize(os.path.join(sdir, f))
+             for f in sorted(os.listdir(sdir)) if f.startswith("shard-")]
+    if not cs.verify_sharded_checkpoint(d, 8) or len(sizes) != mesh.size:
+        raise AssertionError("the flagship's sharded checkpoint did not "
+                             "verify")
+    out = []
+    for n in (4, 1):
+        m = make_mesh(n, max_axes=2, device=DEVICE)
+        tmpl = place_state(tree_map(torch.zeros_like, state), grid, m)
+        t0 = time.perf_counter()
+        got, step, _ = cs.restore_sharded(d, tmpl, step=8)
+        torch.cuda.synchronize()
+        rs = time.perf_counter() - t0
+        same = all(torch.equal(x, y) for x, y in zip(leaves(got),
+                                                     leaves(state)))
+        lay = sharding_of(got.ins.u[0])
+        out.append((n, rs, same and lay.mesh.size == n
+                    and got.X.device.type == torch.device(DEVICE).type))
+    log(f"[parallel] flagship state as an {mesh.size}-shard checkpoint: "
+        f"write {write_s:.3f} s, bytes per shard file {sizes} (total "
+        f"{sum(sizes)}); restore onto 4 shards {out[0][1]:.3f} s bitwise "
+        f"{out[0][2]}, onto 1 {out[1][1]:.3f} s bitwise {out[1][2]} "
+        f"(warm page cache)")
+    if not all(ok for _, _, ok in out):
+        raise AssertionError("the 8 -> 4 -> 1 restore was not bitwise")
+
+
+def phase_parallel(breakdown: bool = False) -> dict:
+    """The parallel layer on the card: the sharded flagship, the pencil
+    projection, the sharded checkpoint of the flagship's state, the
+    sharded-checkpoint drill and the lane-mesh fleet. No hand kernel
+    runs (the transfers are the sharded scatter's)."""
+    from ibamr_tpu_torch.parallel.mesh import make_mesh
+    from ibamr_tpu_torch.tools import fault_injection as fi
+
+    mesh = make_mesh(PAR_SHARDS, max_axes=2, device=DEVICE)
+    out = _par_flagship(mesh)
+    if breakdown:
+        _par_breakdown(out["step"], out["state"], out["sh_ms"])
+    _par_projection(mesh, out["integ"].ins.grid)
+    with tempfile.TemporaryDirectory() as tmp:
+        _par_checkpoint(out["integ"], out["state"], mesh, tmp)
+        del out["state"]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = fi.run_sharded_smoke(os.path.join(tmp, "drill"),
+                                   device=DEVICE)
+        log(f"[parallel] sharded-checkpoint drill on the card "
+            f"({time.perf_counter() - t0:.1f} s): {json.dumps(res)}")
+        t0 = time.perf_counter()
+        fl = fi.run_fleet_smoke(os.path.join(tmp, "fleet"), device=DEVICE,
+                                engine="scatter", mesh_shards=PAR_SHARDS)
+        log(f"[parallel] fleet drill (32^3 shell, 8 lanes, f64, scatter) "
+            f"with its lane-mesh leg on the card "
+            f"({time.perf_counter() - t0:.1f} s): replicated "
+            f"{fl['fleet_wall_s']:.3f} s, lane mesh {json.dumps(fl['mesh_leg'])}; "
+            f"incidents {[r['event'] for r in fl['incidents']]}, replay "
+            f"{fl['replay_verdict']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_microbench() -> None:
     """The fluid and transfer microbenchmarks at the flagship size, each
     result on one ``[microbench]`` JSON line (run only when named)."""
@@ -4989,11 +5214,12 @@ def main(argv=None) -> int:
                     default="kernels,parity,path,hybrid,engines,driver,auto,"
                     "tune,ex0,ibfe3d,walls,open,ibfe,rigid,adv,amr,mlamr,"
                     "implicit,multiphase,resilience,prof,io,assim,serve,"
-                    "grad",
+                    "grad,parallel",
                     help="comma-separated subset of kernels,parity,path,"
                     "hybrid,engines,driver,auto,tune,ex0,ibfe3d,walls,open,"
                     "ibfe,rigid,adv,amr,mlamr,implicit,multiphase,"
-                    "resilience,prof,io,assim,serve,grad and the shootout "
+                    "resilience,prof,io,assim,serve,grad,parallel and the "
+                    "shootout "
                     "and microbench, which run only when "
                     "named (add 'breakdown' for a profile of the step of "
                     "each that runs, the flagship's auto leg included; "
@@ -5110,6 +5336,10 @@ def main(argv=None) -> int:
     if "grad" in phases:
         _assert_no_launches("grad", phase_grad)
         clock.lap("grad")
+    if "parallel" in phases:
+        _assert_no_launches("parallel",
+                            lambda: phase_parallel("breakdown" in phases))
+        clock.lap("parallel")
     if "microbench" in phases:
         phase_microbench()
         clock.lap("microbench")

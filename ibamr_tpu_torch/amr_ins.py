@@ -396,13 +396,23 @@ class CompositeProjection:
         self.fine_solver = FastDiagSolver(
             box.fine_grid(grid), DomainBC(axes=(dirichlet_axis(),) * grid.dim),
             ("cc",) * grid.dim, device=self.device)
+        # the layouts of a sharded step (parallel.mesh.
+        # make_sharded_two_level_ib_step); with a coarse layout set, the
+        # preconditioner's coarse inverse is the dense-periodic twin of
+        # the FFT solve, built by build_dense_coarse_solver
+        self.level_sharding = None
+        self.window_sharding = None
+        self._coarse_dense_solver = None
 
     def build_dense_coarse_solver(self) -> None:
-        """The reference builds a dense-transform coarse inverse here for
-        its sharded preconditioner; the port runs on one device."""
-        raise NotImplementedError(
-            "the sharded composite projection is not ported: it waits for "
-            "the parallel/ slice of ROADMAP.md queue A (torch.distributed)")
+        """Build the dense-periodic coarse inverse (real-Fourier axis
+        matmuls, ``FastDiagSolver(dense_periodic=True)``) that the
+        sharded preconditioner uses in place of the coarse FFT solve."""
+        if self._coarse_dense_solver is None:
+            self._coarse_dense_solver = FastDiagSolver(
+                self.grid, DomainBC.periodic(self.grid.dim),
+                ("cc",) * self.grid.dim, dense_periodic=True,
+                device=self.device)
 
     def _phi_eff(self, phi_c, phi_f):
         out = phi_c.clone()
@@ -431,7 +441,11 @@ class CompositeProjection:
             return self._external_precond(r)
         r_c, r_f = r
         diag = sum(2.0 / h ** 2 for h in self.dx)
-        p_c = fft.solve_poisson_periodic(r_c, self.dx)
+        if self.level_sharding is not None:
+            p_c = self._coarse_dense_solver.solve(r_c, 0.0, 1.0,
+                                                  zero_nullspace=True)
+        else:
+            p_c = fft.solve_poisson_periodic(r_c, self.dx)
         p_c = torch.where(self._covered, -r_c / diag, p_c)
         p_f = self.fine_solver.solve(r_f, 0.0, 1.0)
         return (p_c, p_f)

@@ -102,6 +102,14 @@ class MultiLevelCompositeProjection:
             cov[sl] = True
             self.covered.append(cov)
 
+        # the layouts of a sharded step (parallel.mesh.
+        # make_sharded_multilevel_{ins,ib}_step); with a root layout set,
+        # the preconditioner's root inverse is the dense-periodic twin of
+        # the FFT solve, built by build_dense_root_solver
+        self.root_sharding = None
+        self.box_sharding = None
+        self._root_dense_solver = None
+
         # the default preconditioner's level inverses: the periodic FFT
         # at the root, fast diagonalization (Dirichlet) on each box
         self.box_solvers = [
@@ -112,11 +120,14 @@ class MultiLevelCompositeProjection:
             for spec in self.levels[1:]]
 
     def build_dense_root_solver(self) -> None:
-        """The reference builds a dense-transform root inverse here for
-        its sharded preconditioner; the port runs on one device."""
-        raise NotImplementedError(
-            "the sharded L-level projection is not ported: it waits for "
-            "the parallel/ slice of ROADMAP.md queue A (torch.distributed)")
+        """Build the dense-periodic root inverse (real-Fourier axis
+        matmuls, ``FastDiagSolver(dense_periodic=True)``) that the
+        sharded preconditioner uses in place of the root FFT solve."""
+        if self._root_dense_solver is None:
+            g = self.levels[0].grid
+            self._root_dense_solver = FastDiagSolver(
+                g, DomainBC.periodic(g.dim), ("cc",) * g.dim,
+                dense_periodic=True, device=self.device)
 
     # -- composite operator ---------------------------------------------------
     def _effective(self, phis: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -166,7 +177,11 @@ class MultiLevelCompositeProjection:
     def _precondition(self, rs):
         if self._external_precond is not None:
             return tuple(self._external_precond(rs))
-        out = [fft.solve_poisson_periodic(rs[0], self.dx[0])]
+        if self.root_sharding is not None:
+            out = [self._root_dense_solver.solve(rs[0], 0.0, 1.0,
+                                                 zero_nullspace=True)]
+        else:
+            out = [fft.solve_poisson_periodic(rs[0], self.dx[0])]
         for l in range(1, self.L):
             out.append(self.box_solvers[l - 1].solve(rs[l], 0.0, 1.0))
         for l in range(self.L - 1):

@@ -5,9 +5,10 @@ arguments.
 ``entry()`` builds the ex4-equivalent 3D elastic shell at a small size
 (32^3 grid, a 16 x 16 marker shell, mu = 0.05) on ``device`` (the GPU
 unless ``device="cpu"``) and returns ``(fn, (state, dt))`` with
-``fn(s, dt) = integ.step(s, dt)``. The reference's
-``dryrun_multichip`` shards the step over a device mesh and waits for the
-port of ``parallel/``.
+``fn(s, dt) = integ.step(s, dt)``. The reference's ``dryrun_multichip``
+(the sharded paths over a device mesh) has its counterpart in
+``chip_smoke.py``'s ``parallel`` phase and ``tests/test_torch_parallel.py``
+(``ibamr_tpu_torch/parallel``).
 """
 
 from __future__ import annotations

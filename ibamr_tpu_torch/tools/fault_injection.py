@@ -35,9 +35,15 @@
   ``device="cpu"``):
   ``python -m ibamr_tpu_torch.tools.fault_injection --smoke``.
 
+- :func:`corrupt_shard`, :func:`drop_shard`, :func:`tear_manifest` and
+  :func:`stale_manifest_shard` damage sharded checkpoints;
+  :func:`run_sharded_smoke` is the sharded-checkpoint drill and
+  :func:`run_sharded_crash_child` its kill-mid-commit victim;
+  ``run_fleet_smoke(mesh_shards=D)`` adds the lane-mesh leg
+  (``--fleet-smoke --mesh 8``).
+
 Every step wrapper acts with ``torch.where`` on device values, so it
-adds no host read to a step. The sharded drills wait for the port of
-``parallel/``.
+adds no host read to a step.
 """
 
 from __future__ import annotations
@@ -406,6 +412,113 @@ def failing_checkpoint_writes(fail_calls, exc_type=OSError):
         _ckpt._write_arrays = orig
 
 
+def _shard_path(directory: str, step: int, shard: int) -> str:
+    from ibamr_tpu_torch.utils.checkpoint_sharded import (_shard_name,
+                                                          _step_dir)
+
+    return os.path.join(_step_dir(directory, step), _shard_name(shard))
+
+
+def corrupt_shard(directory: str, step: int, shard: int = 0,
+                  offset: int | None = None) -> str:
+    """Flip one byte of ONE shard file without changing its size (only
+    that shard's whole-file CRC in the manifest sees it)."""
+    path = _shard_path(directory, step, shard)
+    size = os.path.getsize(path)
+    pos = size // 2 if offset is None else offset
+    with open(path, "r+b") as f:
+        f.seek(pos)
+        b = f.read(1)
+        f.seek(pos)
+        f.write(bytes([b[0] ^ 0xFF]))
+    return path
+
+
+def drop_shard(directory: str, step: int, shard: int = 0) -> str:
+    """Delete ONE shard file of a committed step (a lost host)."""
+    path = _shard_path(directory, step, shard)
+    os.remove(path)
+    return path
+
+
+def tear_manifest(directory: str, step: int) -> str:
+    """Replace a step's manifest with a truncated (invalid-JSON) prefix,
+    what a non-atomic manifest writer killed mid-write would leave."""
+    from ibamr_tpu_torch.utils.checkpoint_sharded import _step_dir
+
+    path = os.path.join(_step_dir(directory, step), "manifest.json")
+    with open(path) as f:
+        payload = f.read()
+    with open(path, "w") as f:
+        f.write(payload[: max(1, len(payload) // 2)].rstrip("}"))
+    return path
+
+
+def stale_manifest_shard(directory: str, step: int, shard: int = 0) -> str:
+    """Rewrite ONE shard file after the manifest committed (arrays x 2: a
+    valid npz with the wrong bytes), the stale-manifest-newer-shard mode
+    of a restarted writer racing an old step."""
+    path = _shard_path(directory, step, shard)
+    with np.load(path) as z:
+        arrays = {k: np.asarray(z[k]) * 2 for k in z.files}
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+    return path
+
+
+def crash_state(step: int, n: int = 64) -> dict:
+    """Closed-form deterministic trajectory: the state after ``step``
+    iterations of a fixed contraction map (float64 numpy, so every
+    process gets the same bits and a parent verifies a killed child's
+    checkpoint by recomputing it)."""
+    u = np.linspace(0.0, 1.0, n)
+    for k in range(1, step + 1):
+        u = np.cos(u) * 0.9 + 0.01 * k
+    return {"u": u, "k": np.int64(step)}
+
+
+def run_sharded_crash_child(directory: str, num_steps: int, interval: int,
+                            keep: int = 3, n_devices: int = 8,
+                            device="cuda") -> int:
+    """The sharded kill-mid-commit victim: :func:`crash_state`'s
+    trajectory laid out over an ``n_devices``-shard 1-D mesh, every
+    checkpoint through ``save_sharded_checkpoint`` (widen the commit
+    window with ``IBAMR_SHARDED_COMMIT_DELAY_S``). Resumes from the
+    newest VERIFIED sharded step; prints ``START <k>``, ``SAVED <k>``
+    and ``DONE`` markers."""
+    from ibamr_tpu_torch.parallel.mesh import make_mesh
+    from ibamr_tpu_torch.parallel.spmd import NamedSharding, P, pin
+    from ibamr_tpu_torch.utils.checkpoint_sharded import (
+        latest_sharded_step, restore_sharded, save_sharded_checkpoint)
+
+    mesh = make_mesh(n_devices, max_axes=1, device=device)
+    sh, rep = NamedSharding(mesh, P("x")), NamedSharding(mesh, P())
+    dev = mesh.first_device
+
+    def place(d):
+        return {"u": pin(torch.as_tensor(d["u"], device=dev), sh),
+                "k": pin(torch.as_tensor(d["k"], device=dev), rep)}
+
+    start = latest_sharded_step(directory)
+    if start is None:
+        start, u = 0, crash_state(0)["u"]
+    else:
+        state, start, _ = restore_sharded(directory,
+                                          place(crash_state(start)),
+                                          step=start)
+        u = state["u"].cpu().numpy()
+    print(f"START {start}", flush=True)
+    for k in range(start + 1, num_steps + 1):
+        u = np.cos(u) * 0.9 + 0.01 * k
+        if k % interval == 0:
+            save_sharded_checkpoint(directory,
+                                    place({"u": u, "k": np.int64(k)}), k,
+                                    keep=keep, mesh=mesh)
+            print(f"SAVED {k}", flush=True)
+    print("DONE", flush=True)
+    return num_steps
+
+
 # ---------------------------------------------------------------------------
 # The drills
 # ---------------------------------------------------------------------------
@@ -705,7 +818,8 @@ def run_replay_smoke(directory: str | None = None, device="cuda") -> dict:
 
 def run_fleet_smoke(directory: str | None = None, fleet_size: int = 8,
                     bad_lane: int = 5, device="cuda",
-                    engine="pallas_packed", dtype=torch.float64) -> dict:
+                    engine="pallas_packed", dtype=torch.float64,
+                    mesh_shards: int = 0) -> dict:
     """End-to-end FLEET drill: B lanes of the 32^3 IB shell (on
     ``engine``) with lane ``bad_lane`` poisoned at its 4th step by an
     un-gated :func:`lane_nan_injector`:
@@ -719,7 +833,12 @@ def run_fleet_smoke(directory: str | None = None, fleet_size: int = 8,
        signatures never change;
     3. every surviving lane's final state is bitwise its solo (B=1) run;
     4. the rollback's single-lane capsule replays bitwise ->
-       ``reproduced``.
+       ``reproduced``;
+    5. with ``mesh_shards`` D, the lane-mesh leg: the same supervised
+       fleet with its lanes laid out over a D-shard lane mesh and
+       sharded checkpoints (a lane rolls back to its initial slice)
+       gives the same incidents, dt vector and alive mask, and every
+       healthy lane is bitwise the replicated fleet's.
     """
     from ibamr_tpu_torch.models.shell3d import build_shell_example
     from ibamr_tpu_torch.tools.replay import replay
@@ -813,7 +932,53 @@ def run_fleet_smoke(directory: str | None = None, fleet_size: int = 8,
         if res["verdict"] != "reproduced" or not res["bitwise"]:
             raise AssertionError(f"lane capsule replay: {res}")
 
+        mesh_leg = None
+        if mesh_shards:
+            from ibamr_tpu_torch.parallel.mesh import (make_lane_mesh,
+                                                       place_lanes)
+            from ibamr_tpu_torch.parallel.spmd import sharding_of
+            from ibamr_tpu_torch.utils.checkpoint_sharded import \
+                _all_sharded_steps
+
+            lm = make_lane_mesh(mesh_shards, device=device)
+            mdir = os.path.join(directory, "lane_mesh")
+            with recorded("lane_nan", **inj):
+                drv_m = HierarchyDriver(
+                    integ, cfg, lanes=B, lane_mesh=lm,
+                    fleet_step_wrap=lambda s: lane_nan_injector(s, **inj))
+                sup_m = ResilientDriver(drv_m, mdir, max_retries=1,
+                                        dt_backoff=0.5,
+                                        handle_signals=False,
+                                        sharded=True, mesh=lm)
+                t0 = time.perf_counter()
+                out_m = sup_m.run(place_lanes(fleet0, lm))
+                mesh_wall = time.perf_counter() - t0
+            ev = [(r["event"], r.get("lane")) for r in sup.incidents]
+            ev_m = [(r["event"], r.get("lane")) for r in sup_m.incidents]
+            if ev != ev_m:
+                raise AssertionError(f"lane-mesh incidents {ev_m} != {ev}")
+            if not (np.array_equal(drv.lane_dt, drv_m.lane_dt)
+                    and np.array_equal(drv.lane_alive, drv_m.lane_alive)):
+                raise AssertionError("lane-mesh dt/alive differ")
+            for i in healthy:
+                if any(not torch.equal(a, b) for a, b in zip(
+                        leaves(lane_slice(out, i)),
+                        leaves(lane_slice(out_m, i)))):
+                    raise AssertionError(f"lane-mesh lane {i} is not "
+                                         f"bitwise the replicated fleet's")
+            lay = sharding_of(out_m.ins.u[0])
+            if lay is None or lay.mesh.size != mesh_shards:
+                raise AssertionError("lane-mesh output lost its layout")
+            if not _all_sharded_steps(mdir):
+                raise AssertionError("lane-mesh run wrote no sharded "
+                                     "checkpoints")
+            mesh_leg = {"shards": mesh_shards,
+                        "lanes_per_shard": B // mesh_shards,
+                        "bitwise_healthy_lanes": len(healthy),
+                        "fleet_wall_s": mesh_wall}
+
         return {"fleet_smoke": "ok", "fleet_size": B, "bad_lane": BAD,
+                "mesh_leg": mesh_leg,
                 "healthy_final_step": cfg.num_steps,
                 "bad_lane_final_step": int(k[BAD]),
                 "lane_rollbacks": len(rolls),
@@ -823,6 +988,228 @@ def run_fleet_smoke(directory: str | None = None, fleet_size: int = 8,
                 "capsule": cap, "replay_verdict": res["verdict"],
                 "fleet_wall_s": fleet_wall,
                 "incidents": sup.incidents, "state": out}
+
+
+def run_sharded_smoke(directory: str | None = None, device="cuda",
+                      n_shards: int = 8) -> dict:
+    """End-to-end SHARDED-checkpoint drill on an ``n_shards`` 1-D mesh of
+    ``device`` shards:
+
+    1. **no-gather save + verified round trip**: a 64^2 f32 state laid
+       out over the mesh saves with every host copy audited to be
+       shard-sized, verifies, and restores bitwise onto the same mesh;
+    2. **elastic restore**: the step restores bitwise onto ONE shard
+       (N -> 1) and onto half the shards (N -> N/2);
+    3. **damage inventory**: a byte flip in one shard, a dropped shard,
+       a torn manifest and a stale shard rewritten after the commit each
+       fail verification; ``latest_sharded_step`` / ``restore_sharded``
+       fall back to the verified step;
+    4. **concurrent-writer collision**: two threads commit the same step;
+       it then verifies and restores bitwise to one writer's state, or
+       fails verification (and fsck flags it), never a verified mix;
+    5. **supervised sharded rollback**: a dt-gated NaN diverges a 16^2
+       INS run on a 2-shard mesh under ``ResilientDriver(sharded=True)``;
+       rollback restores the newest verified sharded step, the run
+       completes, no single-host checkpoint is written, and the
+       incident's capsule records the mesh spec and replays with
+       ``--sharded`` bitwise;
+    6. **fsck gate**: ``tools.ckpt_fsck`` flags the damaged steps (exit
+       1 after ``--repair`` quarantines them), then passes clean.
+    """
+    import shutil
+    import warnings
+
+    from ibamr_tpu_torch.parallel.mesh import (make_mesh,
+                                               make_sharded_ins_step,
+                                               place_state)
+    from ibamr_tpu_torch.parallel.spmd import NamedSharding, P, pin
+    from ibamr_tpu_torch.tools import ckpt_fsck
+    from ibamr_tpu_torch.tools.replay import replay
+    from ibamr_tpu_torch.utils import checkpoint_sharded as cs
+    from ibamr_tpu_torch.utils.flight_recorder import FlightRecorder
+    from ibamr_tpu_torch.utils.hierarchy_driver import (HierarchyDriver,
+                                                        RunConfig)
+    from ibamr_tpu_torch.utils.supervisor import ResilientDriver
+
+    with _workdir(directory) as directory:
+        mesh = make_mesh(n_shards, max_axes=1, device=device)
+        dev = mesh.first_device
+        sh, rep = NamedSharding(mesh, P("x")), NamedSharding(mesh, P())
+        n = 64
+        host_u = np.linspace(-1.0, 1.0, n * n,
+                             dtype=np.float32).reshape(n, n)
+
+        def place(u, m=mesh):
+            return {"u": pin(torch.as_tensor(u, device=dev),
+                             NamedSharding(m, P("x"))),
+                    "k": pin(torch.tensor(7, device=dev),
+                             NamedSharding(m, P()))}
+
+        state = place(host_u)
+
+        # -- 1. no-gather save --------------------------------------------
+        ckdir = os.path.join(directory, "ck")
+        global_bytes = host_u.nbytes
+        fetched: list = []
+        orig_fetch = cs._fetch_shard
+
+        def counting_fetch(data):
+            arr = orig_fetch(data)
+            fetched.append(arr.nbytes)
+            return arr
+
+        cs._fetch_shard = counting_fetch
+        try:
+            cs.save_sharded_checkpoint(ckdir, state, 10, mesh=mesh)
+        finally:
+            cs._fetch_shard = orig_fetch
+        big = [b for b in fetched if b >= global_bytes]
+        if n_shards > 1 and big:
+            raise AssertionError(f"sharded save fetched a global-sized "
+                                 f"array ({big} vs {global_bytes} bytes)")
+        if not cs.verify_sharded_checkpoint(ckdir, 10):
+            raise AssertionError("fresh sharded step failed verify")
+        r, got, _ = cs.restore_sharded(ckdir, state)
+        if got != 10 or not np.array_equal(r["u"].cpu().numpy(), host_u):
+            raise AssertionError("same-mesh sharded restore not bitwise")
+
+        # -- 2. elastic N -> 1 and N -> N/2 --------------------------------
+        for m in (make_mesh(1, device=device),
+                  make_mesh(max(1, n_shards // 2), max_axes=1,
+                            device=device)):
+            rm, _, _ = cs.restore_sharded(ckdir, place(host_u * 0, m))
+            if not np.array_equal(rm["u"].cpu().numpy(), host_u):
+                raise AssertionError(f"elastic restore onto {m.size} "
+                                     f"shards not bitwise")
+
+        # -- 3. damage inventory ---------------------------------------------
+        damaged = {}
+        for step, damage in ((20, corrupt_shard), (30, drop_shard),
+                             (40, tear_manifest),
+                             (50, stale_manifest_shard)):
+            cs.save_sharded_checkpoint(ckdir, state, step, mesh=mesh,
+                                       keep=0)
+            if damage is tear_manifest:
+                damage(ckdir, step)
+            else:
+                damage(ckdir, step, shard=n_shards - 1)
+            if cs.verify_sharded_checkpoint(ckdir, step):
+                raise AssertionError(
+                    f"{damage.__name__} went undetected at step {step}")
+            damaged[damage.__name__] = step
+        if cs.latest_sharded_step(ckdir) != 10:
+            raise AssertionError(f"latest_sharded_step did not fall back: "
+                                 f"{cs.latest_sharded_step(ckdir)}")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, fell_back, _ = cs.restore_sharded(ckdir, state)
+        if fell_back != 10:
+            raise AssertionError("restore_sharded did not fall back")
+
+        # -- 4. concurrent-writer collision ----------------------------------
+        coll = os.path.join(directory, "collision")
+        other = place(host_u + 1.0)
+        errs: list = []
+
+        def write(st):
+            try:
+                cs.save_sharded_checkpoint(coll, st, 60, mesh=mesh)
+            except Exception as e:      # pragma: no cover - diagnostic
+                errs.append(e)
+
+        ts = [threading.Thread(target=write, args=(st,))
+              for st in (state, other)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        if errs:
+            raise AssertionError(f"collision writers raised: {errs}")
+        collided_verified = cs.verify_sharded_checkpoint(coll, 60)
+        if collided_verified:
+            rc, _, _ = cs.restore_sharded(coll, state)
+            ru = rc["u"].cpu().numpy()
+            if not (np.array_equal(ru, host_u)
+                    or np.array_equal(ru, host_u + 1.0)):
+                raise AssertionError("collision produced a verified mix "
+                                     "of two writers' shards")
+        else:
+            # a detectable mix: fsck must flag it; --repair spares a sole
+            # damaged candidate, so the drill directory goes once seen
+            if ckpt_fsck.audit(coll)["clean"]:
+                raise AssertionError("collision step failed verification "
+                                     "but fsck called the tree clean")
+            shutil.rmtree(coll)
+
+        # -- 5. supervised sharded rollback ----------------------------------
+        integ, st0 = _tg16_setup(device=device)
+        mesh2 = make_mesh(min(2, n_shards), max_axes=1, device=device)
+        st0 = place_state(st0, integ.grid, mesh2)
+        dt0 = 1e-3
+        cfg = RunConfig(dt=dt0, num_steps=12, restart_interval=4,
+                        health_interval=2)
+        sup_dir = os.path.join(directory, "supervised")
+        inj = dict(at_step=6, leaf_path="u[0]", dt_gate=dt0 * 0.99)
+        with recorded("nan", **inj):
+            drv = HierarchyDriver(
+                integ, cfg,
+                step_fn=nan_injector_step(make_sharded_ins_step(integ, mesh2),
+                                          **inj),
+                recorder=FlightRecorder(capacity=4))
+            sup = ResilientDriver(drv, sup_dir, max_retries=2,
+                                  dt_backoff=0.5, handle_signals=False,
+                                  sharded=True, mesh=mesh2)
+            out = sup.run(st0)
+        if int(out.k) != cfg.num_steps:
+            raise AssertionError(f"supervised sharded run stopped at "
+                                 f"{int(out.k)}")
+        if not _finite(out.u[0]):
+            raise AssertionError("supervised sharded run non-finite")
+        div = [r for r in sup.incidents if r["event"] == "divergence"]
+        if len(div) != 1 or div[0]["rollback_step"] != 4:
+            raise AssertionError(f"unexpected incidents: {sup.incidents}")
+        if not cs._all_sharded_steps(sup_dir):
+            raise AssertionError("supervised run wrote no sharded steps")
+        if any(f.startswith("restore.") for f in os.listdir(sup_dir)):
+            raise AssertionError("sharded supervision wrote single-host "
+                                 "checkpoints")
+        cap = div[0].get("replay")
+        if not cap:
+            raise AssertionError("divergence incident has no capsule")
+        with open(os.path.join(cap, "manifest.json")) as f:
+            cap_mesh = json.load(f)["fingerprint"].get("mesh")
+        if not cap_mesh or cap_mesh.get("n_shards") != mesh2.size:
+            raise AssertionError(f"capsule fingerprint lacks the mesh "
+                                 f"spec: {cap_mesh}")
+        res = replay(cap, sharded=True)
+        if not (res["sharded_replay"] and res["bitwise"]
+                and res["verdict"] == "reproduced"):
+            raise AssertionError(f"sharded capsule replay: {res}")
+
+        # -- 6. fsck gate ------------------------------------------------------
+        rep_ = ckpt_fsck.audit(directory)
+        n_bad = rep_["counts"]["torn"] + rep_["counts"]["corrupt"]
+        if rep_["clean"] or n_bad < len(damaged):
+            raise AssertionError(f"fsck missed damage: {rep_['counts']} "
+                                 f"vs {damaged}")
+        if ckpt_fsck.main([directory, "--repair", "-q"]) != 1:
+            raise AssertionError("fsck --repair did not exit 1")
+        if not ckpt_fsck.audit(directory)["clean"]:
+            raise AssertionError("tree not clean after repair")
+        if ckpt_fsck.main([directory, "-q"]) != 0:
+            raise AssertionError("fsck exit nonzero on repaired tree")
+        if cs.latest_sharded_step(ckdir) != 10:
+            raise AssertionError("repair touched the verified step")
+
+        return {"sharded_smoke": "ok", "n_shards": n_shards,
+                "shard_fetches": len(fetched),
+                "max_fetch_bytes": max(fetched),
+                "global_bytes": global_bytes,
+                "damage_detected": damaged,
+                "collision_verified": bool(collided_verified),
+                "rollback_step": div[0]["rollback_step"],
+                "replay_verdict": res["verdict"],
+                "fsck_quarantined": n_bad}
 
 
 # ---------------------------------------------------------------------------
@@ -1875,11 +2262,35 @@ def main(argv=None) -> int:
                     help="the inverse-design drill: the eel gait's "
                          "adjoint against a central difference, strict "
                          "Adam descent, one build then cache hits")
+    ap.add_argument("--sharded-smoke", action="store_true",
+                    help="the sharded-checkpoint drill: no-gather save, "
+                         "elastic restore, damage inventory, collision, "
+                         "supervised sharded rollback and its replay, "
+                         "fsck gate")
+    ap.add_argument("--sharded-crash-child", metavar="DIR",
+                    help="run the sharded checkpoint-writer victim loop "
+                         "in DIR (f64, --n-devices shards)")
+    ap.add_argument("--mesh", type=int, default=0, metavar="D",
+                    help="with --fleet-smoke: add the lane-mesh leg on a "
+                         "D-shard lane mesh")
+    ap.add_argument("--n-devices", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--interval", type=int, default=5)
+    ap.add_argument("--keep", type=int, default=3)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.sharded_crash_child:
+        run_sharded_crash_child(args.sharded_crash_child, args.steps,
+                                args.interval, keep=args.keep,
+                                n_devices=args.n_devices,
+                                device=args.device)
+        return 0
     drills = [(args.smoke, run_smoke), (args.silent_smoke, run_silent_smoke),
               (args.replay_smoke, run_replay_smoke),
-              (args.fleet_smoke, run_fleet_smoke),
+              (args.fleet_smoke,
+               lambda device: run_fleet_smoke(device=device,
+                                              mesh_shards=args.mesh)),
+              (args.sharded_smoke, run_sharded_smoke),
               (args.assim_smoke, run_assim_smoke),
               (args.soak_smoke, run_soak_smoke),
               (args.elastic_smoke, run_elastic_smoke),

@@ -26,13 +26,24 @@ another. Lane capsules (one lane sliced out of a fleet chunk) replay as
 a B=1 fleet chunk, with recorded lane faults moved onto lane 0; in the
 port a B=1 fleet chunk is bitwise the solo chunk.
 
-Not ported: ``--sharded`` replay on the recorded device mesh (waits for
-``parallel/``) and the reference's x64 scope (the port has no global
-precision mode: every dtype is explicit in the integrator spec).
+Capsules record unsharded host arrays, so any capsule replays on one
+device. A capsule of a sharded run also records its mesh spec (stamped
+by ``ResilientDriver(sharded=True, mesh=...)``). On one device it runs
+the single-device step, another program than the sharded step's pencil
+solves, so its bits differ from the recorded digest and only the
+failure reproduces. ``--sharded`` re-executes the recorded sharded
+program on a rebuilt mesh of the same shape (its shards on the replay's
+device), bitwise, and degrades to the
+single-device program with ``mesh_degraded: true`` and the
+failure-reproduction pin when that mesh cannot be rebuilt here (a CUDA
+mesh with no GPU), as the reference degrades with too few devices.
+
+Not ported: the reference's x64 scope (the port has no global precision
+mode: every dtype is explicit in the integrator spec).
 
     python -m ibamr_tpu_torch.tools.replay CKPT_DIR/incidents/00000020 \\
         [--override spectral_dtype=f64] [--override engine=scatter] \\
-        [--dt-scale 0.5] [--device cpu] [--json]
+        [--dt-scale 0.5] [--device cpu] [--sharded] [--json]
 """
 
 from __future__ import annotations
@@ -152,11 +163,31 @@ def state_from_capsule(manifest: dict, arrays: dict, template):
             device=leaf.device, dtype=leaf.dtype), template)
 
 
-def rebuild_mesh(mesh_spec: dict):
-    """Refused: a sharded capsule's device mesh waits for the port of
-    ``parallel/``."""
-    raise ReplayError("sharded replay on a recorded device mesh waits "
-                      "for the port of parallel/")
+def rebuild_mesh(mesh_spec: dict, device="cuda"):
+    """The recorded mesh rebuilt on this process: the same shape and
+    axis names, its shards over the devices of ``device``'s type (all
+    on ``cuda:0`` with one card). Raises :class:`ReplayError` when no
+    such device is available."""
+    from ibamr_tpu_torch.parallel.spmd import Mesh, mesh_devices
+
+    shape = tuple(int(s) for s in mesh_spec["shape"])
+    need = int(np.prod(shape))
+    try:
+        devs = mesh_devices(need, device)
+    except RuntimeError as e:
+        raise ReplayError(f"capsule was recorded on a {shape} mesh; it "
+                          f"cannot be rebuilt here: {e}")
+    names = mesh_spec.get("axis_names") or \
+        [f"ax{i}" for i in range(len(shape))]
+    arr = np.empty(need, dtype=object)
+    arr[:] = devs
+    return Mesh(arr.reshape(shape), tuple(names))
+
+
+def _replay_device(manifest: dict, device=None) -> str:
+    spec = manifest["fingerprint"]["integrator"]
+    return str(device or spec.get("device")
+               or spec.get("kwargs", {}).get("device") or "cuda")
 
 
 def execute_chunk(integ, state, dt: float, length: int, step_wrap=None,
@@ -222,7 +253,8 @@ def chunk_failed(manifest: dict, integ, post_state, dt: float) -> bool:
     return False
 
 
-def _run_once(manifest, arrays, overrides, dt_scale, device):
+def _run_once(manifest, arrays, overrides, dt_scale, device,
+              sharded=False):
     from ibamr_tpu_torch.tools.fault_injection import \
         apply_recorded_injectors
 
@@ -251,7 +283,19 @@ def _run_once(manifest, arrays, overrides, dt_scale, device):
             post = execute_lane_chunk(integ, state, dt, length,
                                       step_wrap=wrap)
         else:
-            post = execute_chunk(integ, state, dt, length, step_wrap=wrap)
+            step_fn = None
+            if sharded:
+                # the SAME sharded program the incident ran: the recorded
+                # mesh rebuilt, the capsule state placed on it
+                from ibamr_tpu_torch.parallel.mesh import (make_sharded_step,
+                                                           place_state)
+                mesh = rebuild_mesh(manifest["fingerprint"]["mesh"],
+                                    _replay_device(manifest, device))
+                grid = getattr(integ, "grid", None) or integ.ins.grid
+                state = place_state(state, grid, mesh)
+                step_fn = make_sharded_step(integ, mesh)
+            post = execute_chunk(integ, state, dt, length, step_wrap=wrap,
+                                 step_fn=step_fn)
         crcs = digest_state(post)
         failed = chunk_failed(manifest, integ, post, dt)
     return {"leaf_crcs": crcs, "failed": failed,
@@ -259,15 +303,37 @@ def _run_once(manifest, arrays, overrides, dt_scale, device):
 
 
 def replay(capsule_dir: str, overrides: dict | None = None,
-           dt_scale: float = 1.0, device=None) -> dict:
+           dt_scale: float = 1.0, device=None, sharded: bool = False) -> dict:
     """Full replay: baseline bitwise pin, optional substitution run,
-    structured verdict (see the module docstring)."""
+    structured verdict (see the module docstring). ``sharded=True``
+    re-executes on the recorded mesh, or degrades (``mesh_degraded``)
+    when it cannot be rebuilt here."""
     manifest, arrays = load_capsule(capsule_dir)
     recorded_post = manifest.get("post")
-    base = _run_once(manifest, arrays, None, 1.0, device)
+    mesh_spec = (manifest.get("fingerprint") or {}).get("mesh")
+    mesh_degraded = use_sharded = False
+    if sharded:
+        if manifest.get("lane") is not None:
+            raise ReplayError("lane capsules replay unbatched (B=1); "
+                              "--sharded does not apply")
+        if not mesh_spec or int(mesh_spec.get("n_shards", 1)) <= 1:
+            raise ReplayError(
+                "sharded replay requested but the capsule records no "
+                "multi-shard mesh (was the run supervised with "
+                "ResilientDriver(sharded=True, mesh=...)?)")
+        try:
+            rebuild_mesh(mesh_spec, _replay_device(manifest, device))
+            use_sharded = True
+        except ReplayError:
+            mesh_degraded = True
+    base = _run_once(manifest, arrays, None, 1.0, device, use_sharded)
     if recorded_post and recorded_post.get("leaf_crcs"):
         bitwise = base["leaf_crcs"] == {
             k: int(v) for k, v in recorded_post["leaf_crcs"].items()}
+        if not bitwise and mesh_degraded:
+            # the recorded digest belongs to the sharded program that
+            # could not be rebuilt: pin failure reproduction instead
+            bitwise = base["failed"]
     else:
         # no recorded digest (a stall capsule): the weaker pin
         bitwise = base["failed"]
@@ -280,10 +346,14 @@ def replay(capsule_dir: str, overrides: dict | None = None,
         "dt_scale": float(dt_scale),
         "override_failed": None,
         "dt_dependent": None,
+        "recorded_mesh": mesh_spec,
+        "sharded_replay": use_sharded,
+        "mesh_degraded": mesh_degraded,
     }
     has_sub = bool(overrides) or dt_scale != 1.0
     if has_sub:
-        sub = _run_once(manifest, arrays, overrides, dt_scale, device)
+        sub = _run_once(manifest, arrays, overrides, dt_scale, device,
+                        use_sharded)
         result["override_failed"] = bool(sub["failed"])
     if not bitwise:
         verdict = "not_reproduced"
@@ -333,6 +403,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="rebuild on this device instead of the recorded "
                          "one")
+    ap.add_argument("--sharded", action="store_true",
+                    help="re-execute on the capsule's recorded mesh "
+                         "(degrades when it cannot be rebuilt here)")
     ap.add_argument("--json", action="store_true",
                     help="print the full result dict as JSON")
     args = ap.parse_args(argv)
@@ -343,7 +416,8 @@ def main(argv=None) -> int:
         key, val = item.split("=", 1)
         overrides[key.strip()] = val.strip()
     result = replay(args.capsule, overrides=overrides or None,
-                    dt_scale=args.dt_scale, device=args.device)
+                    dt_scale=args.dt_scale, device=args.device,
+                    sharded=args.sharded)
     if args.json:
         print(json.dumps(result, indent=1))
     else:

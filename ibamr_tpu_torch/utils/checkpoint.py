@@ -20,7 +20,8 @@ copies the state to the host at once (the copy is what the run may not
 overwrite) and a single worker thread writes it, retrying once. Fleet
 checkpoints (``lanes=B``) add per-lane CRCs to the sidecar, so
 :func:`restore_lane` restores one lane from a step whose file is damaged
-in another lane's rows. Sharded checkpoints wait for ``parallel/``.
+in another lane's rows. The per-shard format is
+``utils/checkpoint_sharded.py``.
 """
 
 from __future__ import annotations

@@ -259,6 +259,10 @@ class HierarchyDriver:
     supervisor changes both between chunks. ``fleet_step_wrap`` wraps
     the STACKED step ``(state, dt) -> state`` (``dt`` the (B,) tensor of
     lane dts on the state's device), as the lane fault injectors need.
+    ``lane_mesh`` (``parallel.mesh.make_lane_mesh``, B divisible by its
+    shard count) gives each shard B/D whole lanes: every step each
+    shard's body steps the lanes of its own block, and the chunk's
+    output carries the lane layout. Lane k is the same bits either way.
     """
 
     def __init__(self, integ, cfg: RunConfig,
@@ -273,10 +277,6 @@ class HierarchyDriver:
                  lanes: Optional[int] = None,
                  fleet_step_wrap: Optional[Callable] = None,
                  lane_mesh=None):
-        if lane_mesh is not None:
-            raise NotImplementedError(
-                "HierarchyDriver(lane_mesh=...) is not ported: it shards "
-                "lanes over devices and waits for the port of parallel/")
         self.integ = integ
         self.cfg = cfg
         self.viz_fn = viz_fn
@@ -307,7 +307,18 @@ class HierarchyDriver:
                 "lanes carry independent per-lane dt (driver.lane_dt)")
         self.lanes = lanes
         self.fleet_step_wrap = fleet_step_wrap
-        self.lane_mesh = None
+        # lane_mesh: each shard of the lane mesh owns whole lanes
+        # (parallel.mesh.make_lane_mesh); the per-lane dt and quarantine
+        # machinery is unchanged
+        if lane_mesh is not None and lanes is None:
+            raise ValueError("lane_mesh requires fleet mode (lanes=B)")
+        if lane_mesh is not None:
+            d = int(lane_mesh.devices.size)
+            if lanes % d != 0:
+                raise ValueError(
+                    f"lanes={lanes} not divisible by the {d}-device "
+                    f"lane mesh (each device must own whole lanes)")
+        self.lane_mesh = lane_mesh
         if lanes is not None:
             self.lane_dt = np.full(lanes, float(cfg.dt), dtype=float)
             self.lane_alive = np.ones(lanes, dtype=bool)
@@ -365,8 +376,8 @@ class HierarchyDriver:
         bits pass through). Lane k of B lanes is therefore bitwise the
         same scenario run at B=1, and a B=1 chunk bitwise the solo
         chunk."""
-        from ibamr_tpu_torch.utils.lanes import (lane_mask_shape, lane_slice,
-                                                 stack_lanes)
+        from ibamr_tpu_torch.utils.lanes import (fleet_size, lane_mask_shape,
+                                                 lane_slice, stack_lanes)
 
         base_step = self._base_step
         if self.cfg.remat is not None:
@@ -374,6 +385,10 @@ class HierarchyDriver:
         probe = self.health_probe
         B = int(self.lanes)
         wrap = self.fleet_step_wrap
+        mesh = self.lane_mesh
+        if mesh is not None:
+            from ibamr_tpu_torch.parallel.mesh import (shard_lanes,
+                                                       step_lane_blocks)
 
         def chunk(state, dt, alive):
             dt_host = (dt.detach().cpu().numpy()
@@ -388,11 +403,21 @@ class HierarchyDriver:
             dt_dev = torch.as_tensor(dt_host, device=dev)
             alive_dev = torch.as_tensor(alive_host, device=dev)
 
-            def stacked_step(s, _dt):
+            def step_lanes(s, first):
                 return stack_lanes([
-                    base_step(lane_slice(s, i), float(dt_host[i]))
-                    if alive_host[i] else lane_slice(s, i)
-                    for i in range(B)])
+                    base_step(lane_slice(s, i), float(dt_host[first + i]))
+                    if alive_host[first + i] else lane_slice(s, i)
+                    for i in range(fleet_size(s))])
+
+            if mesh is None:
+                def stacked_step(s, _dt):
+                    return step_lanes(s, 0)
+            else:
+                def stacked_step(s, _dt):
+                    # each shard steps its own whole lanes from its block
+                    return step_lane_blocks(
+                        mesh, s, lambda ctx, blk, first:
+                        step_lanes(blk, first))
 
             step = wrap(stacked_step) if wrap is not None else stacked_step
             for _ in range(n):
@@ -401,6 +426,8 @@ class HierarchyDriver:
                     lambda nl, ol: torch.where(
                         lane_mask_shape(alive_dev, nl), nl, ol),
                     new, state)
+            if mesh is not None:
+                state = shard_lanes(state, mesh)
             if probe is not None:
                 # (7, B) per-lane vitals: still one read per chunk
                 return state, torch.stack(
@@ -529,4 +556,9 @@ class HierarchyDriver:
         if (cfg.viz_dump_interval and self.viz_fn is not None
                 and step % cfg.viz_dump_interval != 0):
             self.viz_fn(state, step)
+        if self.lane_mesh is not None:
+            # a state handed in (a recovered fleet) keeps the lane layout
+            # even when no chunk runs
+            from ibamr_tpu_torch.parallel.mesh import shard_lanes
+            state = shard_lanes(state, self.lane_mesh)
         return state

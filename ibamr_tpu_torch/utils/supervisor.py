@@ -92,9 +92,17 @@ class ResilientDriver:
     handle_signals:
         Install SIGTERM/SIGINT handlers for the duration of ``run``
         (main thread only; silently skipped elsewhere).
-    sharded, mesh:
-        The reference's per-shard checkpoints and device mesh; they wait
-        for the port of ``parallel/`` and raise ``NotImplementedError``.
+    sharded:
+        Write per-shard checkpoints (:mod:`ibamr_tpu_torch.utils.
+        checkpoint_sharded`) through an :class:`~ibamr_tpu_torch.utils.
+        checkpoint_sharded.AsyncShardedWriter`; rollback restores the
+        newest VERIFIED sharded step onto the template's layout (a fleet
+        lane rolls back to its initial slice, as the reference's does),
+        and the preemption save is sharded too.
+    mesh:
+        Recorded into sharded manifests and (through ``recorder.extra``)
+        into incident capsules, so ``tools/replay.py --sharded`` knows
+        the mesh a sharded incident ran on.
     """
 
     def __init__(self, driver, checkpoint_dir: str, *,
@@ -110,10 +118,6 @@ class ResilientDriver:
             raise ValueError("dt_backoff must be in (0, 1]")
         if not (0.0 < quarantine_threshold <= 1.0):
             raise ValueError("quarantine_threshold must be in (0, 1]")
-        if sharded or mesh is not None:
-            raise NotImplementedError(
-                "ResilientDriver(sharded=..., mesh=...) uses the sharded "
-                "checkpoints, which wait for the port of parallel/")
         self.driver = driver
         # rollback keeps PRE-chunk state references (the initial-state
         # restore template, the preemption save of the last good state)
@@ -145,6 +149,16 @@ class ResilientDriver:
         if self.recorder is not None \
                 and getattr(driver, "recorder", None) is None:
             driver.recorder = self.recorder
+        self.sharded = sharded
+        self.mesh = mesh
+        if self.recorder is not None and (sharded or mesh is not None):
+            # capsule fingerprints carry the mesh spec, so a replay can
+            # rebuild the sharded program
+            from ibamr_tpu_torch.utils.checkpoint_sharded import _mesh_spec
+            self.recorder.extra.setdefault("mesh", _mesh_spec(mesh, 1))
+            if mesh is not None:
+                self.recorder.extra.setdefault(
+                    "mesh_shape", [int(s) for s in mesh.devices.shape])
         self._writer = None           # live cadence writer during run()
         self.preempted = False
         self.preempt_signum: Optional[int] = None
@@ -249,9 +263,17 @@ class ResilientDriver:
     # -- rollback -----------------------------------------------------------
 
     def _latest(self):
+        if self.sharded:
+            from ibamr_tpu_torch.utils.checkpoint_sharded import \
+                latest_sharded_step
+            return latest_sharded_step(self.directory)
         return latest_step(self.directory)
 
     def _restore(self, template: Any):
+        if self.sharded:
+            from ibamr_tpu_torch.utils.checkpoint_sharded import \
+                restore_sharded
+            return restore_sharded(self.directory, template)
         return restore_checkpoint(self.directory, template)
 
     def _rollback(self, template: Any, initial: tuple):
@@ -316,7 +338,8 @@ class ResilientDriver:
             # the failing bytes (the restore below rewrites them)
             replay = self._dump_replay(
                 {"kind": e.kind, "step": e.step}, lane=lane)
-            restored = restore_lane(self.directory, state, lane)
+            restored = restore_lane(self.directory, state, lane) \
+                if not self.sharded else None
             if restored is not None:
                 state, ck = restored
                 rollback_step, from_ck = int(ck), True
@@ -375,9 +398,15 @@ class ResilientDriver:
         driver = self.driver
         initial = (state, start_step)
         self._last = initial
-        writer = AsyncCheckpointWriter(
-            self.directory, keep=self.keep,
-            lanes=getattr(driver, "lanes", None))
+        if self.sharded:
+            from ibamr_tpu_torch.utils.checkpoint_sharded import \
+                AsyncShardedWriter
+            writer = AsyncShardedWriter(self.directory, keep=self.keep,
+                                        mesh=self.mesh)
+        else:
+            writer = AsyncCheckpointWriter(
+                self.directory, keep=self.keep,
+                lanes=getattr(driver, "lanes", None))
         self._writer = writer
 
         user_ckpt = driver.checkpoint_fn
@@ -521,9 +550,16 @@ class ResilientDriver:
             except Exception:
                 pass
             st, k = self._last
-            save_checkpoint(self.directory, st, k, keep=self.keep,
-                            metadata={"preempted": True},
-                            lanes=getattr(driver, "lanes", None))
+            if self.sharded:
+                from ibamr_tpu_torch.utils.checkpoint_sharded import \
+                    save_sharded_checkpoint
+                save_sharded_checkpoint(self.directory, st, k,
+                                        keep=self.keep, mesh=self.mesh,
+                                        metadata={"preempted": True})
+            else:
+                save_checkpoint(self.directory, st, k, keep=self.keep,
+                                metadata={"preempted": True},
+                                lanes=getattr(driver, "lanes", None))
             self._record({
                 "event": "preemption",
                 "signal": signal.Signals(e.signum).name,

@@ -158,8 +158,14 @@ def test_composite_projection_matches_reference():
     _close(ref[2:], got[2:], SOLVE)
     assert tp.last_solve_stats["iters"] == jp.last_solve_stats["iters"]
     assert tp.last_solve_stats["converged"]
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tp.build_dense_coarse_solver()
+    # the sharded path's dense-periodic coarse inverse: the reference's
+    tp.build_dense_coarse_solver()
+    jp.build_dense_coarse_solver()
+    r = np.random.default_rng(5).standard_normal(tp.grid.n)
+    _close(jp._coarse_dense_solver.solve(jnp.asarray(r), 0.0, 1.0,
+                                         zero_nullspace=True),
+           tp._coarse_dense_solver.solve(_t(r), 0.0, 1.0,
+                                         zero_nullspace=True), SOLVE)
 
 
 def _vortex(g, A=0.05, s=0.08):

@@ -142,15 +142,22 @@ def test_run_config_rejects(kw, err):
 
 
 def test_driver_features_not_ported_raise():
-    # the probe, recorder, audit, lanes, donate and remat are ported;
-    # sharding lanes over a device mesh waits for parallel/
+    # the probe, recorder, audit, lanes, donate, remat and (since the
+    # parallel layer) the lane mesh are ported; a lane mesh refuses the
+    # fleets the reference refuses
+    from ibamr_tpu_torch.parallel.mesh import make_lane_mesh
+
     cfg = tdrv.RunConfig(dt=1e-3, num_steps=1, donate=True, remat="full")
     integ = SimpleNamespace(step=lambda s, dt: s)
+    mesh = make_lane_mesh(2, device="cpu")
     for kw in (dict(lanes=2), dict(health_probe=object()),
-               dict(recorder=object()), dict(shadow_audit=object())):
+               dict(recorder=object()), dict(shadow_audit=object()),
+               dict(lanes=2, lane_mesh=mesh)):
         tdrv.HierarchyDriver(integ, cfg, **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tdrv.HierarchyDriver(integ, cfg, lanes=2, lane_mesh=object())
+    with pytest.raises(ValueError, match="not divisible"):
+        tdrv.HierarchyDriver(integ, cfg, lanes=3, lane_mesh=mesh)
+    with pytest.raises(ValueError, match="fleet mode"):
+        tdrv.HierarchyDriver(integ, cfg, lane_mesh=mesh)
 
 
 def _recording_driver(mod, integ, cfg, seen):

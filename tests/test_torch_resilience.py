@@ -11,6 +11,7 @@ and the verified-checkpoint fallback, the escalation chain recovering at
 reference's drills hold them."""
 
 import json
+import os
 import warnings
 
 import jax.numpy as jnp
@@ -213,5 +214,12 @@ def test_supervisor_forces_donation_off_and_gives_up(tmp_path):
         sup.run(st0)
     assert [r["event"] for r in sup.incidents] == ["divergence", "give_up"]
     assert sup.incidents[-1]["bad_leaves"] == [".p"]
-    with pytest.raises(NotImplementedError):
-        ResilientDriver(drv, str(tmp_path), sharded=True)
+    # sharded supervision (the parallel layer): the same episode, its
+    # checkpoints in the sharded format only
+    sh_dir = str(tmp_path / "sharded")
+    sup = ResilientDriver(drv, sh_dir, max_retries=1, handle_signals=False,
+                          sharded=True)
+    with pytest.raises(SimulationDiverged):
+        sup.run(st0)
+    assert [r["event"] for r in sup.incidents] == ["divergence", "give_up"]
+    assert not [f for f in os.listdir(sh_dir) if f.startswith("restore.")]

@@ -136,8 +136,10 @@ def test_probe_rides_the_chunks_one_read(tmp_path):
     with pytest.raises(SimulationDiverged) as ei:
         bad.run(st0)
     assert ei.value.step == 3 and ".u[1]" in ei.value.bad_leaves
-    with pytest.raises(NotImplementedError):
-        HierarchyDriver(integ, cfg, lanes=2, lane_mesh=object())
+    from ibamr_tpu_torch.parallel.mesh import make_lane_mesh
+    with pytest.raises(ValueError, match="fleet mode"):
+        HierarchyDriver(integ, cfg, lane_mesh=make_lane_mesh(2,
+                                                            device="cpu"))
 
 
 def test_profile_trace_writes_a_chrome_trace_named_in_the_ledger(tmp_path):
