@@ -14,8 +14,9 @@
 //               f[wrap(x0(t)-1+a), wrap(y0(t)-1+b), z]
 //
 // over the footprint offsets a < W0, b < W1 of tile t (x0(t) =
-// (t / nb1) * t0, y0(t) = (t % nb1) * t1), with the IB_4 weights of
-// delta_ib4.cuh, the function the spread kernels evaluate. Only taps
+// (t / nb1) * t0, y0(t) = (t % nb1) * t1), with the weights of delta.cuh
+// (any of the ten named deltas, support S = 2..6, one kernel instantiation
+// per S), the function the spread kernels evaluate. Only taps
 // inside the footprint count, as in the reference: an empty slot (X = 0)
 // of a tile whose footprint misses the origin gets a partial sum, which
 // the engine then weights by wb = 0. Every slot is evaluated, so the
@@ -29,15 +30,16 @@
 // first copies the 67 MB grid into a 177 MB (B, 169, nz) tile block and
 // then reads it back.
 //
-// Design. One thread per slot over the compact support: it takes the 4
-// nonzero weights of each axis (ib4_weights: from the fraction of the
-// grid coordinate, one square root; every weight outside |t| < 2 is
+// Design. One thread per slot over the compact support: it takes the S
+// weights of each axis (footprint_weights; at IB_4 from the fraction of the
+// grid coordinate, one square root; every weight outside |t| < S/2 is
 // exactly 0), zeroes the x and y taps that fall outside its tile's
-// footprint, and reads the 4 x 4 grid columns of its support, 4 z taps
-// each: 64 independent loads in flight per thread. Slots of a chunk are
-// neighbours on the structure and the chunks of one tile are consecutive
-// in q, so neighbouring threads gather from the same few lines of L1 and
-// L2 (a tile's footprint over all z is 173 KB at 256^3); the whole pack
+// footprint, and reads the S x S grid columns of its support, S z taps
+// each: S^3 independent loads in flight per thread (216 at S = 6).
+// Slots of a chunk are neighbours on the structure and the chunks of one
+// tile are consecutive in q, so neighbouring threads gather from the same
+// few lines of L1 and L2 (a tile's footprint over all z is 173 KB at
+// 256^3 and IB_4); the whole pack
 // runs in about one wave. The sum runs in the reference's nesting (z,
 // then y, then x) as fixed FMA chains: no atomics, bitwise reproducible.
 // At the flagship pack on an H100 80GB HBM3 (700 W), chip_smoke.py's
@@ -47,26 +49,21 @@
 // aligned 16-byte loads.
 //
 // Tensor cores do not pay here: the TPU's matrix unit takes a dense
-// (169, nz) x (nz, c) product per chunk, ~676x the 64 multiply-adds a
-// marker needs; the compact form is a gather bound by bytes, with no
+// (W0 W1, nz) x (nz, c) product per chunk, ~676x the 64 multiply-adds a
+// marker needs at IB_4; the compact form is a gather bound by bytes, with no
 // product left to feed a matrix unit, and its f32 sums must stay exact
 // to f32 rounding, which TF32 is not.
 
 #include <cstdint>
 
-#include "delta_ib4.cuh"
+#include "delta.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;   // one slot per thread
 constexpr int kMaxWidth = 16;   // footprint widths W0, W1 <= kMaxWidth
-constexpr int kMinNz = 5;       // 4 distinct z stencil planes
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  const int r = i % n;
-  return r < 0 ? r + n : r;
-}
-
+template <int S, bool IB4>
 __global__ void __launch_bounds__(kThreads)
 packed_interp_kernel(const int* __restrict__ tid,
                      const float* __restrict__ Xb,
@@ -81,33 +78,34 @@ packed_interp_kernel(const int* __restrict__ tid,
   const float xi = grid_coord(Xb[3 * s + 0], g.lo0, g.dx0, g.off0);
   const float yi = grid_coord(Xb[3 * s + 1], g.lo1, g.dx1, g.off1);
   const float zi = grid_coord(Xb[3 * s + 2], g.lo2, g.dx2, g.off2);
-  // tap k of an axis is the grid point floor(xi) - 1 + k
-  float wx[4], wy[4], wz[4];
-  ib4_weights(xi, wx);
-  ib4_weights(yi, wy);
-  ib4_weights(zi, wz);
-  const int fx = (int)floorf(xi), fy = (int)floorf(yi), fz = (int)floorf(zi);
-  int gx[4], gy[4], gz[4];
+  // tap k of an axis is the grid point first_tap<S>(xi) + k
+  float wx[S], wy[S], wz[S];
+  footprint_weights<S, IB4>(xi, ox, g.n0, g, wx);
+  footprint_weights<S, IB4>(yi, oy, g.n1, g, wy);
+  footprint_weights<S, IB4>(zi, 1, g.nz, g, wz);
+  const int fx = first_tap<S>(xi), fy = first_tap<S>(yi),
+            fz = first_tap<S>(zi);
+  int gx[S], gy[S], gz[S];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int ax = wrap(fx + k - ox, g.n0);   // footprint offsets
-    const int ay = wrap(fy + k - oy, g.n1);
+  for (int k = 0; k < S; ++k) {
+    const int ax = wrap(fx + 1 + k - ox, g.n0);   // footprint offsets
+    const int ay = wrap(fy + 1 + k - oy, g.n1);
     gx[k] = wrap(ox - 1 + ax, g.n0);
     gy[k] = wrap(oy - 1 + ay, g.n1);
-    gz[k] = wrap(fz - 1 + k, g.nz);
+    gz[k] = wrap(fz + k, g.nz);
     if (ax >= g.W0) wx[k] = 0.0f;   // only taps inside the footprint
     if (ay >= g.W1) wy[k] = 0.0f;
   }
   float acc = 0.0f;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < S; ++a) {
     float inner = 0.0f;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
+    for (int b = 0; b < S; ++b) {
       const float* col = f + ((size_t)gx[a] * g.n1 + gy[b]) * g.nz;
       float sz = 0.0f;
 #pragma unroll
-      for (int p = 0; p < 4; ++p) sz = fmaf(col[gz[p]], wz[p], sz);
+      for (int p = 0; p < S; ++p) sz = fmaf(col[gz[p]], wz[p], sz);
       inner = fmaf(wy[b], sz, inner);
     }
     acc = fmaf(wx[a], inner, acc);
@@ -117,22 +115,30 @@ packed_interp_kernel(const int* __restrict__ tid,
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
+// Launches on `stream` the instantiation for S = g.support (IB_4's own
+// at IB_4); returns
+// cudaGetLastError() of the launch.
 extern "C" int packed_interp_launch(const int* tid, const float* Xb,
                                     const float* f, float* out, int Q, int c,
                                     TileGeom g, void* stream) {
   const long long slots = (long long)Q * c;
   const long long blocks = (slots + kThreads - 1) / kThreads;
-  if (blocks == 0) return 0;
-  packed_interp_kernel<<<(unsigned)blocks, kThreads, 0,
-                         (cudaStream_t)stream>>>(tid, Xb, f, out, Q, c, g);
-  return (int)cudaGetLastError();
+  return with_support(g, [&](auto s, auto ib4) {
+    if (blocks == 0) return 0;
+    packed_interp_kernel<decltype(s)::value, decltype(ib4)::value>
+        <<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            tid, Xb, f, out, Q, c, g);
+    return (int)cudaGetLastError();
+  });
 }
 
-extern "C" int packed_interp_limits(int* max_chunk, int* max_width,
-                                    int* min_nz) {
+// The limits of the instantiation for support S; nonzero for an S that
+// has none.
+extern "C" int packed_interp_limits(int S, int* max_chunk, int* max_width,
+                                    int* min_z) {
+  if (S < 2 || S > 6) return (int)cudaErrorInvalidValue;
   *max_chunk = 1 << 30;   // one thread per slot: any chunk size
   *max_width = kMaxWidth;
-  *min_nz = kMinNz;
+  *min_z = S + 1;         // S distinct z stencil planes
   return 0;
 }

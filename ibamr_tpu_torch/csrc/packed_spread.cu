@@ -12,8 +12,10 @@
 // nondecreasing, so a tile's chunks are one contiguous range of slots; a
 // tile's markers fill a prefix of its range, and the chunks past the last
 // allocated one are pinned to the last tile with coef 0 and X 0. The grid
-// component g (n0, n1, nz) f32 sums, over every slot, the marker's IB_4
-// weights times its coef (spread_column.cuh, which holds the design: a
+// component g (n0, n1, nz) f32 sums, over every slot, the marker's
+// weights (any of the ten named deltas, support S = 2..6, one kernel
+// instantiation per S) times its coef (spread_column.cuh, which holds the
+// design: a
 // block per tile's core column, the distinct 3 x 3 neighbour tiles walked
 // once, fixed-point sums in shared memory, each slab stored once; a column
 // no live slot reaches is stored as zeros, which is the reference's mask).
@@ -60,6 +62,7 @@ __device__ int warp_lower_bound(const int* __restrict__ tid, int Q, int key,
   return lo;
 }
 
+template <int S, bool IB4>
 __global__ void __launch_bounds__(kThreads)
 packed_spread_kernel(const int* __restrict__ tid,
                      const float* __restrict__ Xb,
@@ -83,40 +86,54 @@ packed_spread_kernel(const int* __restrict__ tid,
     }
   }
   __syncthreads();
-  spread_column(col, Xb, coef, out, table, g, smem);
+  spread_column<S, IB4>(col, Xb, coef, out, table, g, smem);
 }
 
-}  // namespace
-
-// Launches on `stream`; returns cudaGetLastError() of the launch. The
-// shared memory (one slab of the column in fixed point, 19 KB at tile 8;
-// 30 KB of records; a 24 KB staging ring; an 8 KB chunk table: two blocks
-// fit an SM) passes the 48 KB default of dynamic shared memory, so the
-// kernel's limit is raised first.
-extern "C" int packed_spread_launch(const int* tid, const float* Xb,
-                                    const float* coef, float* out, int Q,
-                                    int c, TileGeom g, void* stream) {
+// Launches on `stream` the instantiation for S = g.support (IB_4's own
+// at IB_4); returns
+// cudaGetLastError() of the launch. The shared memory (one slab of the
+// column in fixed point, 19 KB at tile 8; the records, 30 KB at S = 4 and
+// 50 KB at S = 6; a 24 KB staging ring; an 8 KB chunk table: two blocks
+// fit an SM) passes the 48 KB default of dynamic shared memory, so each
+// instantiation's limit is raised first.
+template <int S, bool IB4>
+int launch(const int* tid, const float* Xb, const float* coef, float* out,
+           int Q, int c, const TileGeom& g, cudaStream_t stream) {
   const int table = column_table(Q * ((c + 31) / 32));
-  const int smem = column_smem(g.t0, g.t1, table);
+  const int smem = column_smem(S, g.t0, g.t1, table);
   static int smem_set = 0;
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        packed_spread_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        packed_spread_kernel<S, IB4>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
   const int B = (g.n0 / g.t0) * g.nb1;
-  packed_spread_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+  packed_spread_kernel<S, IB4><<<B, kThreads, smem, stream>>>(
       tid, Xb, coef, out, Q, c, table, g);
   return (int)cudaGetLastError();
 }
 
-extern "C" int packed_spread_limits(int* max_slots, int* max_width,
-                                    int* min_nz) {
+}  // namespace
+
+extern "C" int packed_spread_launch(const int* tid, const float* Xb,
+                                    const float* coef, float* out, int Q,
+                                    int c, TileGeom g, void* stream) {
+  return with_support(g, [&](auto s, auto ib4) {
+    return launch<decltype(s)::value, decltype(ib4)::value>(
+        tid, Xb, coef, out, Q, c, g, (cudaStream_t)stream);
+  });
+}
+
+// The limits of the instantiation for support S; nonzero for an S that
+// has none.
+extern "C" int packed_spread_limits(int S, int* max_slots, int* max_width,
+                                    int* min_z) {
+  if (S < 2 || S > 6) return (int)cudaErrorInvalidValue;
   // every slot of the layout may lie around one column
   *max_slots = kMaxSlots;
   *max_width = kMaxWidth;
-  *min_nz = kMinNz;
+  *min_z = min_nz(S);
   return 0;
 }

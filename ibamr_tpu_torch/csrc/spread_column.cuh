@@ -8,17 +8,20 @@
 //                footprint offsets (a, b) of t with x0(t)-1+a = x and
 //                y0(t)-1+b = y (mod n):  wx[a,m] * wy[b,m] * wz[z,m] * coef[m]
 //
-// with the IB_4 weights (delta_ib4.cuh) of the marker's 4 x 4 x 4 compact
-// support: every weight outside |t| < 2 is exactly 0. The caller names the
+// with the weights (delta.cuh) of one of the ten named deltas over the
+// marker's S x S x S compact support (S = 2..6, a template parameter; the
+// delta among those of support S is g.delta): every weight outside
+// |t| < S/2 is exactly 0. The caller names the
 // slots: for each of the 9 tiles around the column, one contiguous range of
 // slots of Xb (slot, 3) and coef (slot); a slot with coef 0 adds nothing
 // and is not read further.
 //
 // Design. A block owns the column of one tile's t0 x t1 core cells over
 // all nz planes and writes it once, in z-contiguous rows, 32 planes (a
-// slab) at a time. A tile's footprint spans cells x0-1 .. x0+t0+3, so the
-// core receives markers of the tiles t-1, t, t+1 on each blocked axis
-// only; the caller lists the distinct tiles among those 3 x 3 (at nblk = 2
+// slab) at a time. A tile's footprint spans cells x0-1 .. x0+t0+S-1, and
+// a tile is at least S + 1 cells wide (make_geometry), so the core
+// receives markers of the tiles t-1, t, t+1 on each blocked axis only;
+// the caller lists the distinct tiles among those 3 x 3 (at nblk = 2
 // the two neighbours on an axis are one tile). Their slot ranges are cut
 // into 32-slot chunks. A first pass screens every chunk: each warp reads
 // the coef of 4 chunks at once, then the X of their live slots only, and
@@ -40,18 +43,26 @@
 // atomics (a high and a low part per cell, both exact): integer addition
 // is associative, so the warps add their markers concurrently and the grid
 // is bitwise reproducible run to run. s comes from the column's largest
-// |coef| and its count N of live slots that reach the core, which bounds
-// the terms of any cell: the low part keeps min(18, 32 - ceil(log2 N))
-// bits, so N of them sum below 2^32, and up to N = 2^15 every term keeps
-// 35 bits below 2^e >= 2 max|coef| (IB_4 weights are at most 1/2, so a
-// term stays below 2^32 and the high parts below 2^30); past 2^15 each
-// doubling of N gives up 2 of those bits. A warp adds one marker at a
-// time, its 64 taps over the lanes, so the 32 addresses of one atomic are
-// distinct cells in distinct banks. Each term is the f32 product the
-// reference forms, rounded to 2^-s; each cell is rounded to f32 once, from
-// the exact sum.
+// |coef| < 2^e and its count N of live slots that reach the core, which
+// bounds the terms of any cell: the low part keeps min(18, 32 -
+// ceil(log2 N)) bits, so N of them sum below 2^32, and a term keeps
+// 35 - cut bits below 2^e up to N = 2^15, past which each doubling of N
+// gives up 2 more. The bound: a term is wx wy (wz coef) with each weight
+// at most max phi, so |term| < 2^e (max phi)^3, and its scaled value
+// |term| 2^(35 - cut - e) stays below 2^32 when (2 max phi)^3 <= 2^cut,
+// that is cut = ceil(3 log2(2 max phi)); the high parts (each below
+// 2^(32 - low)) of N terms then sum below 2^30. The host passes cut with
+// the delta (ops/delta.py::CUDA_DELTAS): 0 for IB_4 and COSINE (max phi =
+// 1/2) and IB_6 (0.4465, its table's largest entry); 1 for BSPLINE_5
+// (115/192) and BSPLINE_6 (11/20); 2 for IB_3 and BSPLINE_4 (2/3) and
+// BSPLINE_3 (3/4); 3 for PIECEWISE_LINEAR and BSPLINE_2 (1). Without the
+// cut a hat's term at a pole would reach 2^35 and its high part overflow.
+// A warp adds one marker at a time, its S^3 taps in rounds of 32 over the
+// lanes, so the 32 addresses of one atomic are distinct cells (at S = 4
+// in distinct banks). Each term is the f32 product the reference forms,
+// rounded to 2^-s; each cell is rounded to f32 once, from the exact sum.
 //
-// Tensor cores do not pay here: each marker adds a rank-1 4 x 4 x 4 block,
+// Tensor cores do not pay here: each marker adds a rank-1 S x S x S block,
 // and the dense product over the footprint that the TPU's matrix unit
 // takes was 9.2x slower than compact support on this card (the first
 // design of packed_spread.cu); the operands are f32 and the sum must stay
@@ -60,7 +71,7 @@
 
 #include <cstdint>
 
-#include "delta_ib4.cuh"
+#include "delta.cuh"
 
 namespace {
 
@@ -70,20 +81,25 @@ constexpr int kSlab = 32;              // z planes stored at a time
 constexpr int kDepth = 3;              // 32-slot chunks in flight per warp
 constexpr int kGroup = 4;              // chunks a warp screens at once
 constexpr int kMaxWidth = 16;          // footprint widths W0, W1 <= kMaxWidth
-constexpr int kMinNz = 5;              // 4 distinct z stencil planes
+// S + 1 planes at least, so that a marker's S z taps are distinct planes
+__host__ __device__ constexpr int min_nz(int S) { return S + 1; }
 constexpr int kNeighbours = 9;         // the 3 x 3 tiles around a column
 constexpr int kTable = 1024;           // 32-slot chunks a column tables
 // slots around a column a launch may have (Q * c for the packed layout,
 // 9 * cap for the per-tile one): up to 2^20 live slots, a column keeps 25
-// bits of each term (below)
+// bits of each term, less the delta's cut (below)
 constexpr int kMaxSlots = 1 << 20;
-constexpr int kTermBits = 35;          // a term's bits below 2^e
+constexpr int kTermBits = 35;          // a term's bits below 2^e, cut 0
 constexpr int kLowBits = 18;           // the low part's bits, N <= 2^14
-// per-marker record: 4 x, 4 y, 4 z weights (the z weights carry coef),
-// then the box offsets of the 4 x, 4 y and 4 z taps as bytes (kOutside
-// for a tap outside the box or of weight 0); the odd stride keeps the
-// lanes' record writes conflict-free
-constexpr int kRec = 15;
+// per-marker record at support S: S x, S y, S z weights (the z weights
+// carry coef), then the box offsets of the S x, S y and S z taps as
+// bytes, ceil(S / 4) words per axis (kOutside for a tap outside the box or
+// of weight 0); the odd stride keeps the lanes' record writes
+// conflict-free: 9, 13, 15, 21 and 25 words at S = 2..6
+__host__ __device__ constexpr int offset_words(int S) { return (S + 3) / 4; }
+__host__ __device__ constexpr int record_words(int S) {
+  return (3 * S + 3 * offset_words(S)) | 1;
+}
 constexpr unsigned kOutside = 0xffu;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -100,15 +116,6 @@ struct Column {
   unsigned n_live;             // live slots reaching the core
 };
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  const int r = i % n;
-  return r < 0 ? r + n : r;
-}
-// i mod n for i in [-n, 2n), without a division
-__device__ __forceinline__ int wrap1(int i, int n) {
-  return i < 0 ? i + n : (i >= n ? i - n : i);
-}
-
 // Tile j (0..8, dx = j / 3 - 1, dy = j % 3 - 1) around the column of tile
 // (cx, cy); `repeat` for the second of two equal neighbours at nblk = 2.
 __device__ __forceinline__ int neighbour_tile(int j, int cx, int cy,
@@ -120,19 +127,23 @@ __device__ __forceinline__ int neighbour_tile(int j, int cx, int cy,
 }
 
 // Row strides of the slab accumulators, laid out [x][y][z]: z stride 1,
-// y stride kSlab + 4 (= 4 mod 32), x stride = 16 mod 32, so the 32 taps
-// (2 x, 4 y, 4 z) of one marker that a warp adds at once fall in 32
-// distinct banks.
+// y stride kSlab + 4 (= 4 mod 32), x stride = 16 mod 32, so at S = 4 the
+// 32 taps (2 x, 4 y, 4 z) of one marker that a warp adds at once fall in
+// 32 distinct banks (other supports may share a bank: time, not bits).
 __host__ __device__ constexpr int y_stride() { return kSlab + 4; }
 __host__ __device__ constexpr int x_stride(int t1) {
   return t1 * y_stride() + (16 - (t1 * y_stride()) % 32 + 32) % 32;
 }
 
-// Dynamic shared memory of a launch whose column table holds `table`
-// chunks: one slab in fixed point, the records, the ring, the table.
-__host__ __device__ constexpr int column_smem(int t0, int t1, int table) {
+// Dynamic shared memory of a launch at support S whose column table holds
+// `table` chunks: one slab in fixed point, the records, the ring, the
+// table. At tile 8 and a table of 1,024 chunks: 81.0 KB at S = 4 and
+// 101.0 KB at S = 6 (records 30 -> 50 KB): two blocks fit an SM's 227 KB.
+__host__ __device__ constexpr int column_smem(int S, int t0, int t1,
+                                              int table) {
   return (int)sizeof(int) * 2 * t0 * x_stride(t1) +
-         (int)sizeof(float) * (kThreads * kRec + kWarps * kDepth * 128) +
+         (int)sizeof(float) *
+             (kThreads * record_words(S) + kWarps * kDepth * 128) +
          (int)(sizeof(int) + sizeof(unsigned)) * table;
 }
 // The table of a launch whose columns have at most `chunks` chunks.
@@ -153,20 +164,27 @@ __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kDepth - 1) : "memory");
 }
 
-// The core offsets l[k] in [0, tc) of the stencil points floor(xi)-1+k of
-// a marker of the tile with origin cell o on a blocked axis of n cells,
-// for the core [c0, c0 + tc); -1 for a point outside the core or outside
-// the tile's footprint of W cells from o - 1.
+// The core offsets l[k] in [0, tc) of the stencil points first_tap<S>(xi)
+// + k of a marker of the tile with origin cell o on a blocked axis of n
+// cells, for the core [c0, c0 + tc); -1 for a point outside the core or
+// outside the tile's footprint of W cells from o - 1.
+template <int S>
 struct Taps {
-  int l[4];
-  __device__ bool any() const { return (l[0] & l[1] & l[2] & l[3]) >= 0; }
-};
-__device__ __forceinline__ Taps core_taps(float xi, int o, int W, int n,
-                                          int c0, int tc) {
-  Taps t;
-  const int base = wrap((int)floorf(xi) - o, n);
+  int l[S];
+  __device__ bool any() const {  // some l[k] >= 0: the AND keeps the sign
+    int a = l[0];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+    for (int k = 1; k < S; ++k) a &= l[k];
+    return a >= 0;
+  }
+};
+template <int S>
+__device__ __forceinline__ Taps<S> core_taps(float xi, int o, int W, int n,
+                                             int c0, int tc) {
+  Taps<S> t;
+  const int base = wrap(first_tap<S>(xi) + 1 - o, n);  // offset of tap 0
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
     const int a = wrap1(base + k, n);  // footprint offset
     const int l = wrap1(o - 1 + a, n) - c0;
     t.l[k] = (a < W && l >= 0 && l < tc) ? l : -1;
@@ -182,9 +200,11 @@ __device__ __forceinline__ int neighbour_of(const Column& col, int i) {
 }
 
 // Spread the slots of `col` onto the core column of tile blockIdx.x (tile
-// (cx, cy) = (blockIdx.x / nb1, blockIdx.x % nb1)). All threads of the
-// block call it after the caller has filled col.tile, col.base and col.len
-// and synchronised. `table` = column_table(the most chunks of a column).
+// (cx, cy) = (blockIdx.x / nb1, blockIdx.x % nb1)) at support S =
+// g.support. All threads of the block call it after the caller has filled
+// col.tile, col.base and col.len and synchronised. `table` =
+// column_table(the most chunks of a column). IB4: IB_4's instantiation.
+template <int S, bool IB4>
 __device__ __forceinline__ void spread_column(Column& col,
                                               const float* __restrict__ Xb,
                                               const float* __restrict__ coef,
@@ -201,13 +221,15 @@ __device__ __forceinline__ void spread_column(Column& col,
   unsigned* acc_lo = reinterpret_cast<unsigned*>(smem);
   int* acc_hi = reinterpret_cast<int*>(acc_lo + n_acc);
   float* rec = reinterpret_cast<float*>(acc_hi + n_acc);  // per thread
+  constexpr int kRec = record_words(S);
+  constexpr int kOff = 3 * S;                 // the offset words' start
+  constexpr int kNW = offset_words(S);
   float* ring = rec + kThreads * kRec;                     // per warp
   int* s_ent = reinterpret_cast<int*>(ring + kWarps * kDepth * 128);
   unsigned* s_mask = reinterpret_cast<unsigned*>(s_ent + table);
   float* my_rec = rec + threadIdx.x * kRec;
   unsigned* my_rec_u = reinterpret_cast<unsigned*>(my_rec);
   float* my_ring = ring + warp * kDepth * 128;
-  const int sx_lo = lane >> 4, sy = (lane >> 2) & 3, sz = lane & 3;
 
   const int cx = blockIdx.x / g.nb1, cy = blockIdx.x % g.nb1;
   const int X0 = cx * g.t0, Y0 = cy * g.t1;
@@ -227,13 +249,16 @@ __device__ __forceinline__ void spread_column(Column& col,
   const int n_chunks = col.first[kNeighbours];
 
   // a marker's grid coordinates and taps inside the core (blocked axes)
+  // and the origins (ox, oy) of its tile
   auto core_xy = [&](int j, float x, float y, float& xi, float& yi,
-                     Taps& tx, Taps& ty) {
+                     Taps<S>& tx, Taps<S>& ty, int& ox, int& oy) {
     const int t = col.tile[j];
+    ox = (t / g.nb1) * g.t0;
+    oy = (t % g.nb1) * g.t1;
     xi = grid_coord(x, g.lo0, g.dx0, g.off0);
     yi = grid_coord(y, g.lo1, g.dx1, g.off1);
-    tx = core_taps(xi, (t / g.nb1) * g.t0, g.W0, g.n0, X0, g.t0);
-    ty = core_taps(yi, (t % g.nb1) * g.t1, g.W1, g.n1, Y0, g.t1);
+    tx = core_taps<S>(xi, ox, g.W0, g.n0, X0, g.t0);
+    ty = core_taps<S>(yi, oy, g.W1, g.n1, Y0, g.t1);
     return tx.any() && ty.any();
   };
 
@@ -275,15 +300,16 @@ __device__ __forceinline__ void spread_column(Column& col,
       if (i >= n_chunks) break;  // uniform over the warp
       unsigned bits = 0, mag = 0;
       float xi, yi;
-      Taps tx, ty;
-      const bool live =
-          cf[k] != 0.0f && core_xy(jn[k], vx[k], vy[k], xi, yi, tx, ty);
+      Taps<S> tx, ty;
+      int ox, oy;
+      const bool live = cf[k] != 0.0f &&
+                        core_xy(jn[k], vx[k], vy[k], xi, yi, tx, ty, ox, oy);
       if (live) {
         const int zf = wrap(
-            (int)floorf(grid_coord(vz[k], g.lo2, g.dx2, g.off2)), g.nz);
+            first_tap<S>(grid_coord(vz[k], g.lo2, g.dx2, g.off2)), g.nz);
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          bits |= 1u << min(wrap1(zf - 1 + q, g.nz) / kSlab, 31);
+        for (int q = 0; q < S; ++q)
+          bits |= 1u << min(wrap1(zf + q, g.nz) / kSlab, 31);
         mag = __float_as_uint(fabsf(cf[k]));
       }
       const unsigned n_in = __popc(__ballot_sync(kFull, live));
@@ -334,7 +360,8 @@ __device__ __forceinline__ void spread_column(Column& col,
   const int low = min(kLowBits, 32 - lg);
   int e;
   frexpf(__uint_as_float(col.max_coef), &e);  // max|coef| < 2^e
-  const int shift = max(-126, min(kTermBits - e - max(0, 2 * lg - 30), 126));
+  const int shift =
+      max(-126, min(kTermBits - g.cut - e - max(0, 2 * lg - 30), 126));
   const float scale = __int_as_float((127 + shift) << 23);  // 2^shift
   const float unit = __int_as_float((127 - shift) << 23);   // 2^-shift
   const long long low_mask = (1ll << low) - 1;
@@ -407,58 +434,101 @@ __device__ __forceinline__ void spread_column(Column& col,
     walk(bit, [&](int j, float4 v, bool filled) {
       // each lane records its marker's taps inside the box ...
       float xi, yi;
-      Taps tx, ty;
+      Taps<S> tx, ty;
+      int ox, oy;
       bool live = false;
-      if (filled && core_xy(j, v.x, v.y, xi, yi, tx, ty)) {
+      if (filled && core_xy(j, v.x, v.y, xi, yi, tx, ty, ox, oy)) {
         const float zi = grid_coord(v.z, g.lo2, g.dx2, g.off2);
-        const int zf = wrap((int)floorf(zi), g.nz);
-        float wx[4], wy[4], wz[4];
-        ib4_weights(xi, wx);
-        ib4_weights(yi, wy);
-        ib4_weights(zi, wz);
-        unsigned xo = 0, yo = 0, zo = 0;
+        const int zf = wrap(first_tap<S>(zi), g.nz);
+        float wx[S], wy[S], wz[S];
+        footprint_weights<S, IB4>(xi, ox, g.n0, g, wx);
+        footprint_weights<S, IB4>(yi, oy, g.n1, g, wy);
+        footprint_weights<S, IB4>(zi, 1, g.nz, g, wz);
+        unsigned xo[kNW], yo[kNW], zo[kNW];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int zl = wrap1(zf - 1 + k, g.nz) - z0;
-          const bool in_z = zl >= 0 && zl < kSlab && wz[k] != 0.0f;
+        for (int w = 0; w < kNW; ++w) xo[w] = yo[w] = zo[w] = 0;
+        bool in_x = false, in_y = false, in_z = false;
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          const int zl = wrap1(zf + k, g.nz) - z0;
+          const bool ix = tx.l[k] >= 0 && wx[k] != 0.0f;
+          const bool iy = ty.l[k] >= 0 && wy[k] != 0.0f;
+          const bool iz = zl >= 0 && zl < kSlab && wz[k] != 0.0f;
+          const int sh = 8 * (k & 3);
           my_rec[k] = wx[k];
-          my_rec[4 + k] = wy[k];
-          my_rec[8 + k] = __fmul_rn(wz[k], v.w);
-          xo |= (tx.l[k] >= 0 && wx[k] != 0.0f ? (unsigned)tx.l[k]
-                                                : kOutside) << (8 * k);
-          yo |= (ty.l[k] >= 0 && wy[k] != 0.0f ? (unsigned)ty.l[k]
-                                                : kOutside) << (8 * k);
-          zo |= (in_z ? (unsigned)zl : kOutside) << (8 * k);
+          my_rec[S + k] = wy[k];
+          my_rec[2 * S + k] = __fmul_rn(wz[k], v.w);
+          xo[k >> 2] |= (ix ? (unsigned)tx.l[k] : kOutside) << sh;
+          yo[k >> 2] |= (iy ? (unsigned)ty.l[k] : kOutside) << sh;
+          zo[k >> 2] |= (iz ? (unsigned)zl : kOutside) << sh;
+          in_x |= ix;
+          in_y |= iy;
+          in_z |= iz;
         }
-        my_rec_u[12] = xo;
-        my_rec_u[13] = yo;
-        my_rec_u[14] = zo;
-        live = xo != kFull && yo != kFull && zo != kFull;
+#pragma unroll
+        for (int w = 0; w < kNW; ++w) {
+          my_rec_u[kOff + w] = xo[w];
+          my_rec_u[kOff + kNW + w] = yo[w];
+          my_rec_u[kOff + 2 * kNW + w] = zo[w];
+        }
+        live = in_x && in_y && in_z;
       }
-      // ... and the warp adds them one marker at a time, its 64 taps
-      // (distinct cells) over the lanes; integer adds commute, so no
-      // ordering between markers is needed
+      // ... and the warp adds them one marker at a time, its S^3 taps
+      // (distinct cells) in rounds of 32 over the lanes, tap i = 32 rd +
+      // lane being (i / S^2, i / S % S, i % S); integer adds commute, so
+      // no ordering between markers is needed
       unsigned todo = __ballot_sync(kFull, live);
       __syncwarp();
       while (todo) {
         const int src = __ffs(todo) - 1;
         todo &= todo - 1;
         const float* r = rec + (warp * 32 + src) * kRec;
-        const unsigned* ru = reinterpret_cast<const unsigned*>(r);
-        const unsigned yo = (ru[13] >> (8 * sy)) & 0xffu;
-        const unsigned zo = (ru[14] >> (8 * sz)) & 0xffu;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int sx = 2 * h + sx_lo;
-          const unsigned xo = (ru[12] >> (8 * sx)) & 0xffu;
+        const unsigned* ru = reinterpret_cast<const unsigned*>(r) + kOff;
+        auto byte = [](unsigned word, int k) {
+          return (word >> (8 * (k & 3))) & 0xffu;
+        };
+        // the box offsets and the y weight of taps (., sy, sz)
+        auto yz = [&](int sy, int sz, unsigned& yo, unsigned& zo,
+                      float& wy) {
+          yo = byte(ru[kNW + (sy >> 2)], sy);
+          zo = byte(ru[2 * kNW + (sz >> 2)], sz);
+          wy = r[S + sy];
+        };
+        auto add = [&](int sx, int sz, unsigned yo, unsigned zo, float wy) {
+          const unsigned xo = byte(ru[sx >> 2], sx);
           if (xo != kOutside && yo != kOutside && zo != kOutside) {
             const float term =
-                __fmul_rn(__fmul_rn(r[sx], r[4 + sy]), r[8 + sz]);
+                __fmul_rn(__fmul_rn(r[sx], wy), r[2 * S + sz]);
             const long long q = __float2ll_rn(__fmul_rn(term, scale));
             const int i = xo * xs + yo * ys + zo;
             // q = hi * 2^low + lo, hi = floor(q / 2^low)
             atomicAdd(acc_lo + i, (unsigned)(q & low_mask));
             atomicAdd(acc_hi + i, (int)(q >> low));
+          }
+        };
+        constexpr int kTaps = S * S * S;
+        if constexpr (32 % (S * S) == 0) {
+          // every round gives the lane the same (sy, sz): read them once
+          const int sy = (lane / S) % S, sz = lane % S;
+          unsigned yo, zo;
+          float wy;
+          yz(sy, sz, yo, zo, wy);
+#pragma unroll
+          for (int rd = 0; rd < (kTaps + 31) / 32; ++rd) {
+            const int i = 32 * rd + lane;
+            if (i < kTaps) add(i / (S * S), sz, yo, zo, wy);
+          }
+        } else {
+#pragma unroll
+          for (int rd = 0; rd < (kTaps + 31) / 32; ++rd) {
+            const int i = 32 * rd + lane;
+            if (i < kTaps) {
+              const int sy = (i / S) % S, sz = i % S;
+              unsigned yo, zo;
+              float wy;
+              yz(sy, sz, yo, zo, wy);
+              add(i / (S * S), sz, yo, zo, wy);
+            }
           }
         }
       }

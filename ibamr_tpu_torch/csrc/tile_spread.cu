@@ -9,8 +9,9 @@
 // The layout is the unpacked per-tile one (interaction_fast.bucket_markers):
 // B tiles of `cap` slots, row t holding tile t's markers in its first
 // counts[t] slots. The grid component g (n0, n1, nz) f32 sums, over the
-// filled slots of every tile, the marker's IB_4 weights times its coef
-// (spread_column.cuh, which holds the design: a block per tile's core
+// filled slots of every tile, the marker's weights (any of the ten named
+// deltas, support S = 2..6, one kernel instantiation per S) times its
+// coef (spread_column.cuh, which holds the design: a block per tile's core
 // column, the distinct 3 x 3 neighbour tiles walked once, fixed-point sums
 // in shared memory, each slab stored once).
 //
@@ -28,6 +29,7 @@
 
 namespace {
 
+template <int S, bool IB4>
 __global__ void __launch_bounds__(kThreads)
 tile_spread_kernel(const float* __restrict__ Xb,
                    const float* __restrict__ coef,
@@ -45,40 +47,55 @@ tile_spread_kernel(const float* __restrict__ Xb,
     col.len[j] = repeat ? 0 : min(max(counts[t], 0), cap);
   }
   __syncthreads();
-  spread_column(col, Xb, coef, out, table, g, smem);
+  spread_column<S, IB4>(col, Xb, coef, out, table, g, smem);
 }
 
-}  // namespace
-
-// Launches on `stream`; returns cudaGetLastError() of the launch. The
-// shared memory (one slab of the column in fixed point, 19 KB at tile 8;
-// 30 KB of records; a 24 KB staging ring; a 2.3 KB chunk table at cap
+// Launches on `stream` the instantiation for S = g.support (IB_4's own
+// at IB_4); returns
+// cudaGetLastError() of the launch. The shared memory (one slab of the
+// column in fixed point, 19 KB at tile 8; the records, 30 KB at S = 4 and
+// 50 KB at S = 6; a 24 KB staging ring; a 2.3 KB chunk table at cap
 // 1,024: two blocks fit an SM) passes the 48 KB default of dynamic shared
-// memory, so the kernel's limit is raised first.
-extern "C" int tile_spread_launch(const float* Xb, const float* coef,
-                                  const int* counts, float* out, int B,
-                                  int cap, TileGeom g, void* stream) {
+// memory, so each instantiation's limit is raised first.
+template <int S, bool IB4>
+int launch(const float* Xb, const float* coef, const int* counts,
+           float* out, int B, int cap, const TileGeom& g,
+           cudaStream_t stream) {
   const int table = column_table(kNeighbours * ((cap + 31) / 32));
-  const int smem = column_smem(g.t0, g.t1, table);
+  const int smem = column_smem(S, g.t0, g.t1, table);
   static int smem_set = 0;
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tile_spread_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        tile_spread_kernel<S, IB4>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
   if (B == 0) return 0;
-  tile_spread_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+  tile_spread_kernel<S, IB4><<<B, kThreads, smem, stream>>>(
       Xb, coef, counts, out, cap, table, g);
   return (int)cudaGetLastError();
 }
 
-extern "C" int tile_spread_limits(int* max_cap, int* max_width,
-                                  int* min_nz) {
+}  // namespace
+
+extern "C" int tile_spread_launch(const float* Xb, const float* coef,
+                                  const int* counts, float* out, int B,
+                                  int cap, TileGeom g, void* stream) {
+  return with_support(g, [&](auto s, auto ib4) {
+    return launch<decltype(s)::value, decltype(ib4)::value>(
+        Xb, coef, counts, out, B, cap, g, (cudaStream_t)stream);
+  });
+}
+
+// The limits of the instantiation for support S; nonzero for an S that
+// has none.
+extern "C" int tile_spread_limits(int S, int* max_cap, int* max_width,
+                                  int* min_z) {
+  if (S < 2 || S > 6) return (int)cudaErrorInvalidValue;
   // the slots of 9 tiles around a column
   *max_cap = kMaxSlots / kNeighbours;
   *max_width = kMaxWidth;
-  *min_nz = kMinNz;
+  *min_z = min_nz(S);
   return 0;
 }

@@ -26,21 +26,27 @@ Kernels (sources in ``csrc/``, notes on design and bound there):
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain PyTorch version beside it for CPU tensors; nothing falls back
-from the GPU. The kernels evaluate IB_4 only: every engine here raises
-``NotImplementedError`` for another delta. The kernels have no
-derivative (nor has the reference's ``pallas_call``): every engine here
-raises ``NotImplementedError`` when asked to transfer, with grad mode on,
-a force, a field or positions that require grad
+from the GPU. The kernels evaluate every named isotropic delta of
+``ops/delta.CUDA_DELTAS`` (IB_3, IB_4, IB_6, COSINE, PIECEWISE_LINEAR,
+BSPLINE_2 to BSPLINE_6; ``csrc/delta.cuh``), one instantiation per
+support, the delta passed by id; each wrapper and its plain version take
+it as ``kernel`` (IB_4 by default). A composite B-spline raises
+``ValueError`` and a user-defined ``(support, phi)`` pair
+``NotImplementedError`` in every engine here. IB_6's table goes to the
+kernels as a float64 device tensor that the engine holds. The kernels
+have no derivative (nor has the reference's ``pallas_call``): every
+engine here raises ``NotImplementedError`` when asked to transfer, with
+grad mode on, a force, a field or positions that require grad
 (:func:`check_no_autograd`), on every device, rather than hand autograd
-a result that lacks the kernels' share of the gradient.
-``LAUNCHES`` counts the kernel launches. The plain
-versions are the reference's dense weight preamble with a batched
-contraction and, for the packed spread, an ``index_add_`` over
-``tile_of_chunk``; the spread versions compose the reference's program
-with the overlap-add and sum in float64 (each cell rounded once, as the
-kernels' exact sums are), the interp versions compose it with the
-extraction, and the tile versions are the packed ones over the identity
-tile map.
+a result that lacks the kernels' share of the gradient. ``LAUNCHES``
+counts the kernel launches, and ``DELTA_LAUNCHES`` the same launches by
+kernel and delta. The plain versions are the reference's dense weight
+preamble with a batched contraction and, for the packed spread, an
+``index_add_`` over ``tile_of_chunk``; the spread versions compose the
+reference's program with the overlap-add and sum in float64 (each cell
+rounded once, as the kernels' exact sums are), the interp versions
+compose it with the extraction, and the tile versions are the packed
+ones over the identity tile map.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ from ibamr_tpu_torch.ops.interaction_fast import (
     BucketGeometry, _extract_tiles, _overlap_add, bucket_markers,
     bucketed_channel, make_geometry, spread_overflow_fallbacks, tile_weights,
     unbucket_with_overflow)
-from ibamr_tpu_torch.ops.delta import is_ib4
+from ibamr_tpu_torch.ops.delta import CUDA_DELTAS, _ib6_tensor, cuda_delta
 from ibamr_tpu_torch.ops.interaction_packed import (PackedInteraction,
                                                     pack_markers,
                                                     refresh_packed)
@@ -67,39 +73,70 @@ from ibamr_tpu_torch.ops.interaction_packed import (PackedInteraction,
 # kernel launches since the last reset_launch_counts(), by kernel name
 LAUNCHES: Dict[str, int] = {"packed_spread": 0, "packed_interp": 0,
                              "tile_spread": 0, "tile_interp": 0}
+# the same launches by (kernel name, delta name)
+DELTA_LAUNCHES: Dict[tuple, int] = {(k, d): 0 for k in LAUNCHES
+                                    for d in CUDA_DELTAS}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in DELTA_LAUNCHES:
+        DELTA_LAUNCHES[k] = 0
+
+
+def _count(name: str, delta: str) -> None:
+    LAUNCHES[name] += 1
+    DELTA_LAUNCHES[(name, delta)] += 1
 
 
 class _Geom(ctypes.Structure):
-    """Mirrors ``TileGeom`` in ``csrc/delta_ib4.cuh``."""
+    """Mirrors ``TileGeom`` in ``csrc/delta.cuh``."""
     _fields_ = [(n, ctypes.c_int) for n in
-                ("nb1", "t0", "t1", "W0", "W1", "n0", "n1", "nz")] + \
+                ("nb1", "t0", "t1", "W0", "W1", "n0", "n1", "nz",
+                 "support", "delta", "cut")] + \
                [(n, ctypes.c_float) for n in
                 ("lo0", "lo1", "lo2", "dx0", "dx1", "dx2",
-                 "off0", "off1", "off2")]
+                 "off0", "off1", "off2")] + \
+               [("tab", ctypes.c_void_p)]
 
 
-def _tile_geom(geom: BucketGeometry, grid: StaggeredGrid, offs) -> _Geom:
+def delta_table(kernel, device) -> Optional[torch.Tensor]:
+    """The device table a kernel reads for ``kernel``: IB_6's float64
+    table on a CUDA ``device``, else None."""
+    device = torch.device(device)
+    if device.type != "cuda" or cuda_delta(kernel)[0] != "IB_6":
+        return None
+    return _ib6_tensor(device)
+
+
+def _tile_geom(geom: BucketGeometry, grid: StaggeredGrid, offs, kernel,
+               table: Optional[torch.Tensor]) -> _Geom:
+    name, delta, support, cut = cuda_delta(kernel)
+    if support != geom.support:
+        raise ValueError(f"delta {name} has support {support}, the "
+                         f"geometry {geom.support}")
+    if (table is None) != (name != "IB_6"):
+        raise ValueError(f"delta {name}: "
+                         + ("needs its table" if table is None
+                            else "reads no table"))
     return _Geom(geom.nblk[1], geom.tile[0], geom.tile[1], geom.width[0],
-                 geom.width[1], grid.n[0], grid.n[1], grid.n[2],
-                 *grid.x_lo, *grid.dx, *offs)
+                 geom.width[1], grid.n[0], grid.n[1], grid.n[2], support,
+                 delta, cut, *grid.x_lo, *grid.dx, *offs,
+                 None if table is None else table.data_ptr())
 
 
 # -- plain PyTorch versions ---------------------------------------------------
 
 def _chunk_partials(geom: BucketGeometry, grid: StaggeredGrid, offs,
                     tid: torch.Tensor, Xb: torch.Tensor,
-                    coef: torch.Tensor) -> torch.Tensor:
+                    coef: torch.Tensor, kernel="IB_4") -> torch.Tensor:
     """Each chunk's partial grid over its tile's footprint -> (Q, P, nz),
     in float64: the factors wx*wy and wz*coef of every term are formed in
     the input type and the sums taken in float64, so that each cell is
     rounded once, by the caller, as the kernels' exact fixed-point sums
     round it."""
-    wx, wy, wz = tile_weights(geom, grid, offs, tid, Xb)
+    wx, wy, wz = tile_weights(geom, grid, offs, tid, Xb, kernel)
     Q, c = coef.shape
     A = (wx[:, :, None, :] * wy[:, None, :, :]).reshape(Q, -1, c)
     return torch.bmm(A.double(),
@@ -108,10 +145,10 @@ def _chunk_partials(geom: BucketGeometry, grid: StaggeredGrid, offs,
 
 def _packed_tiles(geom: BucketGeometry, grid: StaggeredGrid, offs,
                   tid: torch.Tensor, Xb: torch.Tensor,
-                  coef: torch.Tensor) -> torch.Tensor:
+                  coef: torch.Tensor, kernel="IB_4") -> torch.Tensor:
     """The chunks' partial grids summed per tile -> (B, P, nz) float64,
     zero for tiles no chunk visits."""
-    Tq = _chunk_partials(geom, grid, offs, tid, Xb, coef)
+    Tq = _chunk_partials(geom, grid, offs, tid, Xb, coef, kernel)
     B = int(np.prod(geom.nblk))
     T = torch.zeros((B,) + Tq.shape[1:], dtype=Tq.dtype, device=Tq.device)
     return T.index_add_(0, tid.to(torch.int64), Tq)
@@ -119,27 +156,30 @@ def _packed_tiles(geom: BucketGeometry, grid: StaggeredGrid, offs,
 
 def packed_spread_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
                                  offs, tid: torch.Tensor, Xb: torch.Tensor,
-                                 coef: torch.Tensor) -> torch.Tensor:
+                                 coef: torch.Tensor,
+                                 kernel="IB_4") -> torch.Tensor:
     """The reference's packed spread program with its visited-tile mask:
     per-tile partial grids (B, P, nz), zero for tiles no chunk visits."""
-    return _packed_tiles(geom, grid, offs, tid, Xb, coef).to(coef.dtype)
+    return _packed_tiles(geom, grid, offs, tid, Xb, coef,
+                         kernel).to(coef.dtype)
 
 
 def packed_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
                         tid: torch.Tensor, Xb: torch.Tensor,
-                        coef: torch.Tensor) -> torch.Tensor:
+                        coef: torch.Tensor, kernel="IB_4") -> torch.Tensor:
     """Plain version of the packed spread kernel: the chunks' partial
     grids folded onto the periodic grid -> ``grid.n``."""
     return _overlap_add(geom, grid, _packed_tiles(
-        geom, grid, offs, tid, Xb, coef)).to(coef.dtype)
+        geom, grid, offs, tid, Xb, coef, kernel)).to(coef.dtype)
 
 
 def packed_interp_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
                                  offs, tid: torch.Tensor, Xb: torch.Tensor,
-                                 T: torch.Tensor) -> torch.Tensor:
+                                 T: torch.Tensor,
+                                 kernel="IB_4") -> torch.Tensor:
     """The reference's packed interp program: per-slot interpolants
     (Q, c) from the extracted tiles T (B, P, nz), every slot."""
-    wx, wy, wz = tile_weights(geom, grid, offs, tid, Xb)
+    wx, wy, wz = tile_weights(geom, grid, offs, tid, Xb, kernel)
     Q, W0, c = wx.shape
     tmp = torch.bmm(T[tid.to(torch.int64)], wz)          # (Q, P, c)
     inner = torch.sum(wy[:, None, :, :] * tmp.reshape(Q, W0, -1, c), dim=2)
@@ -148,11 +188,12 @@ def packed_interp_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
 
 def packed_interp_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
                         tid: torch.Tensor, Xb: torch.Tensor,
-                        f: torch.Tensor) -> torch.Tensor:
+                        f: torch.Tensor, kernel="IB_4") -> torch.Tensor:
     """Plain version of the packed interp kernel: the field's tiles
     interpolated at every chunk slot -> (Q, c)."""
     return packed_interp_partials_plain(geom, grid, offs, tid, Xb,
-                                        _extract_tiles(geom, grid, f))
+                                        _extract_tiles(geom, grid, f),
+                                        kernel)
 
 
 def _tile_ids(Xb: torch.Tensor) -> torch.Tensor:
@@ -167,40 +208,40 @@ def _filled(Xb: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
 
 
 def tile_spread_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
-                               offs, Xb: torch.Tensor,
-                               coef: torch.Tensor) -> torch.Tensor:
+                               offs, Xb: torch.Tensor, coef: torch.Tensor,
+                               kernel="IB_4") -> torch.Tensor:
     """The reference's tile spread program: per-tile partial grids
     (B, P, nz) over every slot."""
-    return _chunk_partials(geom, grid, offs, _tile_ids(Xb), Xb,
-                           coef).to(coef.dtype)
+    return _chunk_partials(geom, grid, offs, _tile_ids(Xb), Xb, coef,
+                           kernel).to(coef.dtype)
 
 
 def tile_interp_partials_plain(geom: BucketGeometry, grid: StaggeredGrid,
-                               offs, Xb: torch.Tensor,
-                               T: torch.Tensor) -> torch.Tensor:
+                               offs, Xb: torch.Tensor, T: torch.Tensor,
+                               kernel="IB_4") -> torch.Tensor:
     """The reference's tile interp program: per-slot interpolants
     (B, cap) from the extracted tiles T (B, P, nz), every slot."""
     return packed_interp_partials_plain(geom, grid, offs, _tile_ids(Xb),
-                                        Xb, T)
+                                        Xb, T, kernel)
 
 
 def tile_spread_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
                       Xb: torch.Tensor, coef: torch.Tensor,
-                      counts: torch.Tensor) -> torch.Tensor:
+                      counts: torch.Tensor, kernel="IB_4") -> torch.Tensor:
     """Plain version of the tile spread kernel: the filled slots' partial
     grids folded onto the periodic grid -> ``grid.n``."""
     coef = torch.where(_filled(Xb, counts), coef, torch.zeros_like(coef))
     return _overlap_add(geom, grid, _chunk_partials(
-        geom, grid, offs, _tile_ids(Xb), Xb, coef)).to(coef.dtype)
+        geom, grid, offs, _tile_ids(Xb), Xb, coef, kernel)).to(coef.dtype)
 
 
 def tile_interp_plain(geom: BucketGeometry, grid: StaggeredGrid, offs,
                       Xb: torch.Tensor, f: torch.Tensor,
-                      counts: torch.Tensor) -> torch.Tensor:
+                      counts: torch.Tensor, kernel="IB_4") -> torch.Tensor:
     """Plain version of the tile interp kernel: the field's tiles
     interpolated at the filled slots, 0 elsewhere -> (B, cap)."""
     U = tile_interp_partials_plain(geom, grid, offs, Xb,
-                                   _extract_tiles(geom, grid, f))
+                                   _extract_tiles(geom, grid, f), kernel)
     return torch.where(_filled(Xb, counts), U, torch.zeros_like(U))
 
 
@@ -219,7 +260,7 @@ def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
 # argument types of each launcher (C prototypes in csrc/*.cu):
 # packed_spread / packed_interp (tid, Xb, coef or f, out, Q, c, geom,
 # stream), and tile_spread / tile_interp (Xb, coef or f, counts, out, B,
-# cap, geom, stream)
+# cap, geom, stream); each launches the instantiation for geom.support
 _ARGTYPES = {"packed_spread": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
              + [_Geom, ctypes.c_void_p],
              "packed_interp": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
@@ -231,11 +272,12 @@ _ARGTYPES = {"packed_spread": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
 _bound: Dict[str, tuple] = {}
 
 
-def _launcher(name: str):
-    """``(launch_fn, (max_rows, max_width, min_nz))`` of one kernel, built
-    and bound at first use: ``max_rows`` bounds the chunk (or tile row)
-    size, or for ``packed_spread`` the slot count Q * c."""
-    if name not in _bound:
+def _launcher(name: str, support: int):
+    """``(launch_fn, (max_rows, max_width, min_nz))`` of one kernel at a
+    delta support, built and bound at first use: ``max_rows`` bounds the
+    chunk (or tile row) size, or for ``packed_spread`` the slot count
+    Q * c."""
+    if (name, support) not in _bound:
         from ibamr_tpu_torch.ops import kernel_build
 
         lib = kernel_build.load_all()[name]
@@ -243,12 +285,13 @@ def _launcher(name: str):
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         limits = getattr(lib, f"{name}_limits")
-        limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        limits.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
         limits.restype = ctypes.c_int
         lims = [ctypes.c_int() for _ in range(3)]
-        limits(*map(ctypes.byref, lims))
-        _bound[name] = (fn, tuple(v.value for v in lims))
-    return _bound[name]
+        if limits(support, *map(ctypes.byref, lims)) != 0:
+            raise ValueError(f"{name}: no kernel for support {support}")
+        _bound[(name, support)] = (fn, tuple(v.value for v in lims))
+    return _bound[(name, support)]
 
 
 def _check_shapes(name, geom, grid, Xb, tid=None):
@@ -267,7 +310,7 @@ def _check_shapes(name, geom, grid, Xb, tid=None):
     if tid is not None and tid.shape != (Q,):
         raise ValueError(f"{name}: need tid (Q,) for Xb (Q, c, 3); got "
                          f"{tuple(tid.shape)}, {tuple(Xb.shape)}")
-    fn, (max_rows, max_width, min_nz) = _launcher(name)
+    fn, (max_rows, max_width, min_nz) = _launcher(name, geom.support)
     what, size = (("slots", Q * c) if name == "packed_spread"
                   else ("chunk", c))
     if size > max_rows or max(geom.width) > max_width or grid.n[2] < min_nz:
@@ -277,19 +320,31 @@ def _check_shapes(name, geom, grid, Xb, tid=None):
     return fn
 
 
+def _kernel_geom(geom: BucketGeometry, grid: StaggeredGrid, offs, kernel,
+                 table: Optional[torch.Tensor], dev: torch.device) -> _Geom:
+    """The launch geometry of ``kernel`` with its table on ``dev``."""
+    if table is None:
+        table = delta_table(kernel, dev)
+    elif table.device != dev or table.dtype != torch.float64:
+        raise ValueError(f"the delta table must be float64 on {dev}")
+    return _tile_geom(geom, grid, offs, kernel, table)
+
+
 def _raise_on(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def packed_spread(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                  tid: torch.Tensor, Xb: torch.Tensor,
-                  coef: torch.Tensor) -> torch.Tensor:
+                  tid: torch.Tensor, Xb: torch.Tensor, coef: torch.Tensor,
+                  kernel="IB_4",
+                  table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The grid component (``grid.n``) spread from every slot of the
-    packed layout: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    packed layout with the delta ``kernel``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. ``table`` is
+    :func:`delta_table`'s (looked up when None)."""
     if Xb.device.type == "cpu":
-        return packed_spread_plain(geom, grid, offs, tid, Xb, coef)
+        return packed_spread_plain(geom, grid, offs, tid, Xb, coef, kernel)
     if Xb.device.type != "cuda":
         raise ValueError(f"packed_spread: unsupported device {Xb.device}")
     fn = _check_shapes("packed_spread", geom, grid, Xb, tid)
@@ -298,23 +353,24 @@ def packed_spread(geom: BucketGeometry, grid: StaggeredGrid, offs,
                 Xb=(Xb, torch.float32), coef=(coef, torch.float32))
     if coef.shape != Xb.shape[:2]:
         raise ValueError("packed_spread: coef must be (Q, c)")
+    g = _kernel_geom(geom, grid, offs, kernel, table, Xb.device)
     out = torch.empty(grid.n, dtype=torch.float32, device=Xb.device)
     err = fn(tid.data_ptr(), Xb.data_ptr(), coef.data_ptr(), out.data_ptr(),
-             Q, c, _tile_geom(geom, grid, offs),
-             torch.cuda.current_stream(Xb.device).cuda_stream)
+             Q, c, g, torch.cuda.current_stream(Xb.device).cuda_stream)
     _raise_on("packed_spread", err)
-    LAUNCHES["packed_spread"] += 1
+    _count("packed_spread", cuda_delta(kernel)[0])
     return out
 
 
 def packed_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                  tid: torch.Tensor, Xb: torch.Tensor,
-                  f: torch.Tensor) -> torch.Tensor:
+                  tid: torch.Tensor, Xb: torch.Tensor, f: torch.Tensor,
+                  kernel="IB_4",
+                  table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-slot interpolants (Q, c) of the field ``f`` (``grid.n``) at
-    every chunk slot of the packed layout: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    every chunk slot of the packed layout with the delta ``kernel``: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if Xb.device.type == "cpu":
-        return packed_interp_plain(geom, grid, offs, tid, Xb, f)
+        return packed_interp_plain(geom, grid, offs, tid, Xb, f, kernel)
     if Xb.device.type != "cuda":
         raise ValueError(f"packed_interp: unsupported device {Xb.device}")
     fn = _check_shapes("packed_interp", geom, grid, Xb, tid)
@@ -324,12 +380,12 @@ def packed_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
     if f.shape != grid.n:
         raise ValueError(f"packed_interp: f must be {grid.n}, got "
                          f"{tuple(f.shape)}")
+    g = _kernel_geom(geom, grid, offs, kernel, table, Xb.device)
     out = torch.empty((Q, c), dtype=torch.float32, device=Xb.device)
     err = fn(tid.data_ptr(), Xb.data_ptr(), f.data_ptr(), out.data_ptr(),
-             Q, c, _tile_geom(geom, grid, offs),
-             torch.cuda.current_stream(Xb.device).cuda_stream)
+             Q, c, g, torch.cuda.current_stream(Xb.device).cuda_stream)
     _raise_on("packed_interp", err)
-    LAUNCHES["packed_interp"] += 1
+    _count("packed_interp", cuda_delta(kernel)[0])
     return out
 
 
@@ -348,36 +404,40 @@ def _check_tile_args(name: str, geom: BucketGeometry, grid: StaggeredGrid,
 
 
 def tile_spread(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                Xb: torch.Tensor, coef: torch.Tensor,
-                counts: torch.Tensor) -> torch.Tensor:
+                Xb: torch.Tensor, coef: torch.Tensor, counts: torch.Tensor,
+                kernel="IB_4",
+                table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The grid component (``grid.n``) spread from the filled slots of
-    the per-tile layout: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    the per-tile layout with the delta ``kernel``: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
     if Xb.device.type == "cpu":
-        return tile_spread_plain(geom, grid, offs, Xb, coef, counts)
+        return tile_spread_plain(geom, grid, offs, Xb, coef, counts, kernel)
     if Xb.device.type != "cuda":
         raise ValueError(f"tile_spread: unsupported device {Xb.device}")
     fn = _check_tile_args("tile_spread", geom, grid, Xb, counts, coef=coef)
     if coef.shape != Xb.shape[:2]:
         raise ValueError("tile_spread: coef must be (B, cap)")
     B, cap = coef.shape
+    g = _kernel_geom(geom, grid, offs, kernel, table, Xb.device)
     out = torch.empty(grid.n, dtype=torch.float32, device=Xb.device)
     err = fn(Xb.data_ptr(), coef.data_ptr(), counts.data_ptr(),
-             out.data_ptr(), B, cap, _tile_geom(geom, grid, offs),
+             out.data_ptr(), B, cap, g,
              torch.cuda.current_stream(Xb.device).cuda_stream)
     _raise_on("tile_spread", err)
-    LAUNCHES["tile_spread"] += 1
+    _count("tile_spread", cuda_delta(kernel)[0])
     return out
 
 
 def tile_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
-                Xb: torch.Tensor, f: torch.Tensor,
-                counts: torch.Tensor) -> torch.Tensor:
+                Xb: torch.Tensor, f: torch.Tensor, counts: torch.Tensor,
+                kernel="IB_4",
+                table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-slot interpolants (B, cap) of the field ``f`` (``grid.n``) at
-    the filled slots of the per-tile layout, exact zeros elsewhere: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    the filled slots of the per-tile layout with the delta ``kernel``,
+    exact zeros elsewhere: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     if Xb.device.type == "cpu":
-        return tile_interp_plain(geom, grid, offs, Xb, f, counts)
+        return tile_interp_plain(geom, grid, offs, Xb, f, counts, kernel)
     if Xb.device.type != "cuda":
         raise ValueError(f"tile_interp: unsupported device {Xb.device}")
     fn = _check_tile_args("tile_interp", geom, grid, Xb, counts, f=f)
@@ -385,12 +445,12 @@ def tile_interp(geom: BucketGeometry, grid: StaggeredGrid, offs,
         raise ValueError(f"tile_interp: f must be {grid.n}, got "
                          f"{tuple(f.shape)}")
     B, cap = Xb.shape[0], Xb.shape[1]
+    g = _kernel_geom(geom, grid, offs, kernel, table, Xb.device)
     out = torch.empty((B, cap), dtype=torch.float32, device=Xb.device)
     err = fn(Xb.data_ptr(), f.data_ptr(), counts.data_ptr(), out.data_ptr(),
-             B, cap, _tile_geom(geom, grid, offs),
-             torch.cuda.current_stream(Xb.device).cuda_stream)
+             B, cap, g, torch.cuda.current_stream(Xb.device).cuda_stream)
     _raise_on("tile_interp", err)
-    LAUNCHES["tile_interp"] += 1
+    _count("tile_interp", cuda_delta(kernel)[0])
     return out
 
 
@@ -414,23 +474,17 @@ def check_no_autograd(engine: str, *tensors) -> None:
         refuse_autograd(engine)
 
 
-def _require_ib4(engine: str, kernel) -> None:
-    if not is_ib4(kernel):
-        raise NotImplementedError(
-            f"{engine}: its CUDA kernels evaluate IB_4 only; the delta "
-            f"{kernel!r} is not ported to them yet (the scatter and packed "
-            "engines take it)")
-
-
 class _KernelEngine:
     """Spread and interp of a MAC velocity through one pair of kernels:
     per component one spread launch (its grid, then the overflow
     scatter) and one interp launch per transfer (then the unbucketing
     and the overflow gather). Each engine's hooks turn a component into
-    its grid and a field into per-slot interpolants. They refuse
-    autograd (:func:`check_no_autograd`)."""
+    its grid and a field into per-slot interpolants, with the engine's
+    delta and its device table. They refuse autograd
+    (:func:`check_no_autograd`)."""
 
     engine = ""
+    table: Optional[torch.Tensor] = None
 
     def _spread_grid(self, offs, b, Xb, coef):
         raise NotImplementedError
@@ -489,10 +543,11 @@ class PackedKernelInteraction(_KernelEngine):
                  overflow_cap: Optional[int] = None, device="cuda"):
         if grid.dim != 3:
             raise ValueError("PackedKernelInteraction is 3D-only")
-        _require_ib4("PackedKernelInteraction", kernel)
-        resolve_device(device)   # raises for a GPU request without one
+        cuda_delta(kernel)   # raises for a delta the kernels do not take
+        dev = resolve_device(device)   # raises for a GPU request without one
         self.grid = grid
         self.kernel = kernel
+        self.table = delta_table(kernel, dev)
         self.geom = make_geometry(grid, kernel, tile=tile, cap=chunk)
         self.nchunks = int(nchunks)
         self.overflow_cap = overflow_cap
@@ -510,11 +565,11 @@ class PackedKernelInteraction(_KernelEngine):
 
     def _spread_grid(self, offs, b, Xb, coef):
         return packed_spread(self.geom, self.grid, offs, b.tile_of_chunk, Xb,
-                             coef)
+                             coef, self.kernel, self.table)
 
     def _interp_slots(self, offs, b, Xb, f):
         return packed_interp(self.geom, self.grid, offs, b.tile_of_chunk,
-                             Xb, f.contiguous())
+                             Xb, f.contiguous(), self.kernel, self.table)
 
 
 class TileKernelInteraction(_KernelEngine):
@@ -534,10 +589,11 @@ class TileKernelInteraction(_KernelEngine):
                  device="cuda"):
         if grid.dim != 3:
             raise ValueError("TileKernelInteraction is 3D-only")
-        _require_ib4("TileKernelInteraction", kernel)
-        resolve_device(device)   # raises for a GPU request without one
+        cuda_delta(kernel)   # raises for a delta the kernels do not take
+        dev = resolve_device(device)   # raises for a GPU request without one
         self.grid = grid
         self.kernel = kernel
+        self.table = delta_table(kernel, dev)
         self.geom = make_geometry(grid, kernel, tile=tile, cap=cap)
         self.overflow_cap = overflow_cap
 
@@ -547,11 +603,12 @@ class TileKernelInteraction(_KernelEngine):
                               overflow_cap=self.overflow_cap)
 
     def _spread_grid(self, offs, b, Xb, coef):
-        return tile_spread(self.geom, self.grid, offs, Xb, coef, b.counts)
+        return tile_spread(self.geom, self.grid, offs, Xb, coef, b.counts,
+                           self.kernel, self.table)
 
     def _interp_slots(self, offs, b, Xb, f):
         return tile_interp(self.geom, self.grid, offs, Xb, f.contiguous(),
-                           b.counts)
+                           b.counts, self.kernel, self.table)
 
 
 class HybridKernelInteraction:

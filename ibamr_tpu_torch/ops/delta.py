@@ -7,9 +7,12 @@ user-defined ``(support, phi)`` pairs. Each kernel is a branch-free
 expression on |r|, evaluated for all markers and stencil offsets at once;
 multi-D weights are tensor products of these 1-D kernels.
 
-The CUDA kernels (``csrc/delta_ib4.cuh``) evaluate IB_4 only, and the
-engines that launch them raise for any other delta; the scatter oracle
-and the ``packed`` engines take every kernel here.
+The CUDA kernels (``csrc/delta.cuh``) evaluate the ten named isotropic
+kernels of :data:`CUDA_DELTAS`, passed to them by id; the engines that
+launch them raise for a composite B-spline (``ValueError``, as
+:func:`get_kernel`) and for a user-defined pair (``NotImplementedError``:
+a Python callable cannot run in a kernel). The scatter oracle and the
+torch-op engines take every kernel here.
 """
 
 from __future__ import annotations
@@ -336,7 +339,40 @@ def available_kernels() -> Tuple[str, ...]:
     return tuple(sorted(_KERNELS) + sorted(_COMPOSITE))
 
 
-def is_ib4(kernel: Kernel) -> bool:
-    """Whether ``kernel`` names IB_4, the one delta the CUDA kernels
-    evaluate."""
-    return isinstance(kernel, str) and kernel.upper() == "IB_4"
+# The named isotropic kernels the CUDA kernels evaluate
+# (``csrc/delta.cuh``): name -> (delta id, support, cut). The id mirrors
+# ``DeltaId``; ``cut`` is the bits a spread term gives up below the
+# column's largest coefficient (``csrc/spread_column.cuh``), ceil(3
+# log2(2 max phi)) so that a product of three weights and a coefficient
+# stays below 2^32 once scaled: max phi is 1/2 for IB_4 and COSINE, 0.4465
+# for IB_6 (its table's largest entry), 0.599 and 0.55 for BSPLINE_5 and
+# BSPLINE_6, 2/3 for IB_3 and BSPLINE_4, 3/4 for BSPLINE_3 and 1 for the
+# hats PIECEWISE_LINEAR and BSPLINE_2.
+CUDA_DELTAS: Dict[str, Tuple[int, int, int]] = {
+    "IB_4": (0, 4, 0),
+    "COSINE": (1, 4, 0),
+    "BSPLINE_4": (2, 4, 2),
+    "PIECEWISE_LINEAR": (3, 2, 3),
+    "BSPLINE_2": (4, 2, 3),
+    "IB_3": (5, 3, 2),
+    "BSPLINE_3": (6, 3, 2),
+    "BSPLINE_5": (7, 5, 1),
+    "IB_6": (8, 6, 0),
+    "BSPLINE_6": (9, 6, 1),
+}
+
+
+def cuda_delta(kernel: Kernel) -> Tuple[str, int, int, int]:
+    """``(name, delta id, support, cut)`` of a kernel the CUDA kernels
+    evaluate. A composite or unknown name raises ``ValueError`` (as
+    :func:`get_kernel`); a user-defined ``(support, phi)`` pair raises
+    ``NotImplementedError``."""
+    if not isinstance(kernel, str):
+        raise NotImplementedError(
+            "the CUDA transfer kernels evaluate the named deltas "
+            f"{sorted(CUDA_DELTAS)}; a user-defined (support, phi) pair is "
+            "a Python callable, which a kernel cannot run (the scatter and "
+            "torch-op engines take it)")
+    get_kernel(kernel)
+    name = kernel.upper()
+    return (name,) + CUDA_DELTAS[name]

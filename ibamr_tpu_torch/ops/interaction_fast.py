@@ -234,9 +234,10 @@ def tile_weights(geom: BucketGeometry, grid: StaggeredGrid, offs,
     cells from one below the tile origin) on the blocked axes, and over
     the whole periodic axis on an axis ``geom`` does not block (the last,
     for the xy-blocked layouts; none for the fully blocked ``packed3``),
-    wrapped periodically by rounding half to even. The CUDA kernels
-    evaluate IB_4, the default; the torch-op engines pass their own
-    (isotropic) kernel."""
+    wrapped periodically by rounding half to even. ``kernel`` is any
+    isotropic delta (IB_4 by default): the kernels' plain versions pass
+    the named delta their CUDA kernels evaluate, the torch-op engines
+    their own."""
     support, phi0 = get_kernel(kernel)
     phi = _phi_safe(phi0, support)
     dtype, dev = Xb.dtype, Xb.device

@@ -51,26 +51,25 @@ def _sub(src: str, old: str, new: str) -> str:
 def merge_runs(h: str) -> str:
     """Sum a lane's consecutive terms of one cell in a register and add
     them with one pair of atomics when the cell changes."""
-    h = _sub(h, ATOMICS, """            if (i == pend_i[h]) {
-              pend_q[h] += q;
+    h = _sub(h, ATOMICS, """            if (i == pend_i) {
+              pend_q += q;
             } else {
-              flush(h);
-              pend_i[h] = i;
-              pend_q[h] = q;
+              flush();
+              pend_i = i;
+              pend_q = q;
             }""")
-    h = _sub(h, WALK, """    int pend_i[2] = {-1, -1};
-    long long pend_q[2] = {0, 0};
-    auto flush = [&](int h) {
-      if (pend_i[h] >= 0) {
-        atomicAdd(acc_lo + pend_i[h], (unsigned)(pend_q[h] & low_mask));
-        atomicAdd(acc_hi + pend_i[h], (int)(pend_q[h] >> low));
+    h = _sub(h, WALK, """    int pend_i = -1;
+    long long pend_q = 0;
+    auto flush = [&]() {
+      if (pend_i >= 0) {
+        atomicAdd(acc_lo + pend_i, (unsigned)(pend_q & low_mask));
+        atomicAdd(acc_hi + pend_i, (int)(pend_q >> low));
       }
     };
 """ + WALK)
     return _sub(h, SLAB_END, """      __syncwarp();  // the records are rewritten for the next chunk
     });
-    flush(0);
-    flush(1);
+    flush();
     __syncthreads();""")
 
 
@@ -101,8 +100,10 @@ def probed(h: str) -> str:
 
 # per-block cycles of the packed kernel and of its first pass
 PROBE = [
-    ("""__global__ void __launch_bounds__(kThreads)
+    ("""template <int S>
+__global__ void __launch_bounds__(kThreads)
 packed_spread_kernel(""", """__device__ long long g_clk[65536];
+template <int S>
 __global__ void __launch_bounds__(kThreads)
 packed_spread_kernel("""),
     ("""  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -110,8 +111,8 @@ packed_spread_kernel("""),
   if (threadIdx.x == 0) g_pass1[blockIdx.x] = t_clk;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp < kNeighbours) {"""),
-    ("""  spread_column(col, Xb, coef, out, table, g, smem);
-}""", """  spread_column(col, Xb, coef, out, table, g, smem);
+    ("""  spread_column<S>(col, Xb, coef, out, table, g, smem);
+}""", """  spread_column<S>(col, Xb, coef, out, table, g, smem);
   __syncthreads();
   if (threadIdx.x == 0) {
     g_clk[blockIdx.x] = clock64() - t_clk;
@@ -134,7 +135,7 @@ def build(name: str, header: str, probe: bool = False) -> dict:
 
     d = os.path.join(OUT, name)
     os.makedirs(d, exist_ok=True)
-    for f in ("delta_ib4.cuh", "packed_spread.cu", "tile_spread.cu"):
+    for f in ("delta.cuh", "packed_spread.cu", "tile_spread.cu"):
         with open(os.path.join(CSRC, f)) as fh:
             src = fh.read()
         if probe and f == "packed_spread.cu":
@@ -207,7 +208,8 @@ def main() -> int:
             err = libs["packed_spread"][1](
                 pb.tile_of_chunk.data_ptr(), pb.Xb.data_ptr(), pc.data_ptr(),
                 out.data_ptr(), Q, c,
-                ci._tile_geom(pe.geom, grid, _centering_offsets(grid, d)),
+                ci._tile_geom(pe.geom, grid, _centering_offsets(grid, d),
+                              "IB_4", None),
                 stream)
             if err:
                 raise RuntimeError(f"packed_spread: CUDA error {err}")
@@ -218,7 +220,8 @@ def main() -> int:
             err = libs["tile_spread"][1](
                 tb.Xb.data_ptr(), tc.data_ptr(), tb.counts.data_ptr(),
                 out.data_ptr(), B, cap,
-                ci._tile_geom(te.geom, grid, _centering_offsets(grid, d)),
+                ci._tile_geom(te.geom, grid, _centering_offsets(grid, d),
+                              "IB_4", None),
                 stream)
             if err:
                 raise RuntimeError(f"tile_spread: CUDA error {err}")

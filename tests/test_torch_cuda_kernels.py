@@ -12,7 +12,11 @@ its interp without any tile extraction; a packed spread past the
 kernel's slot limit raises. The tile kernels,
 which write and read the grid themselves, with more than 128 markers per
 tile, on a 16-cell blocked axis and with markers at every periodic face.
-A launch that reports a CUDA error raises. Needs an NVIDIA GPU and skips
+A launch that reports a CUDA error raises. Every named delta (IB_3,
+IB_4, IB_6, COSINE, PIECEWISE_LINEAR, BSPLINE_2 to BSPLINE_6) through the
+four kernels on the faces layouts and a 16-cell blocked axis, against
+the plain versions, bitwise run to run, with the launches counted by
+delta. Needs an NVIDIA GPU and skips
 without one. The file imports neither JAX nor
 the JAX package, so it also runs where JAX is not installed:
 
@@ -167,7 +171,7 @@ def test_packed_spread_past_its_limit_raises_on_card():
     tg = StaggeredGrid(n=(32, 32, 64), x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
     eng = ci.PackedKernelInteraction(tg, chunk=128, nchunks=8,
                                      device="cuda")
-    _, (max_slots, _, _) = ci._launcher("packed_spread")
+    _, (max_slots, _, _) = ci._launcher("packed_spread", 4)
     Q = max_slots // 128 + 1
     tid = torch.zeros(Q, dtype=torch.int32, device="cuda")
     Xb = torch.zeros((Q, 128, 3), device="cuda")
@@ -242,8 +246,8 @@ def test_failed_launch_raises_on_card(monkeypatch):
             * b.wb).contiguous()
     f = torch.tensor(u[0], device="cuda")
     for name in ("tile_spread", "tile_interp"):
-        _, limits = ci._launcher(name)
-        monkeypatch.setitem(ci._bound, name, (lambda *a: 700, limits))
+        _, limits = ci._launcher(name, 4)
+        monkeypatch.setitem(ci._bound, (name, 4), (lambda *a: 700, limits))
     before = dict(ci.LAUNCHES)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         ci.tile_spread(eng.geom, tg, offs, b.Xb, coef, b.counts)
@@ -253,3 +257,66 @@ def test_failed_launch_raises_on_card(monkeypatch):
         eng.spread_vel(torch.tensor(F, device="cuda"),
                        torch.zeros((6000, 3), device="cuda"), b=b)
     assert ci.LAUNCHES == before
+
+
+DELTAS = ("PIECEWISE_LINEAR", "BSPLINE_2", "IB_3", "BSPLINE_3", "COSINE",
+          "IB_4", "BSPLINE_4", "BSPLINE_5", "IB_6", "BSPLINE_6")
+# On a cell size that is not a power of two the plain version's grid
+# coordinate moves by an ulp from the kernel's: PyTorch divides a CUDA
+# tensor by a Python scalar as a product with the scalar's rounded
+# reciprocal, the kernel (as the reference) divides. The higher
+# B-splines' truncated-power sums cancel to ~20 ulp of the weight, so
+# that ulp comes back as f32 noise: this test measured 2.6e-5 of
+# max|plain| for BSPLINE_6 at nz = 40 on an H100 80GB HBM3 at 700 W
+# against a tolerance of 1e-5; BSPLINE_5 passed 1e-5 and is given twice
+# it for the same cause.
+TOL_DELTA = {"BSPLINE_5": 2e-5, "BSPLINE_6": 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_n", [(32, 32, 64), (16, 16, 40)])
+@pytest.mark.parametrize("kernel", DELTAS)
+def test_kernels_match_plain_at_every_delta_on_card(kernel, grid_n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels build and run "
+                    "only there")
+    rng = np.random.default_rng(8)
+    X = np.concatenate([_faces(rng, 700, grid_n),
+                        rng.uniform(0, 1, (700, 3))]).astype(np.float32)
+    F = rng.standard_normal((X.shape[0], 3)).astype(np.float32)
+    u = [rng.standard_normal(grid_n).astype(np.float32) for _ in range(3)]
+    tg = StaggeredGrid(n=grid_n, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
+    pe = ci.PackedKernelInteraction(tg, kernel=kernel, chunk=128,
+                                    nchunks=64, device="cuda")
+    te = ci.TileKernelInteraction(tg, kernel=kernel, cap=1024,
+                                  device="cuda")
+    Xd = torch.tensor(X, device="cuda")
+    pb, tb = pe.buckets(Xd), te.buckets(Xd)
+    assert not pb.any_overflow and not tb.any_overflow
+    ci.reset_launch_counts()
+    for d in range(3):
+        offs = _centering_offsets(tg, d)
+        Fd = torch.tensor(F[:, d], device="cuda")
+        f = torch.tensor(u[d], device="cuda")
+        pc = (bucketed_channel(pb, Fd) * pb.wb).contiguous()
+        tc = (bucketed_channel(tb, Fd) * tb.wb).contiguous()
+        args = (pe.geom, tg, offs, pb.tile_of_chunk, pb.Xb)
+        targs = (te.geom, tg, offs, tb.Xb)
+        for fn, plain, a, extra in (
+                (ci.packed_spread, ci.packed_spread_plain, args, (pc,)),
+                (ci.packed_interp, ci.packed_interp_plain, args, (f,)),
+                (ci.tile_spread, ci.tile_spread_plain, targs,
+                 (tc, tb.counts)),
+                (ci.tile_interp, ci.tile_interp_plain, targs,
+                 (f, tb.counts))):
+            k1 = fn(*a, *extra, kernel)
+            k2 = fn(*a, *extra, kernel)
+            ref = plain(*a, *extra, kernel)
+            assert torch.equal(k1, k2), fn.__name__
+            if fn is ci.tile_interp:
+                k1, ref = k1 * tb.wb, ref * tb.wb
+            _close(ref, k1, TOL_DELTA.get(kernel, 1e-5))
+    for name in ci.LAUNCHES:
+        assert ci.DELTA_LAUNCHES[(name, kernel)] == 6
+        assert ci.LAUNCHES[name] == 6
+

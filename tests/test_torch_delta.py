@@ -4,8 +4,8 @@ stencil: every kernel of the reference's menu, its metadata and the
 the CPU. The kernels are the same expressions evaluated in the same
 order, so ``phi`` agrees to 1e-14 of its maximum; the spread and interp
 of the scatter oracle in 2D and 3D, and the ``packed`` engine, agree to
-1e-12 relative. The CUDA engines evaluate IB_4 only and raise for any
-other delta."""
+1e-12 relative. The CUDA engines take every named isotropic delta and
+raise for a composite B-spline or a user-defined pair."""
 
 import jax
 import numpy as np
@@ -103,7 +103,9 @@ def test_kernel_resolution_errors_and_user_pairs():
     assert tdelta.get_kernel(pair) == pair and tdelta.stencil_size(pair) == 4
     tdelta.validate_gradient_kernel(pair)        # the caller's contract
     assert [s for s, _ in tdelta.get_kernel_axes(pair, 1, 3)] == [4] * 3
-    assert tdelta.is_ib4("ib_4") and not tdelta.is_ib4(pair)
+    assert tdelta.cuda_delta("ib_4") == ("IB_4", 0, 4, 0)
+    with pytest.raises(NotImplementedError, match="user-defined"):
+        tdelta.cuda_delta(pair)
 
 
 def test_safe_sqrt_gradient_matches_jax():
@@ -198,22 +200,45 @@ def test_packed_engine_takes_other_deltas(kernel):
 
 
 @pytest.mark.parametrize("kernel", ["IB_3", "IB_6", "BSPLINE_4",
-                                    (4, tdelta.get_kernel("IB_4")[1])])
+                                    (4, tdelta.get_kernel("IB_4")[1]),
+                                    "COMPOSITE_BSPLINE_43"])
 def test_cuda_engines_raise_for_other_deltas(kernel):
+    # the kernel engines take every named isotropic delta (their transfers
+    # match the scatter oracle's); a user-defined pair and a composite
+    # B-spline still raise
     from ibamr_tpu_torch.models.shell3d import build_shell_example
     from ibamr_tpu_torch.ops.cuda_interaction import (HybridKernelInteraction,
                                                       PackedKernelInteraction,
                                                       TileKernelInteraction)
 
     g = TGrid(n=(16,) * 3, x_lo=(0.0,) * 3, x_up=(1.0,) * 3)
-    for cls in (PackedKernelInteraction, TileKernelInteraction,
-                HybridKernelInteraction):
-        with pytest.raises(NotImplementedError, match="IB_4 only"):
-            cls(g, kernel=kernel, device="cpu")
-    if isinstance(kernel, str):
-        for engine in ("pallas_packed", "pallas", "hybrid_bf16"):
-            with pytest.raises(NotImplementedError, match="IB_4 only"):
-                build_shell_example(n_cells=16, n_lat=8, n_lon=8,
-                                    kernel=kernel,
-                                    use_fast_interaction=engine,
-                                    device="cpu")
+    engines = (PackedKernelInteraction, TileKernelInteraction,
+               HybridKernelInteraction)
+    if not isinstance(kernel, str):
+        for cls in engines:
+            with pytest.raises(NotImplementedError, match="user-defined"):
+                cls(g, kernel=kernel, device="cpu")
+        return
+    if kernel.startswith("COMPOSITE"):
+        for cls in engines:
+            with pytest.raises(ValueError, match="composite"):
+                cls(g, kernel=kernel, device="cpu")
+        return
+    rng = np.random.default_rng(3)
+    X = torch.tensor(rng.uniform(0, 1, (60, 3)))
+    F = torch.tensor(rng.standard_normal((60, 3)))
+    u = [torch.tensor(rng.standard_normal(g.n)) for _ in range(3)]
+    f_ref = tinter.spread_vel(F, g, X, kernel=kernel)
+    U_ref = tinter.interpolate_vel(u, g, X, kernel=kernel)
+    for cls in engines:
+        eng = cls(g, kernel=kernel, device="cpu")
+        for a, b in zip(f_ref, eng.spread_vel(F, X)):
+            assert _rel(a.numpy(), b) <= TRANSFER_RTOL
+        assert _rel(U_ref.numpy(), eng.interpolate_vel(u, X)) \
+            <= TRANSFER_RTOL
+    for engine in ("pallas_packed", "pallas", "hybrid_bf16"):
+        integ, _ = build_shell_example(n_cells=16, n_lat=8, n_lon=8,
+                                       kernel=kernel,
+                                       use_fast_interaction=engine,
+                                       device="cpu")
+        assert integ.ib.fast.kernel == kernel

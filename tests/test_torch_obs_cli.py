@@ -13,6 +13,7 @@ same records, and ``summary`` (with ``--device`` and ``--fleet``),
 
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -192,13 +193,12 @@ def test_commands_print_the_reference_text(ledger, argv, capsys):
     assert rt == 0 and ot
 
 
-def test_compare_two_ledgers_and_two_fleets(tmp_path, capsys):
+def test_compare_two_ledgers_and_two_fleets(tmp_path, capsys,
+                                           monkeypatch):
     a = str(tmp_path / "a" / "ledger.jsonl")
     b = str(tmp_path / "b" / "ledger.jsonl")
     _write_ledger(a)
     _write_ledger(b, scale=3.0)
-    assert _run(tcli.main, ["compare", a, b], capsys) == \
-        _run(jcli.main, ["compare", a, b], capsys)
     fleets = []
     for name, scale in (("fa", 1.0), ("fb", 2.0)):
         d = str(tmp_path / name)
@@ -207,6 +207,13 @@ def test_compare_two_ledgers_and_two_fleets(tmp_path, capsys):
         for proc in range(2):
             _write_ledger(d, proc=proc, fingerprint=fp, scale=scale)
         fleets.append(d)
+    # both CLIs print the age of the last record from their own clock
+    # reads: pin the clock for the CLI calls, after the ledgers' records
+    # have read it, so that both render at the same ``now``
+    now = time.time()
+    monkeypatch.setattr(time, "time", lambda: now)
+    assert _run(tcli.main, ["compare", a, b], capsys) == \
+        _run(jcli.main, ["compare", a, b], capsys)
     for argv in (["compare", *fleets], ["summary", fleets[0], "--fleet"]):
         rt, ot = _run(tcli.main, argv, capsys)
         rj, oj = _run(jcli.main, argv, capsys)

@@ -57,14 +57,18 @@ def test_ib4_weights():
 
 
 def test_other_delta_kernels_not_ported():
-    # every delta runs through the scatter oracle; the CUDA kernels, and so
-    # the engines that launch them, evaluate IB_4 only
+    # every named delta runs through the CUDA kernels' engines; a
+    # user-defined (support, phi) pair does not (a Python callable cannot
+    # run in a kernel)
     from ibamr_tpu_torch.ops.cuda_interaction import PackedKernelInteraction
 
+    g = tgrid.StaggeredGrid(n=(16,) * 3, **BOX)
     assert tdelta.get_kernel("IB_6")[0] == 6
-    with pytest.raises(NotImplementedError, match="IB_4 only"):
-        PackedKernelInteraction(tgrid.StaggeredGrid(n=N, **BOX),
-                                kernel="IB_6", device="cpu")
+    eng = PackedKernelInteraction(g, kernel="IB_6", device="cpu")
+    assert eng.kernel == "IB_6" and eng.geom.support == 6
+    with pytest.raises(NotImplementedError, match="user-defined"):
+        PackedKernelInteraction(g, kernel=(6, tdelta.get_kernel("IB_6")[1]),
+                                device="cpu")
 
 
 @pytest.mark.parametrize("op", ["divergence", "gradient", "laplacian",
