@@ -281,17 +281,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    JSON line.
 25. parallel -- the parallel layer (``ibamr_tpu_torch/parallel``), no
    hand kernel: the flagship on an 8-shard (4, 2) mesh of ``cuda:0``
-   through ``make_sharded_step`` (pencil-FFT fluid solves, co-partitioned
-   marker transfers), ``PAR_WARM`` warm and ``PAR_STEPS`` timed steps,
-   against the same steps of the unsharded ``scatter`` step within
-   ``1e-6·max|X|`` and ``1e-4·max|u|``, bitwise run to run, ms/step of
-   both; ``PencilFFT.project_divergence_free`` at 256^3 against
+   through the block-resident ``make_sharded_step`` (every grid array
+   in per-shard blocks on the card, halo stencils, pencil-FFT solves,
+   co-partitioned marker transfers), ``PAR_WARM`` warm and ``PAR_STEPS``
+   timed steps, against the same steps of the unsharded ``scatter``
+   step within ``1e-6·max|X|`` and ``1e-4·max|u|``, bitwise run to run,
+   0 whole-grid layouts in the census of one step, ms/step of both
+   beside the card's name and power limit; with several GPUs visible
+   the flagship over one shard per GPU (with one, a line says the leg
+   did not run); ``PencilFFT.project_divergence_free`` at 256^3 against
    ``solvers/fft.py``'s (``SpectralPlan``) projection; the flagship
    state saved as an 8-shard checkpoint and restored onto 4 shards and
    onto 1, bitwise (write and restore seconds, bytes per shard file);
+   the ex4 driver's sharded branch on ``input3d.northstar``
+   (``run(..., mesh=make_mesh(8))``, ``PAR_DRIVER_STEPS`` steps) against
+   its own unsharded run within the same bounds;
    the sharded-checkpoint drill and the fleet drill with its lane-mesh
    leg (8 lanes on 8 shards, the healthy lanes bitwise the replicated
-   fleet's) at the reference's drill sizes.
+   fleet's) at the reference's drill sizes. ``gpus`` (run only when named,
+   on a host with several GPUs): the flagship over one shard per GPU
+   against the unsharded step, and the ex4 driver with no mesh given,
+   which then shards over every GPU by itself, against the unsharded
+   steps of its build.
 26. analysis -- the analysis layer (``ibamr_tpu_torch/analysis``): the
    flagship step on ``pallas_packed``, ``pallas`` and ``packed`` (the
    ``auto`` pick) through the dispatch census (one step after a warm-up:
@@ -5429,16 +5440,37 @@ def phase_grad() -> dict:
 
 PAR_SHARDS = 8            # parallel: shards of the flagship's (4, 2) mesh
 PAR_WARM, PAR_STEPS = 3, 5  # parallel: warm and timed steps of each path
+PAR_DRIVER_STEPS = 4      # parallel: the ex4 driver's sharded branch, steps
 TOL_PAR_PROJ = 1e-5       # pencil vs SpectralPlan projection, rel. max|ref|
+# the pinned form's ms/step (whole grid on cuda:0, cut and assembled at
+# every seam), from an earlier run of this phase on an NVIDIA H100 80GB
+# HBM3 at 700.00 W: quoted beside the block-resident figure, not compared
+PAR_PINNED_MS = 111.945
+
+
+def _par_compare(a, ref):
+    """max|dX|/max|X| and max_d |du|/max|u| of a sharded state (blocks
+    assembled at this edge) against an unsharded one."""
+    from ibamr_tpu_torch.parallel.mesh import unshard_state
+
+    w = unshard_state(a)
+    dX = float((w.X - ref.X).abs().max() / ref.X.abs().max())
+    umax = max(float(c.abs().max()) for c in ref.ins.u)
+    du = max(float((x - y).abs().max()) for x, y in zip(w.ins.u,
+                                                         ref.ins.u)) / umax
+    return dX, du
 
 
 def _par_flagship(mesh) -> dict:
-    """The flagship through ``make_sharded_step`` on ``mesh`` against the
-    unsharded ``scatter`` step from the same state, twice for the bits."""
+    """The flagship through the block-resident ``make_sharded_step`` on
+    ``mesh`` against the unsharded ``scatter`` step from the same state,
+    twice for the bits; every grid array in blocks on the card, and the
+    census of one step counts its whole-grid layouts (0)."""
+    from ibamr_tpu_torch.analysis.graph_census import graph_census
     from ibamr_tpu_torch.models.shell3d import build_shell_example
     from ibamr_tpu_torch.parallel import workload
     from ibamr_tpu_torch.parallel.mesh import make_sharded_step, place_state
-    from ibamr_tpu_torch.parallel.spmd import sharding_of
+    from ibamr_tpu_torch.parallel.spmd import Blocks
     from ibamr_tpu_torch.utils.tree import leaves
 
     integ, st0 = build_shell_example(use_fast_interaction="scatter",
@@ -5465,35 +5497,224 @@ def _par_flagship(mesh) -> dict:
     a, sh_ms = run(sstep, place_state(st0, grid, mesh))
     b, _ = run(sstep, place_state(st0, grid, mesh))
     bitwise = all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
-    on_card = all(x.device.type == torch.device(DEVICE).type
-                  for x in leaves(a))
-    lay = sharding_of(a.ins.u[0])
-    dX = float((a.X - ref.X).abs().max() / ref.X.abs().max())
-    umax = max(float(c.abs().max()) for c in ref.ins.u)
-    du = max(float((x - y).abs().max()) for x, y in zip(a.ins.u,
-                                                         ref.ins.u)) / umax
+    dev_type = torch.device(DEVICE).type
+    blocks = [x for x in leaves(a.ins) if isinstance(x, Blocks)]
+    resident = (len(blocks) == 2 * grid.dim + 1
+                and all(x.mesh is mesh for x in blocks))
+    on_card = all(blk.device.type == dev_type for x in blocks
+                  for blk in x.blocks) and all(
+        x.device.type == dev_type for x in leaves(a))
+    cen = graph_census(lambda s: sstep(s, DT_FLAGSHIP), (a,))
+    dX, du = _par_compare(a, ref)
     eng = sstep.integ.ib.engine(a.X.shape[0])
     bk = eng.buckets(a.X, a.mask)
     counts = workload.shard_marker_counts(a.X.cpu().numpy(), grid,
                                           eng.sizes)
-    log(f"[parallel] flagship {FLAGSHIP} ({st0.X.shape[0]} markers), f32, "
-        f"dt={DT_FLAGSHIP:g}, {PAR_WARM} warm + {PAR_STEPS} timed steps: "
-        f"sharded on {dict(mesh.shape)} shards of {mesh.first_device} "
-        f"{sh_ms:.3f} ms/step, unsharded scatter {ref_ms:.3f} ms/step "
-        f"(x{sh_ms / ref_ms:.3f}); markers per shard "
-        f"{counts.ravel().tolist()} (cap {eng.cap}, overflow "
-        f"{bk.overflow})")
+    log(f"[parallel] {SMI_LINE[0]}: flagship {FLAGSHIP} "
+        f"({st0.X.shape[0]} markers), f32, dt={DT_FLAGSHIP:g}, {PAR_WARM} "
+        f"warm + {PAR_STEPS} timed steps: block-resident on "
+        f"{dict(mesh.shape)} shards of {mesh.first_device} {sh_ms:.3f} "
+        f"ms/step, unsharded scatter {ref_ms:.3f} ms/step (x"
+        f"{sh_ms / ref_ms:.3f}); the pinned form (whole grid on cuda:0) "
+        f"took {PAR_PINNED_MS} ms/step in an earlier run (another call); "
+        f"markers per shard {counts.ravel().tolist()} (cap "
+        f"{eng.cap}, overflow {bk.overflow})")
+    log(f"[parallel] census of one block-resident step: whole-grid "
+        f"layouts {cen['whole_grid_layouts']}, ppermute "
+        f"{cen['ppermute_prims']} ({cen['ppermute_bytes']} B), all_to_all "
+        f"{cen['all_to_all_prims']} ({cen['all_to_all_bytes']} B), aten "
+        f"ops {cen['aten_ops']}, host syncs {cen['host_syncs']}")
     log(f"[parallel] sharded vs unsharded after {PAR_WARM + PAR_STEPS} "
         f"steps: max|dX|/max|X|={dX:.3e} (tol {TOL_PARITY_X:g}), "
         f"max_d |du|/max|u|={du:.3e} (tol {TOL_PARITY_U:g}); bitwise run "
-        f"to run {bitwise}; every leaf on the card {on_card}; layout of "
-        f"u[0] {lay}")
+        f"to run {bitwise}; {len(blocks)} grid arrays in blocks of "
+        f"{mesh.size} shards {resident}, every block and leaf on the card "
+        f"{on_card}")
     if not (dX <= TOL_PARITY_X and du <= TOL_PARITY_U and bitwise
-            and on_card and lay is not None and lay.mesh is mesh):
+            and resident and on_card and cen["whole_grid_layouts"] == 0):
         raise AssertionError("the sharded flagship missed one of its "
                              "checks (see the [parallel] lines above)")
     return dict(integ=integ, state=a, sh_ms=sh_ms, ref_ms=ref_ms,
-                step=sstep)
+                step=sstep, st0=st0, ref=ref)
+
+
+def _par_gpus(out) -> None:
+    """The flagship over one shard per visible GPU, when several are
+    visible, against the unsharded step; with one, a line says so."""
+    from ibamr_tpu_torch.parallel.mesh import (make_mesh, make_sharded_step,
+                                               place_state)
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[parallel] {n} GPU visible: the leg over several GPUs did "
+            f"not run (nothing was measured across cards)")
+        return
+    mesh = make_mesh(n, device=DEVICE)
+    sstep = make_sharded_step(out["integ"], mesh)
+    s = place_state(out["st0"], out["integ"].ins.grid, mesh)
+    def sync():
+        for k in range(n):
+            torch.cuda.synchronize(k)
+
+    for _ in range(PAR_WARM):
+        s = sstep(s, DT_FLAGSHIP)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(PAR_STEPS):
+        s = sstep(s, DT_FLAGSHIP)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / PAR_STEPS
+    dX, du = _par_compare(s, out["ref"])
+    devs = sorted({str(b.device) for b in s.ins.u[0].blocks})
+    log(f"[parallel] flagship over {dict(mesh.shape)} shards on {devs}: "
+        f"{ms:.3f} ms/step; vs unsharded max|dX|/max|X|={dX:.3e}, "
+        f"max_d |du|/max|u|={du:.3e}")
+    if not (dX <= TOL_PARITY_X and du <= TOL_PARITY_U and len(devs) == n):
+        raise AssertionError("the flagship over several GPUs missed a "
+                             "check")
+
+
+def phase_gpus() -> None:
+    """Run only when named, on a host with several GPUs: the
+    block-resident flagship over one shard per visible GPU against the
+    unsharded ``scatter`` step (``_par_gpus``), then the ex4 driver on
+    the north-star input with no mesh given, which shards over every
+    visible GPU by itself, against the unsharded steps of the same
+    build."""
+    from ibamr_tpu_torch.examples import ib_explicit_ex4
+    from ibamr_tpu_torch.models.shell3d import build_shell_example
+    from ibamr_tpu_torch.parallel.spmd import Blocks
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    n = torch.cuda.device_count()
+    integ, st0 = build_shell_example(use_fast_interaction="scatter",
+                                     dtype=torch.float32, device=DEVICE,
+                                     **FLAGSHIP)
+    ref = st0
+    for _ in range(PAR_WARM):
+        ref = integ.step(ref, DT_FLAGSHIP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_STEPS):
+        ref = integ.step(ref, DT_FLAGSHIP)
+    torch.cuda.synchronize()
+    log(f"[gpus] {SMI_LINE[0].splitlines()[0]} x{n}: the unsharded scatter "
+        f"flagship on cuda:0 "
+        f"{(time.perf_counter() - t0) * 1e3 / PAR_STEPS:.3f} ms/step "
+        f"({PAR_WARM} warm + {PAR_STEPS} timed steps)")
+    _par_gpus(dict(integ=integ, st0=st0, ref=ref))
+    del integ, st0, ref
+    torch.cuda.empty_cache()
+    if n < 2:
+        return
+    steps = PAR_DRIVER_STEPS
+    db = parse_input_file(os.path.join(ROOT, DRIVER_INPUT))
+    with tempfile.TemporaryDirectory() as tmp:
+        main = db.get_database("Main")
+        for key, val in (("log_file", os.path.join(tmp, "metrics.jsonl")),
+                         ("viz_dirname", os.path.join(tmp, "viz")),
+                         ("restart_dirname", os.path.join(tmp, "restart")),
+                         ("viz_dump_interval", steps),
+                         ("restart_interval", 0)):
+            main.put(key, val)
+        db.get_database("INSStaggeredHierarchyIntegrator").put(
+            "num_steps", steps)
+        t0 = time.perf_counter()
+        st = ib_explicit_ex4.run(db, device=DEVICE)
+        for k in range(n):
+            torch.cuda.synchronize(k)
+        wall = time.perf_counter() - t0
+    integ, ref = build_shell_example(input_db=db, dtype=torch.float32,
+                                     device=DEVICE)
+    for _ in range(steps):
+        ref = integ.step(ref, DT_FLAGSHIP)
+    dX, du = _par_compare(st, ref)
+    u0 = st.ins.u[0]
+    devs = (sorted({str(b.device) for b in u0.blocks})
+            if isinstance(u0, Blocks) else [])
+    log(f"[gpus] ex4 driver with no mesh on {n} GPUs, {DRIVER_INPUT}, "
+        f"{steps} steps in {wall:.1f} s (build included): blocks on "
+        f"{devs}; vs the unsharded steps max|dX|/max|X|={dX:.3e}, "
+        f"max_d |du|/max|u|={du:.3e}")
+    if not (len(devs) == n and dX <= TOL_PARITY_X and du <= TOL_PARITY_U):
+        raise AssertionError("the ex4 driver did not shard over every GPU "
+                             "or missed a bound")
+
+
+def _par_driver(tmp: str) -> None:
+    """The ex4 driver's sharded branch on the north-star input
+    (``run(..., mesh=make_mesh(8))``: the resolved engine's transfers
+    swapped for the co-partitioned ones) against its own unsharded run
+    of the same database: records, viz files and the final state; the
+    sharded run's checkpoint (assembled from the blocks) restores into
+    blocks bitwise."""
+    from ibamr_tpu_torch.examples import ib_explicit_ex4
+    from ibamr_tpu_torch.parallel.mesh import make_mesh, unshard_state
+    from ibamr_tpu_torch.parallel.spmd import Blocks
+    from ibamr_tpu_torch.utils.checkpoint import restore_checkpoint
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.timers import TimerManager
+    from ibamr_tpu_torch.utils.tree import leaves
+
+    steps = PAR_DRIVER_STEPS
+    runs = {}
+    for name in ("sharded", "unsharded"):
+        db = parse_input_file(os.path.join(ROOT, DRIVER_INPUT))
+        main = db.get_database("Main")
+        d = os.path.join(tmp, f"ex4_{name}")
+        for key, val in (("log_file", os.path.join(d, "metrics.jsonl")),
+                         ("viz_dirname", os.path.join(d, "viz")),
+                         ("restart_dirname", os.path.join(d, "restart")),
+                         ("viz_dump_interval", steps // 2),
+                         ("restart_interval",
+                          steps if name == "sharded" else 0)):
+            main.put(key, val)
+        db.get_database("INSStaggeredHierarchyIntegrator").put(
+            "num_steps", steps)
+        timer = TimerManager.instance()
+        timer.reset()
+        mesh = (make_mesh(PAR_SHARDS, max_axes=2, device=DEVICE)
+                if name == "sharded" else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = ib_explicit_ex4.run(db, device=DEVICE, mesh=mesh)
+        torch.cuda.synchronize()
+        adv = timer.get("IB::advanceHierarchy")
+        with open(main.get_string("log_file")) as fh:
+            recs = [json.loads(ln) for ln in fh.read().splitlines()]
+        same = None
+        if name == "sharded":
+            ck, _, _ = restore_checkpoint(
+                main.get_string("restart_dirname"), st, step=steps)
+            same = (isinstance(ck.ins.u[0], Blocks)
+                    and all(torch.equal(x, y)
+                            for x, y in zip(leaves(ck), leaves(st))))
+        runs[name] = dict(state=st, recs=recs, wall=time.perf_counter() - t0,
+                          ms=1e3 * adv.total / steps, ckpt=same,
+                          viz=sorted(os.listdir(main.get_string(
+                              "viz_dirname"))))
+    sh, un = runs["sharded"], runs["unsharded"]
+    dX, du = _par_compare(sh["state"], un["state"])
+    resident = isinstance(sh["state"].ins.u[0], Blocks)
+    dke = max(abs(a["ke"] - b["ke"]) / abs(b["ke"])
+              for a, b in zip(sh["recs"], un["recs"]))
+    log(f"[parallel] ex4 driver, {DRIVER_INPUT}, {steps} steps: sharded "
+        f"branch on {PAR_SHARDS} shards of {DEVICE} {sh['ms']:.3f} "
+        f"ms/step with the first chunk's set-up ({sh['wall']:.1f} s whole "
+        f"run), unsharded {un['ms']:.3f} ms/step ({un['wall']:.1f} s); "
+        f"max|dX|/max|X|={dX:.3e}, max_d |du|/max|u|={du:.3e}, records "
+        f"{[r['step'] for r in sh['recs']]} vs "
+        f"{[r['step'] for r in un['recs']]}, max rel. KE difference "
+        f"{dke:.3e}; viz {sh['viz']}; checkpoint restored bitwise "
+        f"{sh['ckpt']} (into blocks {resident})")
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves(
+        unshard_state(sh["state"])) if t.is_floating_point())
+    if not (dX <= TOL_PARITY_X and du <= TOL_PARITY_U and resident
+            and finite and sh["ckpt"] and sh["viz"] == un["viz"]
+            and [r["step"] for r in sh["recs"]]
+            == [r["step"] for r in un["recs"]]):
+        raise AssertionError("the ex4 driver's sharded branch missed a "
+                             "check")
 
 
 def _par_breakdown(sstep, state, step_ms: float) -> None:
@@ -5562,8 +5783,8 @@ def _par_projection(mesh, grid) -> float:
 def _par_checkpoint(integ, state, mesh, tmp: str) -> None:
     """The flagship state as an 8-shard checkpoint, restored onto 4
     shards and onto 1, bitwise."""
-    from ibamr_tpu_torch.parallel.mesh import make_mesh, place_state
-    from ibamr_tpu_torch.parallel.spmd import sharding_of
+    from ibamr_tpu_torch.parallel.mesh import (make_mesh, place_state,
+                                               unshard_state)
     from ibamr_tpu_torch.utils import checkpoint_sharded as cs
     from ibamr_tpu_torch.utils.tree import leaves, tree_map
 
@@ -5587,9 +5808,9 @@ def _par_checkpoint(integ, state, mesh, tmp: str) -> None:
         got, step, _ = cs.restore_sharded(d, tmpl, step=8)
         torch.cuda.synchronize()
         rs = time.perf_counter() - t0
-        same = all(torch.equal(x, y) for x, y in zip(leaves(got),
-                                                     leaves(state)))
-        lay = sharding_of(got.ins.u[0])
+        same = all(torch.equal(x, y) for x, y in zip(
+            leaves(unshard_state(got)), leaves(unshard_state(state))))
+        lay = got.ins.u[0].sharding
         out.append((n, rs, same and lay.mesh.size == n
                     and got.X.device.type == torch.device(DEVICE).type))
     log(f"[parallel] flagship state as an {mesh.size}-shard checkpoint: "
@@ -5613,10 +5834,14 @@ def phase_parallel(breakdown: bool = False) -> dict:
     out = _par_flagship(mesh)
     if breakdown:
         _par_breakdown(out["step"], out["state"], out["sh_ms"])
+    _par_gpus(out)
     _par_projection(mesh, out["integ"].ins.grid)
     with tempfile.TemporaryDirectory() as tmp:
         _par_checkpoint(out["integ"], out["state"], mesh, tmp)
-        del out["state"]
+        for key in ("state", "st0", "ref"):
+            del out[key]
+        torch.cuda.empty_cache()
+        _par_driver(tmp)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         res = fi.run_sharded_smoke(os.path.join(tmp, "drill"),
@@ -5930,7 +6155,7 @@ def main(argv=None) -> int:
                     "ibfe,rigid,adv,amr,mlamr,implicit,multiphase,"
                     "resilience,prof,io,assim,serve,grad,parallel,"
                     "analysis and the "
-                    "shootout "
+                    "shootout, gpus "
                     "and microbench, which run only when "
                     "named (add 'breakdown' for a profile of the step of "
                     "each that runs, the flagship's auto leg included; "
@@ -6059,6 +6284,9 @@ def main(argv=None) -> int:
         ran = phase_analysis()
         launches = {k: launches[k] + ran[k] for k in launches}
         clock.lap("analysis")
+    if "gpus" in phases:
+        _assert_no_launches("gpus", phase_gpus)
+        clock.lap("gpus")
     if "microbench" in phases:
         phase_microbench()
         clock.lap("microbench")

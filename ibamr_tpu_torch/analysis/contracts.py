@@ -382,9 +382,10 @@ def _mesh(device):
 
 
 def _build_sharded_chunk(device):
-    # the sharded coupled IB step (pencil-FFT solves + co-partitioned
-    # transfers) over a 2-step chunk on the 8-shard (4, 2) mesh: the
-    # collective census is the comm layer's pin
+    # the block-resident sharded coupled IB step (halo stencils,
+    # pencil-FFT solves, co-partitioned transfers) over a 2-step chunk on
+    # the 8-shard (4, 2) mesh: the collective census is the comm layer's
+    # pin, and whole_grid_layouts pins 0 whole-grid shard/unshard calls
     from ibamr_tpu_torch.parallel.mesh import make_sharded_step, place_state
 
     integ, state0 = _shell(device)
@@ -582,8 +583,9 @@ ARTIFACTS: Dict[str, Artifact] = {
                  notes="flagship 256^3 coupled step, 99,856 markers "
                        "(slow tier; graph_audit --heavy)"),
         Artifact("sharded_chunk", _build_sharded_chunk,
-                 notes="8-shard sharded coupled IB chunk (pencil FFT + "
-                       "co-partitioned transfers): collective census"),
+                 notes="8-shard block-resident coupled IB chunk (halo "
+                       "stencils, pencil FFT, co-partitioned transfers): "
+                       "collective census, 0 whole-grid layouts"),
         Artifact("fftpar_transpose", _build_fftpar_transpose,
                  notes="pencil-FFT Helmholtz on the (4,2) mesh: "
                        "all_to_all count/bytes"),

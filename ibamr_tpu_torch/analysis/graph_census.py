@@ -45,6 +45,9 @@ module. Eager PyTorch has neither, so the port counts what a call
   shard's output block, as the reference counts per-shard avals), under
   the reference's names ``<prim>_prims`` / ``<prim>_bytes`` /
   ``collective_*``;
+- **whole-grid layouts** (``whole_grid_layouts``): every cut of a whole
+  tensor into ``spmd.Blocks`` and every assembly of one; the
+  block-resident sharded step pins it at 0;
 - **hand-kernel launches** (``custom_calls``): read from
   ``ops/cuda_interaction.LAUNCHES``, because a ``ctypes`` launch
   bypasses the dispatcher. On the CPU the wrappers run their plain
@@ -84,7 +87,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = [
-    "DispatchCensus", "chunk_body", "collective_census", "graph_census",
+    "DispatchCensus", "chunk_body", "collective_census",
+    "grid_layout_census", "graph_census",
     "budget_metrics", "kernel_class", "trace_census", "profile_census",
     "BUDGET_MAX_METRICS", "BUDGET_MIN_METRICS",
 ]
@@ -322,6 +326,25 @@ class _CollectiveRecorder:
 
 
 @contextlib.contextmanager
+def grid_layout_census():
+    """Count the whole-grid layouts in the block: every cut of a whole
+    tensor into ``parallel.spmd.Blocks`` and every assembly of one
+    (``whole_grid_layouts``; a block-resident step runs none)."""
+    from ibamr_tpu_torch.parallel import spmd
+
+    counts = {"whole_grid_layouts": 0}
+
+    def rec(kind, whole):
+        counts["whole_grid_layouts"] += 1
+
+    spmd.GRID_LISTENERS.append(rec)
+    try:
+        yield counts
+    finally:
+        spmd.GRID_LISTENERS.remove(rec)
+
+
+@contextlib.contextmanager
 def collective_census():
     """Count ``parallel.spmd``'s collectives called in the block; yields
     the dict it fills (the reference's ``collective_census`` keys)."""
@@ -344,13 +367,15 @@ def _launches() -> dict:
 
 def graph_census(fn, args, chunk: bool = False) -> dict:
     """Full census of ONE call ``fn(*args)``: the dispatch counts, the
-    collectives, the hand-kernel launches (``custom_calls``, with
-    ``custom_call_kernels`` by name) and the detail lists. ``chunk=True``
+    collectives, the whole-grid layouts, the hand-kernel launches
+    (``custom_calls``, with ``custom_call_kernels`` by name) and the
+    detail lists. ``chunk=True``
     counts the whole call as a driver chunk's body. The call runs as
     given (grad mode, device): warm caches first where the steady state
     is wanted (``contracts.measure_artifact`` does)."""
     before = _launches()
-    with collective_census() as coll, DispatchCensus() as cen:
+    with collective_census() as coll, grid_layout_census() as lay, \
+            DispatchCensus() as cen:
         if chunk:
             with chunk_body():
                 fn(*args)
@@ -360,6 +385,7 @@ def graph_census(fn, args, chunk: bool = False) -> dict:
     kernels = {k: after[k] - before.get(k, 0) for k in after}
     out = dict(cen.counts)
     out.update(coll)
+    out.update(lay)
     out["graph_replays"] = kernels.pop("graph_replays")
     out["custom_calls"] = sum(kernels.values())
     out["custom_call_kernels"] = kernels
@@ -380,7 +406,7 @@ BUDGET_MAX_METRICS = (
     "collective_prims", "collective_bytes",
     "ppermute_prims", "ppermute_bytes", "psum_prims", "psum_bytes",
     "all_gather_prims", "all_gather_bytes",
-    "all_to_all_prims", "all_to_all_bytes",
+    "all_to_all_prims", "all_to_all_bytes", "whole_grid_layouts",
 )
 BUDGET_MIN_METRICS = ("custom_calls",)
 

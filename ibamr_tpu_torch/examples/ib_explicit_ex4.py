@@ -12,7 +12,15 @@ example ``IBMethod { transfer_engine = "pallas_packed" }``. The run loop is :cla
 logs ``step, t, volume, ke, max_div, cfl_dt`` to ``Main.log_file``
 (JSONL), writes the marker positions to ``<viz_dirname>/markers.<step>.csv``
 at the viz cadence and a checkpoint to ``restart_dirname`` at the restart
-cadence. Sharding over several GPUs is not ported yet.
+cadence.
+
+As in the reference, the Eulerian grid shards over every visible GPU
+when more than one is visible (``parallel.make_mesh()``, then
+``place_state`` and ``make_sharded_ib_step``: every grid array in
+per-shard blocks on the shards' own devices, the co-partitioned marker
+transfers, the pencil-FFT solves); with one GPU it runs unsharded.
+``run(..., mesh=...)`` shards over an explicit mesh instead (8 shards
+on one card, or on the CPU).
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import numpy as np
 import torch
 
 from ibamr_tpu_torch.models.shell3d import build_shell_example, shell_volume
+from ibamr_tpu_torch.parallel.mesh import (make_mesh, make_sharded_ib_step,
+                                           place_state)
 from ibamr_tpu_torch.utils.checkpoint import (restore_checkpoint,
                                               save_checkpoint)
 from ibamr_tpu_torch.utils.hierarchy_driver import HierarchyDriver, RunConfig
@@ -32,15 +42,27 @@ from ibamr_tpu_torch.utils.metrics import MetricsLogger
 from ibamr_tpu_torch.utils.timers import TimerManager
 
 
-def run(db: InputDatabase, device="cuda", restart=None):
+def run(db: InputDatabase, device="cuda", restart=None, mesh=None):
     """Build the shell from ``db`` on ``device`` in f32, restore ``restart
-    = (restart_dir, step)`` if given, and run to ``num_steps``. Returns
-    the final state."""
+    = (restart_dir, step)`` if given, and run to ``num_steps``. ``mesh``
+    (``parallel.make_mesh``) shards the run over it; with none, a run on
+    the GPU shards over every visible GPU when there are several. Returns
+    the final state (block-resident when sharded)."""
     main_db = db.get_database("Main")
     ins_db = db.get_database("INSStaggeredHierarchyIntegrator")
 
     integ, state = build_shell_example(input_db=db, dtype=torch.float32,
                                        device=device)
+    if (mesh is None and torch.device(device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        mesh = make_mesh(device=device)
+    step_fn = None
+    if mesh is not None:
+        state = place_state(state, integ.ins.grid, mesh)
+        step_fn = make_sharded_ib_step(integ, mesh)
+        # its integrator carries the halo stencils the metrics read
+        integ = step_fn.integ
+        print(f"sharding over mesh {dict(mesh.shape)}")
     start_step = 0
     if restart is not None:
         state, start_step, _ = restore_checkpoint(restart[0], state,
@@ -83,7 +105,8 @@ def run(db: InputDatabase, device="cuda", restart=None):
                        s.X.detach().cpu().numpy(), delimiter=",")
 
         driver = HierarchyDriver(
-            integ, cfg, metrics_fn=metrics_fn, viz_fn=viz_fn,
+            integ, cfg, step_fn=step_fn, metrics_fn=metrics_fn,
+            viz_fn=viz_fn,
             checkpoint_fn=lambda s, k: save_checkpoint(rst_dir, s, k),
             timer=tm, timer_name="IB::advanceHierarchy")
         state = driver.run(state, start_step=start_step)

@@ -14,6 +14,11 @@ where the reference scans. With the packed transfer engine it reads two
 host values per step: the overflow flags of the pack and the hit of the
 half-step refresh. An engine without a refresh (the tile engine) buckets
 twice per step instead and reads the overflow flags of each bucketing.
+
+The same step runs on a block-resident state (``parallel/mesh.py``'s
+sharded IB step): the ``ins`` leaves are ``parallel.spmd.Blocks``, the
+transfers read and return blocks, and the midpoint average and the INS
+step act on them block by block; the markers stay whole tensors.
 """
 
 from __future__ import annotations

@@ -98,8 +98,11 @@ class INSStaggeredIntegrator:
                     f"wall_tangential key {key!r} must be (component d, "
                     f"wall axis e != d, side in {{0, 1}}) with "
                     f"wall_axes[e] set; wall_axes={self.wall_axes}")
-        # solver seams: fast diagonalization with walls, FFT without
+        # solver and stencil seams: fast diagonalization with walls, FFT
+        # without; the sharded step swaps them for the pencil solves and
+        # the halo stencils of parallel/mesh.py
         self.fused_stokes = None
+        self.divergence = stencils.divergence
         if any(self.wall_axes):
             from ibamr_tpu_torch.integrators import ins_walls
 
@@ -212,7 +215,9 @@ class INSStaggeredIntegrator:
 
     def cfl_dt(self, state: INSState, cfl: float = 0.5) -> float:
         """Largest stable dt by the advective CFL condition (a host
-        read; the analog of the reference's global-min dt reduction)."""
+        read; the analog of the reference's global-min dt reduction).
+        This and the two diagnostics below take block-resident state
+        through the blocks' reductions (``parallel/spmd.py``)."""
         umax = max(float(torch.max(torch.abs(c))) for c in state.u)
         if umax == 0.0:
             return math.inf
@@ -223,8 +228,7 @@ class INSStaggeredIntegrator:
         return 0.5 * self.rho * ke * self.grid.cell_volume
 
     def max_divergence(self, state: INSState) -> torch.Tensor:
-        return torch.max(torch.abs(stencils.divergence(state.u,
-                                                       self.grid.dx)))
+        return torch.max(torch.abs(self.divergence(state.u, self.grid.dx)))
 
 
 def advance(integrator: INSStaggeredIntegrator, state: INSState, dt: float,

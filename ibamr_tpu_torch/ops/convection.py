@@ -28,6 +28,10 @@ Vel = Tuple[torch.Tensor, ...]
 
 # ghost depth of the padded path: PPM face states reach 3 cells out
 _G = 3
+# reach of N(u) at a face along any axis, per scheme: the ghost width a
+# block of the block-resident sharded step needs (parallel/spmd.py's
+# halo_apply); CUI's far neighbours reach 2 cells, PPM's limited slopes 3
+GHOST_WIDTH = {"centered": 1, "upwind": 1, "cui": 2, "ppm": 3}
 
 
 def _avg_m(f: torch.Tensor, axis: int) -> torch.Tensor:

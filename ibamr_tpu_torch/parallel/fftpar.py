@@ -31,11 +31,16 @@ import numpy as np
 import torch
 
 from ibamr_tpu_torch.grid import StaggeredGrid
+from ibamr_tpu_torch.ops import stencils
 from ibamr_tpu_torch.parallel.mesh import grid_pspec
-from ibamr_tpu_torch.parallel.spmd import (Mesh, P, all_to_all, shard, smap,
-                                           unshard)
+from ibamr_tpu_torch.parallel.spmd import (Blocks, Mesh, P, all_to_all,
+                                           halo_stencil, smap)
 
 Vel = Tuple[torch.Tensor, ...]
+
+# the projection's stencils on blocks (radius 1)
+_halo_divergence = halo_stencil(stencils.divergence, 1)
+_halo_gradient = halo_stencil(stencils.gradient, 1)
 
 
 def _axis_symbol(n: int, h: float, dtype, device) -> torch.Tensor:
@@ -123,7 +128,6 @@ class PencilFFT:
         mesh, dim, L = self.mesh, self.grid.dim, lead
         axes, sizes, n = self.axes, self.sizes, self.grid.n
         cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
-        lam = self._lam(rdt, blocks[0].device)
         fft, ifft = torch.fft.fft, torch.fft.ifft
 
         def tp(c, axis, split, concat, by=None, tiles=1):
@@ -143,6 +147,7 @@ class PencilFFT:
 
             def solve(ctx, c):
                 i = ctx.axis_index(ax)
+                lam = self._lam(rdt, ctx.device)
                 parts = [lam[0].reshape((-1,) + (1,) * (dim - 1)),
                          _slice_for_shard(lam[1], i, sizes[0]).reshape(
                              (1, -1) + (1,) * (dim - 2))]
@@ -171,6 +176,7 @@ class PencilFFT:
 
             def solve(ctx, c):
                 ix, iy = ctx.axis_index(ax), ctx.axis_index(ay)
+                lam = self._lam(rdt, ctx.device)
                 sym = (lam[0][:, None, None]
                        + _slice_for_shard(lam[1], ix, sizes[0])[None, :, None]
                        + _slice_for_shard(lam[2], iy, sizes[1])[None, None, :])
@@ -194,6 +200,7 @@ class PencilFFT:
 
         def solve(ctx, c):
             i = ctx.axis_index((ax, ay))
+            lam = self._lam(rdt, ctx.device)
             sym = lam[0][:, None] + _slice_for_shard(lam[1], i, ptot)[None, :]
             y = fft(c, dim=L)
             y = op(sym, y, *scalars)
@@ -209,19 +216,31 @@ class PencilFFT:
         c = tp(c, ay, 1, 0)
         return smap(lambda ctx, c: c.real.to(rdt), mesh, c)
 
-    def _spectral_apply(self, rhs: torch.Tensor, op: Callable,
-                        *scalars, lead: int = 0) -> torch.Tensor:
-        rdt = rhs.dtype
-        scalars = tuple(torch.as_tensor(s, dtype=rdt, device=rhs.device)
+    def _solve_blocks(self, blocks, op: Callable, scalars, lead: int = 0):
+        """The pencil solve of per-shard blocks -> per-shard blocks."""
+        rdt = blocks[0].dtype
+        scalars = tuple(torch.as_tensor(s, dtype=rdt, device=blocks[0].device)
                         if isinstance(s, torch.Tensor) else float(s)
                         for s in scalars)
+        return self._pencils(blocks, op, scalars, rdt, lead)
+
+    def _spectral_apply(self, rhs, op: Callable, *scalars, lead: int = 0):
+        """``op`` applied in the spectral domain: Blocks in, Blocks out;
+        a whole tensor (the pinned families) is cut into blocks and the
+        result assembled on its device."""
+        if isinstance(rhs, Blocks):
+            return rhs.like(self._solve_blocks(rhs.blocks, op, scalars,
+                                               lead))
         spec = P(*([None] * lead), *self.spec)
-        blocks = shard(self.mesh, rhs, spec)
-        out = self._pencils(blocks, op, scalars, rdt, lead)
-        return unshard(self.mesh, out, spec, device=rhs.device)
+        x = Blocks.cut(self.mesh, rhs, spec)
+        return x.like(self._solve_blocks(x.blocks, op, scalars, lead)
+                      ).assemble(rhs.device)
+
+    def _cut(self, x):
+        return None if x is None else Blocks.cut(self.mesh, x, self.spec)
 
     # -- public solves -------------------------------------------------------
-    def poisson(self, rhs: torch.Tensor) -> torch.Tensor:
+    def poisson(self, rhs):
         """Zero-mean solution of lap(p) = rhs (periodic)."""
         def op(sym, rhat):
             safe = torch.where(sym == 0, torch.ones_like(sym), sym)
@@ -230,14 +249,11 @@ class PencilFFT:
 
         return self._spectral_apply(rhs, op)
 
-    def helmholtz(self, rhs: torch.Tensor, alpha, beta,
-                  lead: int = 0) -> torch.Tensor:
+    def helmholtz(self, rhs, alpha, beta, lead: int = 0):
         """Solve (alpha + beta lap) u = rhs; ``lead`` leading axes of
         ``rhs`` are a batch of independent solves."""
-        def op(sym, rhat, a, b):
-            return rhat / (a + b * sym)
-
-        return self._spectral_apply(rhs, op, alpha, beta, lead=lead)
+        return self._spectral_apply(rhs, _helmholtz_op, alpha, beta,
+                                    lead=lead)
 
     def helmholtz_cc(self, rhs: torch.Tensor, dx, alpha, beta
                      ) -> torch.Tensor:
@@ -247,18 +263,37 @@ class PencilFFT:
 
     def helmholtz_vel(self, rhs: Vel, dx, alpha, beta) -> Vel:
         """Drop-in for ``solvers.fft.solve_helmholtz_periodic_vel``: the
-        components go through the pencils together, one stacked batch."""
-        return tuple(self.helmholtz(torch.stack(tuple(rhs)), alpha, beta,
-                                    lead=1).unbind(0))
+        components go through the pencils together, one stacked batch a
+        shard. Blocks in, Blocks out; whole tensors are cut and the
+        results assembled."""
+        if not isinstance(rhs[0], Blocks):
+            out = self.helmholtz_vel(tuple(self._cut(c) for c in rhs), dx,
+                                     alpha, beta)
+            return tuple(c.assemble(r.device) for c, r in zip(out, rhs))
+        ref = rhs[0]
+        stacked = smap(lambda ctx, *c: torch.stack(c), self.mesh,
+                       *[c.blocks for c in rhs])
+        out = self._solve_blocks(stacked, _helmholtz_op, (alpha, beta),
+                                 lead=1)
+        return tuple(ref.like([o[k] for o in out]) for k in range(len(rhs)))
 
-    def project_divergence_free(self, u: Vel, dx,
-                                q=None) -> Tuple[Vel, torch.Tensor]:
-        """Drop-in for ``solvers.fft.project_divergence_free``."""
-        from ibamr_tpu_torch.ops import stencils
-
-        div = stencils.divergence(u, dx)
+    def project_divergence_free(self, u: Vel, dx, q=None):
+        """Drop-in for ``solvers.fft.project_divergence_free``: the
+        divergence and the gradient as halo stencils, the Poisson solve
+        through the pencils. Blocks in, Blocks out; whole tensors are cut
+        and the results assembled."""
+        if not isinstance(u[0], Blocks):
+            out, phi = self.project_divergence_free(
+                tuple(self._cut(c) for c in u), dx, self._cut(q))
+            dev = u[0].device
+            return tuple(c.assemble(dev) for c in out), phi.assemble(dev)
+        div = _halo_divergence(u, dx)
         if q is not None:
             div = div - q
         phi = self.poisson(div)
-        g = stencils.gradient(phi, dx)
+        g = _halo_gradient(phi, dx)
         return tuple(c - gc for c, gc in zip(u, g)), phi
+
+
+def _helmholtz_op(sym, rhat, a, b):
+    return rhat / (a + b * sym)

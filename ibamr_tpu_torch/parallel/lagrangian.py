@@ -14,9 +14,14 @@ of ``ibamr_tpu/parallel/lagrangian.py``).
    (wrapped on the others), then the halo slabs are ppermuted to the
    ring neighbours and accumulated, one sharded axis after another.
    Interpolation mirrors it: ghost fill by ppermute, then a purely local
-   gather (the exact adjoint). The MAC components go through one pass:
+   gather (the exact adjoint). Both halo passes are ``parallel/spmd.py``'s
+   (``halo_add``, ``ghost_fill``), which the block-resident step's
+   stencils share. The MAC components go through one pass:
    stacked into one buffer a shard, with the shard's stencils built once
-   per layout and shared by every transfer at it.
+   per layout and shared by every transfer at it. The velocity comes in
+   and the force goes out as whole tensors or, for the block-resident
+   step, as ``spmd.Blocks`` (``spread_vel(..., blocks=True)``), read and
+   written block by block.
 3. **Overflow.** Markers beyond a shard's capacity go through the
    replicated scatter oracle over a compact index buffer (pad entries
    carry weight 0); when that buffer overflows too, every unselected
@@ -42,7 +47,8 @@ from ibamr_tpu_torch.ops import interaction
 from ibamr_tpu_torch.ops.delta import get_kernel
 from ibamr_tpu_torch.ops.interaction import (_axis_weights_indices,
                                              _centering_offsets)
-from ibamr_tpu_torch.parallel.spmd import (Mesh, P, ppermute, shard, smap,
+from ibamr_tpu_torch.parallel.spmd import (Blocks, Mesh, NamedSharding, P,
+                                           ghost_fill, halo_add, shard, smap,
                                            unshard)
 
 Vel = Tuple[torch.Tensor, ...]
@@ -264,43 +270,6 @@ class ShardedInteraction:
             b.memo[key] = smap(build, self.mesh, b.Xl)
         return b.memo[key]
 
-    def _halo_add(self, bufs, d, lead: int = 0):
-        """Push every shard's axis-``d`` halo slabs to its ring
-        neighbours and accumulate; returns the axis-``d`` interiors
-        (``lead`` leading batch axes ride along)."""
-        mesh, ax, Pd = self.mesh, self.axes[d], self.sizes[d]
-        w, nl, a = self.w, self.nloc[d], d + lead
-        lo = smap(lambda ctx, b: b.narrow(a, 0, w), mesh, bufs)
-        hi = smap(lambda ctx, b: b.narrow(a, nl + w, w), mesh, bufs)
-        # the lo ghost belongs to the PREVIOUS block: receive the next
-        # block's lo slab into our interior tail (mirrored for hi)
-        from_next = ppermute(mesh, lo, ax, [(i, (i - 1) % Pd)
-                                            for i in range(Pd)])
-        from_prev = ppermute(mesh, hi, ax, [(i, (i + 1) % Pd)
-                                            for i in range(Pd)])
-
-        def retire(ctx, b, fn, fp):
-            interior = b.narrow(a, w, nl).clone()
-            interior.narrow(a, nl - w, w).add_(fn)
-            interior.narrow(a, 0, w).add_(fp)
-            return interior
-
-        return smap(retire, mesh, bufs, from_next, from_prev)
-
-    def _ghost_fill(self, fls, d, lead: int = 0):
-        """Extend every shard's field with ``w`` ghost layers along axis
-        ``d`` from its ring neighbours."""
-        mesh, ax, Pd = self.mesh, self.axes[d], self.sizes[d]
-        w, nl, a = self.w, self.nloc[d], d + lead
-        top = smap(lambda ctx, f: f.narrow(a, nl - w, w), mesh, fls)
-        bot = smap(lambda ctx, f: f.narrow(a, 0, w), mesh, fls)
-        lo_ghost = ppermute(mesh, top, ax, [(i, (i + 1) % Pd)
-                                            for i in range(Pd)])
-        hi_ghost = ppermute(mesh, bot, ax, [(i, (i - 1) % Pd)
-                                            for i in range(Pd)])
-        return smap(lambda ctx, lo, f, hi: torch.cat([lo, f, hi], dim=a),
-                    mesh, lo_ghost, fls, hi_ghost)
-
     # -- public ops ----------------------------------------------------------
     def spread(self, F: torch.Tensor, X: torch.Tensor, centering,
                b: ShardBuckets) -> torch.Tensor:
@@ -308,10 +277,13 @@ class ShardedInteraction:
         return self._spread(F[:, None], X, [centering], b)[0]
 
     def _spread(self, F: torch.Tensor, X: torch.Tensor, centerings,
-                b: ShardBuckets):
+                b: ShardBuckets, blocks: bool = False):
         """Spread the columns of F (N, C), column c at ``centerings[c]``,
         in one pass: one local scatter per shard into a stacked (C, ext)
-        buffer, one halo exchange per sharded axis."""
+        buffer, one halo exchange per sharded axis. ``blocks=True``
+        returns each component as :class:`Blocks` of the grid layout
+        (whole tensors otherwise); only an overflow's oracle fallback
+        assembles the grid."""
         grid, mesh = self.grid, self.mesh
         C = F.shape[1]
         E = math.prod(self.ext_shape)
@@ -335,10 +307,23 @@ class ShardedInteraction:
 
         bufs = smap(body, mesh, self._stencils(b, centerings), Fl, b.wl)
         for d in range(self.n_sharded):
-            bufs = self._halo_add(bufs, d, lead=1)
+            bufs = halo_add(mesh, bufs, self.axes[d], d + 1, self.w)
+        if blocks:
+            out = [self.grid_layout(smap(lambda ctx, f: f[c], mesh, bufs))
+                   for c in range(C)]
+            if not any(b.overflow):
+                return tuple(out)
+            return tuple(Blocks.cut(mesh, self._spread_overflow(
+                o.assemble(F.device), F[:, c], X, cen, b), self.grid_spec)
+                for c, (o, cen) in enumerate(zip(out, centerings)))
         out = unshard(mesh, bufs, P(None, *self.grid_spec), device=F.device)
         return tuple(self._spread_overflow(out[c], F[:, c], X, cen, b)
                      for c, cen in enumerate(centerings))
+
+    def grid_layout(self, blocks) -> Blocks:
+        """Per-shard interior blocks as a grid leaf."""
+        return Blocks(blocks, NamedSharding(self.mesh, self.grid_spec),
+                      self.grid.n)
 
     def _spread_overflow(self, out, F, X, centering, b: ShardBuckets):
         """The overflow fallbacks of one spread component."""
@@ -370,9 +355,14 @@ class ShardedInteraction:
         one pass: one stacked ghost fill per sharded axis, one local
         gather per shard."""
         mesh, C = self.mesh, len(fs)
-        fls = shard(mesh, torch.stack(tuple(fs)), P(None, *self.grid_spec))
+        if isinstance(fs[0], Blocks):
+            fls = smap(lambda ctx, *c: torch.stack(c), mesh,
+                       *[f.blocks for f in fs])
+        else:
+            fls = shard(mesh, torch.stack(tuple(fs)),
+                        P(None, *self.grid_spec))
         for d in range(self.n_sharded):
-            fls = self._ghost_fill(fls, d, lead=1)
+            fls = ghost_fill(mesh, fls, self.axes[d], d + 1, self.w)
         E = math.prod(self.ext_shape)
 
         def body(ctx, fl, stencils, wl):
@@ -398,6 +388,8 @@ class ShardedInteraction:
         U = Ub[torch.clamp(b.slot_of_marker, max=L - 1)]
         U = torch.where(b.slot_of_marker < L, U, torch.zeros_like(U))
         any_over, exceeded = b.overflow
+        if any_over and isinstance(f, Blocks):
+            f = f.assemble(X.device)
         if exceeded:
             w_over = torch.where(b.slot_of_marker < self.P * self.cap,
                                  torch.zeros_like(b.w_all), b.w_all)
@@ -425,7 +417,9 @@ class ShardedInteraction:
 
     def spread_vel(self, F: torch.Tensor, X: torch.Tensor,
                    weights: Optional[torch.Tensor] = None,
-                   b: Optional[ShardBuckets] = None) -> Vel:
+                   b: Optional[ShardBuckets] = None,
+                   blocks: bool = False) -> Vel:
         if b is None:
             b = self.buckets(X, weights)
-        return self._spread(F, X, list(range(self.grid.dim)), b)
+        return self._spread(F, X, list(range(self.grid.dim)), b,
+                            blocks=blocks)

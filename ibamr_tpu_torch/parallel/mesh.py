@@ -13,11 +13,24 @@ step is the single-device step with the explicit seams swapped in --
   (:class:`~ibamr_tpu_torch.parallel.lagrangian.ShardedInteraction`):
   owner-bucketed pools, per-shard local scatter/gather, halo exchange;
 
-and the state's grid arrays carry the layout the reference pins them
-to (:func:`shard_state`, :func:`place_state`: which shard owns which
-index range, the record the sharded checkpoints write). The stencil
-passes between the seams run on the mesh's first device; partitioning
-them with halos over several GPUs is not done here.
+The periodic INS and IB families are block-resident, as the
+reference's GSPMD step keeps every grid array split: :func:`place_state`
+/ :func:`shard_state` hold each grid array as
+:class:`~ibamr_tpu_torch.parallel.spmd.Blocks` (per-shard blocks on the
+shards' own devices, carrying their layout), and the step never builds
+a whole-grid tensor. Its stencils (convection, the Laplacians, the
+pressure gradient, the projection's divergence and gradient) run as
+halo stencils (``spmd.halo_apply``: ghost layers by ppermute, the roll
+form on every padded block, bitwise the whole-grid stencil), the RHS
+assembly cell by cell on the blocks, the solves through the pencils and
+the transfers from and into the blocks. Only the host-facing edges
+(:func:`unshard_state`, checkpoints, viz) assemble a whole tensor.
+
+The other families (wall-bounded INS and IB, variable-coefficient,
+open-boundary, adv-diff, the AMR hierarchies, CIB) keep the pinned
+form: the step runs on whole tensors on the mesh's first device, with
+the layout attached to every grid array (``spmd.pin``), their seams
+swapped as the reference swaps them.
 
 The lane mesh (:func:`make_lane_mesh`) splits a B-lane fleet (lane axis
 0 of every leaf) into whole lanes per shard; the fleet chunk of
@@ -35,13 +48,16 @@ import numpy as np
 import torch
 
 from ibamr_tpu_torch.grid import StaggeredGrid
-from ibamr_tpu_torch.parallel.spmd import (Mesh, NamedSharding, P,
-                                           PartitionSpec, mesh_devices, pin,
-                                           shard, sharding_of, smap, unshard)
+from ibamr_tpu_torch.parallel.spmd import (Blocks, Mesh, NamedSharding, P,
+                                           PartitionSpec, halo_stencil,
+                                           mesh_devices, pin, shard,
+                                           sharding_of, smap, split_dims,
+                                           unshard)
 from ibamr_tpu_torch.utils.tree import leaves, map_with_path, tree_map
 
 __all__ = ["Mesh", "NamedSharding", "P", "PartitionSpec", "factor_devices",
            "make_mesh", "grid_pspec", "shard_state", "place_state",
+           "unshard_state",
            "make_sharded_step", "make_sharded_ins_step",
            "make_sharded_ib_step", "make_lane_mesh", "shard_lanes",
            "place_lanes", "sharding_of"]
@@ -88,12 +104,61 @@ def grid_pspec(mesh: Mesh, grid_dim: int) -> PartitionSpec:
 
 
 def shard_state(state, grid: StaggeredGrid, mesh: Mesh):
-    """The state with every grid-shaped tensor carrying the spatial
-    layout; everything else (markers, scalars) passes through."""
+    """The state with every grid-shaped tensor cut into
+    :class:`Blocks` under the spatial layout; block-resident leaves and
+    everything else (markers, scalars) pass through."""
+    spec = grid_pspec(mesh, grid.dim)
+    gshape = tuple(grid.n)
+
+    def cut(_, a):
+        if isinstance(a, torch.Tensor) and tuple(a.shape) == gshape:
+            return Blocks.cut(mesh, a, spec)
+        return a
+
+    return map_with_path(cut, state)
+
+
+def place_state(state, grid: StaggeredGrid, mesh: Mesh):
+    """The initial state placed on the mesh: grid-shaped tensors as
+    :class:`Blocks` under the spatial layout (a leaf already in blocks
+    of another layout is re-cut), every other tensor replicated on the
+    mesh's first device."""
+    spec = grid_pspec(mesh, grid.dim)
+    replicated = NamedSharding(mesh, P())
+    gshape = tuple(grid.n)
+
+    def put(_, a):
+        if isinstance(a, Blocks):
+            if a.mesh is mesh and tuple(a.spec) == tuple(spec):
+                return a
+            a = a.assemble()
+        a = torch.as_tensor(a)
+        if tuple(a.shape) == gshape:
+            return Blocks.cut(mesh, a, spec)
+        return pin(a, replicated)
+
+    return map_with_path(put, state)
+
+
+def unshard_state(state, device=None):
+    """The host-facing edge of a block-resident state: every
+    :class:`Blocks` leaf assembled into its whole tensor on ``device``
+    (default: its mesh's first device); other leaves pass through."""
+    def whole(_, a):
+        return a.assemble(device) if isinstance(a, Blocks) else a
+
+    return map_with_path(whole, state)
+
+
+def _pin_grid_state(state, grid: StaggeredGrid, mesh: Mesh):
+    """The pinned form: every grid-shaped tensor whole on the mesh's
+    first device carrying the spatial layout (Blocks assembled)."""
     sharding = NamedSharding(mesh, grid_pspec(mesh, grid.dim))
     gshape = tuple(grid.n)
 
     def constrain(_, a):
+        if isinstance(a, Blocks):
+            a = a.assemble()
         if isinstance(a, torch.Tensor) and tuple(a.shape) == gshape:
             return pin(a, sharding)
         return a
@@ -101,71 +166,98 @@ def shard_state(state, grid: StaggeredGrid, mesh: Mesh):
     return map_with_path(constrain, state)
 
 
-def place_state(state, grid: StaggeredGrid, mesh: Mesh):
-    """The initial state placed on the mesh: grid-shaped tensors under
-    the spatial layout, every other tensor replicated."""
-    sharding = NamedSharding(mesh, grid_pspec(mesh, grid.dim))
-    replicated = NamedSharding(mesh, P())
-    gshape = tuple(grid.n)
-
-    def put(_, a):
-        a = torch.as_tensor(a)
-        if tuple(a.shape) == gshape:
-            return pin(a, sharding)
-        return pin(a, replicated)
-
-    return map_with_path(put, state)
-
-
 # ---------------------------------------------------------------------------
-# the sharding seam: one generic pinned-step wrapper, per-family prepare
-# hooks and a name-dispatched entry point
+# the sharding seam: the block-resident INS / IB steps, one generic
+# pinned-step wrapper for the other families, per-family prepare hooks
+# and a name-dispatched entry point
 # ---------------------------------------------------------------------------
 
-def _with_pencil_solvers(ins_integ, mesh: Mesh):
-    """Shallow copy of an INS integrator with its spectral solves swapped
-    for the pencil-decomposed distributed FFT."""
+def _walled(ins) -> bool:
+    return any(getattr(ins, "wall_axes", ()))
+
+
+def _walled_fluid(ins):
+    """A wall-bounded INS integrator in the pinned form: its
+    fast-diagonalization solves kept, the fused path off."""
+    ins = copy.copy(ins)
+    ins.fused_stokes = None
+    return ins
+
+
+def _block_fluid(ins, mesh: Mesh):
+    """Shallow copy of a periodic INS integrator that steps
+    block-resident state: pencil-FFT solves taking and returning Blocks
+    (the fused single-device spectral path off), and every stencil of
+    the step (convection at its scheme's ghost width, the Laplacians,
+    the pressure gradient, the divergence of the diagnostics) a halo
+    stencil. Walls, and a block thinner than a stencil's ghost width,
+    raise here."""
+    from ibamr_tpu_torch.ops import stencils
+    from ibamr_tpu_torch.ops.convection import GHOST_WIDTH
     from ibamr_tpu_torch.parallel.fftpar import PencilFFT
 
-    if any(getattr(ins_integ, "wall_axes", ())):
+    if _walled(ins):
         raise NotImplementedError(
-            "sharded stepping currently supports fully periodic INS; "
+            "block-resident stepping supports fully periodic INS; "
             "wall-bounded fast-diagonalization solves are not yet "
             "distributed")
-    pencil = PencilFFT(ins_integ.grid, mesh)
-    integ2 = copy.copy(ins_integ)
-    integ2.helmholtz_vel_solve = pencil.helmholtz_vel
-    integ2.project = pencil.project_divergence_free
-    # the fused single-device spectral path bypasses the seams above;
-    # sharded stepping goes through the pencil transposes
-    integ2.fused_stokes = None
-    integ2._step_graphs = {}
-    return integ2
+    pencil = PencilFFT(ins.grid, mesh)
+    integ = copy.copy(ins)
+    integ.helmholtz_vel_solve = pencil.helmholtz_vel
+    integ.project = pencil.project_divergence_free
+    integ.fused_stokes = None
+    integ._step_graphs = {}
+    width = 1
+    if ins._convective is not None:
+        width = GHOST_WIDTH[ins.convective_op_type]
+        integ._convective = halo_stencil(ins._convective, width)
+    spec = grid_pspec(mesh, ins.grid.dim)
+    for d, axis in split_dims(NamedSharding(mesh, spec), ins.grid.dim):
+        extent = ins.grid.n[d] // mesh.axis_size(axis)
+        if extent < width:
+            raise ValueError(
+                f"grid axis {d} splits into blocks of {extent} cells, "
+                f"thinner than the {ins.convective_op_type!r} "
+                f"convection's ghost width {width}: use fewer shards or "
+                f"a bigger grid")
+    integ.laplacian_vel = halo_stencil(stencils.laplacian_vel, 1)
+    integ.pressure_gradient = halo_stencil(stencils.gradient, 1)
+    integ.laplacian_cc = halo_stencil(stencils.laplacian, 1)
+    integ.divergence = halo_stencil(stencils.divergence, 1)
+    return integ
 
 
-def _prepare_fluid(ins, mesh: Mesh):
-    """Solver-seam prepare for a uniform INS integrator: periodic
-    domains swap in the pencil FFT; wall-bounded ones keep their
-    fast-diagonalization solves."""
-    if any(getattr(ins, "wall_axes", ())):
-        ins = copy.copy(ins)
-        ins.fused_stokes = None
-        return ins
-    return _with_pencil_solvers(ins, mesh)
+def _block_step(integ, grid: StaggeredGrid, mesh: Mesh):
+    """``integ.step`` on block-resident state: grid-shaped tensors among
+    the state and the arguments are cut into blocks once (a state from
+    :func:`place_state` is already), and the result stays in blocks."""
+    def step(state, *args, **kwargs):
+        args = tuple(shard_state(a, grid, mesh) for a in args)
+        kwargs = {k: shard_state(v, grid, mesh) for k, v in kwargs.items()}
+        return integ.step(shard_state(state, grid, mesh), *args, **kwargs)
+
+    step.integ = integ
+    step.mesh = mesh
+    return step
 
 
 def _generic_pinned_step(integ, mesh: Mesh, prepare=None, pin_state=None):
-    """The wrapper every single-level family uses: lay the state and
-    every tensor argument out on the mesh, call ``integ.step``, lay the
-    result out. ``pin_state`` defaults to the exact-shape grid layout
-    (:func:`shard_state`)."""
+    """The pinned wrapper the families not yet partitioned use: lay the
+    state and every tensor argument out on the mesh, call
+    ``integ.step``, lay the result out. ``pin_state`` defaults to the
+    exact-shape grid layout (:func:`_pin_grid_state`); Blocks leaves are
+    assembled first."""
     if prepare is not None:
         integ = prepare(integ, mesh)
-    if pin_state is None:
+    lay = pin_state
+    if lay is None:
         grid = integ.grid
 
-        def pin_state(t):
-            return shard_state(t, grid, mesh)
+        def lay(t):
+            return _pin_grid_state(t, grid, mesh)
+
+    def pin_state(t):
+        return lay(unshard_state(t))
 
     def step(state, *args, **kwargs):
         args = tuple(pin_state(a) for a in args)
@@ -178,9 +270,14 @@ def _generic_pinned_step(integ, mesh: Mesh, prepare=None, pin_state=None):
 
 
 def make_sharded_ins_step(integ, mesh: Mesh):
-    """INS step with grid arrays laid out over ``mesh`` (periodic:
-    pencil-FFT solves; walls: the fast-diagonalization solves)."""
-    return _generic_pinned_step(integ, mesh, prepare=_prepare_fluid)
+    """INS step over ``mesh``. Periodic: block-resident (pencil-FFT
+    solves, halo stencils; every grid array stays in blocks from entry
+    to exit). Wall-bounded: the pinned form with the
+    fast-diagonalization solves."""
+    if _walled(integ):
+        return _generic_pinned_step(integ, mesh,
+                                    prepare=lambda i, m: _walled_fluid(i))
+    return _block_step(_block_fluid(integ, mesh), integ.grid, mesh)
 
 
 def _prepare_adv_diff(integ, mesh: Mesh):
@@ -243,7 +340,8 @@ def make_sharded_multilevel_step(ml, mesh: Mesh):
     shardings = [_spatial(mesh, len(spec.grid.n)) for spec in ml.levels]
 
     def constrain(Qs):
-        return tuple(pin(q, s) for q, s in zip(Qs, shardings))
+        return tuple(pin(q, s) for q, s in zip(unshard_state(Qs),
+                                                shardings))
 
     def step(Qs, dt):
         return constrain(ml.step(constrain(tuple(Qs)), dt))
@@ -254,11 +352,14 @@ def make_sharded_multilevel_step(ml, mesh: Mesh):
 def _wrap_sharded_markers(base_ib, grid: StaggeredGrid, mesh: Mesh,
                           marker_cap: Optional[int] = None,
                           marker_slack: float = 2.0,
-                          warn_strategy: bool = False):
+                          warn_strategy: bool = False,
+                          blocks: bool = False):
     """The facade routing an IBMethod's transfers through the
     co-partitioned engine on ``grid``; ``None`` when it cannot engage
     (a non-IBMethod strategy, warned only on an explicit request; a
-    (grid, mesh) the engine refuses, warned)."""
+    (grid, mesh) the engine refuses, warned). ``blocks=True`` spreads
+    into grid Blocks (the block-resident step); whole tensors
+    otherwise."""
     import warnings
 
     from ibamr_tpu_torch.integrators.ib import IBMethod
@@ -281,11 +382,18 @@ def _wrap_sharded_markers(base_ib, grid: StaggeredGrid, mesh: Mesh,
     engines = {}
 
     def get_engine(N):
-        # keyed by marker count: a capacity sized for another N is wrong
+        # keyed by marker count: a capacity sized for another N is wrong.
+        # On blocks a shard's pool holds every marker by default: the
+        # per-shard work follows the filled slots, not the capacity, and
+        # the overflow fallback (the replicated oracle) needs the whole
+        # grid
         if N not in engines:
+            cap = marker_cap
+            if cap is None and blocks:
+                cap = N
             engines[N] = ShardedInteraction(
                 grid, mesh, kernel=base_ib.kernel, n_markers=N,
-                cap=marker_cap, slack=marker_slack)
+                cap=cap, slack=marker_slack)
         return engines[N]
 
     class _ShardedIB:
@@ -317,7 +425,7 @@ def _wrap_sharded_markers(base_ib, grid: StaggeredGrid, mesh: Mesh,
             eng = get_engine(X.shape[0])
             if ctx is None:
                 ctx = eng.buckets(X, mask)
-            return eng.spread_vel(F, X, weights=mask, b=ctx)
+            return eng.spread_vel(F, X, weights=mask, b=ctx, blocks=blocks)
 
     return _ShardedIB()
 
@@ -327,14 +435,38 @@ def make_sharded_ib_step(integ, mesh: Mesh,
                          marker_cap: Optional[int] = None,
                          marker_slack: float = 2.0):
     """Coupled IB step (interp -> force -> spread -> fluid solve ->
-    correct) with the Eulerian state laid out over ``mesh``: pencil-FFT
-    fluid solves and, by default, the co-partitioned marker transfers
-    (``sharded_markers=False`` keeps the strategy's own transfers;
+    correct) over ``mesh``. Periodic: block-resident, the fluid as in
+    :func:`make_sharded_ins_step` and the marker transfers through the
+    co-partitioned engine, which reads the velocity blocks and returns
+    force blocks; markers stay replicated on the mesh's first device.
+    The engine is required there: a strategy it cannot take, or
+    ``sharded_markers=False``, raises. Its pools hold every marker a
+    shard (``marker_cap`` overrides; a layout that overflows an explicit
+    cap takes the replicated oracle, which assembles the grid).
+    Wall-bounded: the pinned form, the co-partitioned transfers by
+    default (``sharded_markers=False`` keeps the strategy's own;
     ``True`` warns when the facade cannot engage)."""
     grid = integ.ins.grid
     integ = copy.copy(integ)
     integ._jitted_steps = {}
-    integ.ins = _prepare_fluid(integ.ins, mesh)
+    if not _walled(integ.ins):
+        if sharded_markers is False:
+            raise ValueError(
+                "the block-resident IB step needs the co-partitioned "
+                "marker transfers (sharded_markers=False)")
+        wrapped = _wrap_sharded_markers(integ.ib, grid, mesh, marker_cap,
+                                        marker_slack, warn_strategy=True,
+                                        blocks=True)
+        if wrapped is None:
+            raise ValueError(
+                "the block-resident IB step needs the co-partitioned "
+                "marker transfers, which cannot engage here (warned "
+                "above)")
+        integ.ins = _block_fluid(integ.ins, mesh)
+        integ.ib = wrapped
+        return _block_step(integ, grid, mesh)
+
+    integ.ins = _walled_fluid(integ.ins)
     if sharded_markers is None or sharded_markers:
         wrapped = _wrap_sharded_markers(
             integ.ib, grid, mesh, marker_cap, marker_slack,
@@ -344,7 +476,7 @@ def make_sharded_ib_step(integ, mesh: Mesh,
 
     def pin_ib(st):
         if hasattr(st, "ins"):
-            return st._replace(ins=shard_state(st.ins, grid, mesh))
+            return st._replace(ins=_pin_grid_state(st.ins, grid, mesh))
         return st
 
     return _generic_pinned_step(integ, mesh, pin_state=pin_ib)
@@ -384,6 +516,7 @@ def make_sharded_two_level_ib_step(integ, mesh: Mesh,
             integ.ib = wrapped
 
     def pin_state(st):
+        st = unshard_state(st)
         fluid = st.fluid._replace(
             uc=tuple(pin(c, spatial) for c in st.fluid.uc),
             uf=tuple(pin(f, window_sh) for f in st.fluid.uf))
@@ -427,6 +560,7 @@ def make_sharded_multilevel_ins_step(integ, mesh: Mesh,
     box_sh = spatial if shard_boxes else NamedSharding(mesh, P())
 
     def pin_state(st):
+        st = unshard_state(st)
         return st._replace(us=_pin_multilevel_us(st.us, spatial, box_sh))
 
     def step(state, dt):
@@ -449,6 +583,7 @@ def make_sharded_multilevel_ib_step(integ, mesh: Mesh,
     box_sh = spatial if shard_boxes else replicated
 
     def pin_state(st):
+        st = unshard_state(st)
         fluid = st.fluid._replace(
             us=_pin_multilevel_us(st.fluid.us, spatial, box_sh))
         return st._replace(fluid=fluid, X=pin(st.X, replicated),
@@ -563,6 +698,7 @@ def _pin_rank_dim(mesh: Mesh, dim: int):
         return a
 
     def pin_state(st):
+        st = unshard_state(st)
         return tree_map(pin_one, st)
 
     return pin_state
@@ -661,6 +797,7 @@ def make_sharded_les_two_level_step(les, mesh: Mesh):
     les.core.proj = proj
 
     def pin_state(st):
+        st = unshard_state(st)
         return st._replace(uc=tuple(pin(c, spatial) for c in st.uc),
                            uf=tuple(pin(f, replicated) for f in st.uf))
 

@@ -419,3 +419,357 @@ def psum(mesh: Mesh, blocks: Sequence[torch.Tensor], axis: AxisName
             acc = acc + blocks[j].to(dev)
         out.append(acc)
     return _report("psum", out)
+
+
+# ---------------------------------------------------------------------------
+# block-resident grid leaves and the halo pass
+# ---------------------------------------------------------------------------
+
+# listeners of the whole-grid layouts (``analysis.graph_census``): every
+# cut of a whole tensor into :class:`Blocks` and every assembly of one
+# calls each listener with ``"cut"`` or ``"assemble"`` and the whole tensor
+GRID_LISTENERS: List[Callable] = []
+
+
+def _report_grid(kind: str, whole: torch.Tensor) -> None:
+    for listener in GRID_LISTENERS:
+        listener(kind, whole)
+
+
+# torch functions and Tensor methods that act cell by cell: on every
+# shard's block with the same scalar operands they give the blocks of the
+# op on the whole tensor
+_ELEMENTWISE = frozenset((
+    "add", "sub", "mul", "div", "true_divide", "rsub", "neg", "negative",
+    "abs", "square", "sqrt", "exp", "sign", "pow", "where", "maximum",
+    "minimum", "clamp", "clone", "detach", "contiguous", "float", "double",
+    "zeros_like", "ones_like", "empty_like", "full_like", "isfinite",
+    "isnan", "eq", "ne", "lt", "le", "gt", "ge", "logical_and",
+    "logical_or", "logical_not",
+    "__add__", "__radd__", "__sub__", "__rsub__", "__mul__", "__rmul__",
+    "__truediv__", "__rtruediv__", "__rdiv__", "__neg__", "__pow__",
+    "__rpow__", "__abs__", "__and__", "__or__", "__invert__", "__lt__",
+    "__le__", "__gt__", "__ge__"))
+# whole reductions: per block, then combined in coordinate order
+_REDUCE = {"sum": torch.add, "max": torch.maximum, "amax": torch.maximum,
+           "min": torch.minimum, "amin": torch.minimum,
+           "all": torch.logical_and, "any": torch.logical_or}
+
+
+class Blocks:
+    """A grid leaf held as per-shard blocks: ``blocks[i]`` is shard i's
+    index range of the global tensor of ``shape`` laid out by
+    ``sharding``, on shard i's device. The layout is the container's, so
+    no step re-pins it; :mod:`ibamr_tpu_torch.utils.tree` sees a
+    ``Blocks`` as one leaf, which the checkpoints write shard by shard.
+
+    Cell-by-cell torch ops (``+``, ``*``, ``torch.where``,
+    ``torch.isfinite``, ``zeros_like``, ...) run on every block, with
+    0-dim tensors and numbers as the other operands; ``sum`` / ``max`` /
+    ``min`` / ``all`` / ``any`` of the whole leaf reduce each block, then
+    combine the partial results on the mesh's first device in coordinate
+    order (bitwise run to run; another order than a whole-tensor
+    reduction, so equal to it only to roundoff). A stencil goes through
+    :func:`halo_apply`. Any other op raises ``TypeError``: nothing falls
+    back to a whole-grid tensor. :meth:`cut` and :meth:`assemble` are the
+    host-facing edges (placement, checkpoints, viz), and report to
+    ``GRID_LISTENERS``."""
+
+    __slots__ = ("blocks", "sharding", "shape")
+
+    def __init__(self, blocks: Sequence[torch.Tensor],
+                 sharding: NamedSharding, shape: Sequence[int]):
+        self.blocks = list(blocks)
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        if len(self.blocks) != sharding.mesh.size:
+            raise ValueError(f"{len(self.blocks)} blocks for a "
+                             f"{sharding.mesh.size}-shard mesh")
+
+    @classmethod
+    def cut(cls, mesh: Mesh, x: torch.Tensor,
+            spec: PartitionSpec) -> "Blocks":
+        """The blocks of the whole tensor ``x`` laid out by ``spec``."""
+        _report_grid("cut", x)
+        return cls(shard(mesh, x, spec), NamedSharding(mesh, spec), x.shape)
+
+    def assemble(self, device=None) -> torch.Tensor:
+        """The whole tensor, on ``device`` (default: the mesh's first)."""
+        out = unshard(self.mesh, self.blocks, self.spec, device)
+        _report_grid("assemble", out)
+        return out
+
+    def like(self, blocks: Sequence[torch.Tensor]) -> "Blocks":
+        """New blocks under this leaf's layout."""
+        return Blocks(blocks, self.sharding, self.shape)
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.sharding.mesh
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self.sharding.spec
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device (where reductions land)."""
+        return self.blocks[0].device
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def is_floating_point(self) -> bool:
+        return self.blocks[0].is_floating_point()
+
+    def cpu(self) -> torch.Tensor:
+        return self.assemble("cpu")
+
+    def numpy(self) -> np.ndarray:
+        return self.assemble("cpu").numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+    def __bool__(self):
+        raise TypeError("the truth value of a Blocks leaf is ambiguous")
+
+    def __repr__(self):
+        return (f"Blocks({tuple(self.shape)}, {self.dtype}, "
+                f"{self.sharding!r})")
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", str(func))
+        if name == "equal":
+            return _blocks_equal(*args)
+        if name in _REDUCE and len(args) == 1 and not kwargs:
+            return _blocks_reduce(name, args[0])
+        if name in _ELEMENTWISE:
+            return _blocks_map(func, args, kwargs)
+        raise TypeError(
+            f"{name} is not a per-block op: a Blocks leaf takes cell-by-"
+            f"cell ops and whole reductions, and its stencils through "
+            f"spmd.halo_apply")
+
+
+def _tensor_method(name: str):
+    fn = getattr(torch.Tensor, name)
+
+    def method(self, *args, **kwargs):
+        return Blocks.__torch_function__(fn, (Blocks,), (self,) + args,
+                                         kwargs)
+
+    method.__name__ = name
+    return method
+
+
+for _name in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
+              "__rmul__", "__truediv__", "__rtruediv__", "__neg__",
+              "__pow__", "__rpow__", "__abs__", "__and__", "__or__",
+              "__invert__", "__lt__", "__le__", "__gt__", "__ge__",
+              "abs", "square", "sqrt", "clone", "detach", "contiguous",
+              "float", "double", "isfinite", "sum", "max", "min",
+              "amax", "amin", "all", "any"):
+    setattr(Blocks, _name, _tensor_method(_name))
+
+
+def _same_layout(leaves: Sequence[Blocks]) -> Blocks:
+    ref = leaves[0]
+    for b in leaves[1:]:
+        if (b.mesh is not ref.mesh or tuple(b.spec) != tuple(ref.spec)
+                or b.shape != ref.shape):
+            raise ValueError(f"Blocks of different layouts: {b!r} and "
+                             f"{ref!r}")
+    return ref
+
+
+def _on_device(v, device):
+    """A non-Blocks operand of a per-block op: numbers pass; a tensor
+    must be 0-dim (a whole-grid operand would be another layout)."""
+    if isinstance(v, torch.Tensor):
+        if v.dim() != 0:
+            raise TypeError(
+                f"a per-block op takes 0-dim tensors beside Blocks, got "
+                f"shape {tuple(v.shape)}")
+        return v.to(device)
+    return v
+
+
+def _blocks_map(func, args, kwargs) -> Blocks:
+    found = [a for a in list(args) + list(kwargs.values())
+             if isinstance(a, Blocks)]
+    ref = _same_layout(found)
+
+    def body(ctx, *own):
+        it = iter(own)
+        a = [next(it) if isinstance(x, Blocks) else _on_device(x, ctx.device)
+             for x in args]
+        kw = {k: next(it) if isinstance(v, Blocks)
+              else _on_device(v, ctx.device) for k, v in kwargs.items()}
+        return func(*a, **kw)
+
+    outs = smap(body, ref.mesh, *[b.blocks for b in found])
+    for o, b in zip(outs, ref.blocks):
+        if not (isinstance(o, torch.Tensor) and o.shape == b.shape):
+            raise TypeError(f"{getattr(func, '__name__', func)} did not "
+                            f"act cell by cell on the blocks")
+    return ref.like(outs)
+
+
+def _distinct_shards(x: Blocks) -> List[int]:
+    """The shards holding distinct index ranges, in coordinate order."""
+    seen, out = set(), []
+    for i in range(x.mesh.size):
+        key = tuple(map(tuple, x.sharding.index(i, x.shape)))
+        if key not in seen:
+            seen.add(key)
+            out.append(i)
+    return out
+
+
+def _blocks_reduce(name: str, x: Blocks) -> torch.Tensor:
+    parts = smap(lambda ctx, b: getattr(torch, name)(b), x.mesh, x.blocks)
+    dev = x.mesh.first_device
+    keep = _distinct_shards(x)
+    acc = parts[keep[0]].to(dev)
+    for i in keep[1:]:
+        acc = _REDUCE[name](acc, parts[i].to(dev))
+    return acc
+
+
+def _blocks_equal(a, b) -> bool:
+    if not (isinstance(a, Blocks) and isinstance(b, Blocks)):
+        raise TypeError("torch.equal compares two Blocks leaves; assemble "
+                        "one to compare it with a tensor")
+    return (a.shape == b.shape and tuple(a.spec) == tuple(b.spec)
+            and a.mesh.size == b.mesh.size
+            and all(torch.equal(x, y.to(x.device))
+                    for x, y in zip(a.blocks, b.blocks)))
+
+
+def split_dims(sharding: NamedSharding, ndim: int):
+    """``[(dim, mesh axis), ...]`` of the tensor dimensions the layout
+    splits, in order."""
+    return [(d, sharding.spec[d]) for d in range(min(ndim,
+                                                     len(sharding.spec)))
+            if sharding.spec[d] is not None]
+
+
+def ghost_fill(mesh: Mesh, blocks: Sequence[torch.Tensor], axis: AxisName,
+               dim: int, width: int) -> List[torch.Tensor]:
+    """Every shard's block extended by ``width`` ghost layers on both
+    sides of tensor dimension ``dim``, from its ring neighbours along the
+    mesh ``axis`` (periodic). Raises when ``width`` exceeds the block's
+    extent there (the ghosts would need a farther neighbour)."""
+    n = blocks[0].shape[dim]
+    if width > n:
+        raise ValueError(
+            f"ghost width {width} exceeds the block's extent {n} along "
+            f"dimension {dim}: use fewer shards or a bigger grid")
+    p = mesh.axis_size(axis)
+    top = smap(lambda ctx, f: f.narrow(dim, n - width, width), mesh, blocks)
+    bot = smap(lambda ctx, f: f.narrow(dim, 0, width), mesh, blocks)
+    lo = ppermute(mesh, top, axis, [(i, (i + 1) % p) for i in range(p)])
+    hi = ppermute(mesh, bot, axis, [(i, (i - 1) % p) for i in range(p)])
+    return smap(lambda ctx, g0, f, g1: torch.cat([g0, f, g1], dim=dim),
+                mesh, lo, blocks, hi)
+
+
+def halo_add(mesh: Mesh, bufs: Sequence[torch.Tensor], axis: AxisName,
+             dim: int, width: int) -> List[torch.Tensor]:
+    """The adjoint of :func:`ghost_fill`: every shard's ``width`` ghost
+    layers on both sides of ``dim`` pushed to its ring neighbours along
+    ``axis`` and accumulated into their interiors (lo ghosts into the
+    previous block's tail, hi ghosts into the next block's head);
+    returns the interiors."""
+    p = mesh.axis_size(axis)
+    nl = bufs[0].shape[dim] - 2 * width
+    lo = smap(lambda ctx, b: b.narrow(dim, 0, width), mesh, bufs)
+    hi = smap(lambda ctx, b: b.narrow(dim, nl + width, width), mesh, bufs)
+    from_next = ppermute(mesh, lo, axis, [(i, (i - 1) % p) for i in range(p)])
+    from_prev = ppermute(mesh, hi, axis, [(i, (i + 1) % p) for i in range(p)])
+
+    def retire(ctx, b, fn, fp):
+        interior = b.narrow(dim, width, nl).clone()
+        interior.narrow(dim, nl - width, width).add_(fn)
+        interior.narrow(dim, 0, width).add_(fp)
+        return interior
+
+    return smap(retire, mesh, bufs, from_next, from_prev)
+
+
+def halo_apply(mesh: Mesh, blocks, fn: Callable, width: int):
+    """A roll-form stencil of radius ``width`` on block-resident leaves.
+
+    ``blocks`` is one :class:`Blocks` or a sequence of them (one layout);
+    ``fn(*tensors)`` is the stencil on whole tensors, returning a tensor
+    or a tuple of tensors of the input's shape. The leaves go through one
+    stacked ghost fill per split axis, the first split axis first (the
+    later fills move slabs of the already padded block, so the corners
+    are filled too); then ``fn`` runs on every shard's padded block and
+    the ghosts are cropped. A roll on a block padded by the stencil's
+    radius gives every interior cell the operands the roll on the whole
+    tensor gives it, in the same order, so the result is bitwise the
+    whole-tensor stencil's; only ghost cells wrap wrongly, and they go.
+    Returns Blocks (or a tuple of them) under the inputs' layout."""
+    ins = (blocks,) if isinstance(blocks, Blocks) else tuple(blocks)
+    ref = _same_layout(ins)
+    if ref.mesh is not mesh:
+        raise ValueError("halo_apply: the blocks are on another mesh")
+    dims = split_dims(ref.sharding, ref.ndim)
+    padded = smap(lambda ctx, *bs: torch.stack(bs), mesh,
+                  *[b.blocks for b in ins])
+    for d, axis in dims:
+        padded = ghost_fill(mesh, padded, axis, d + 1, width)
+    extent = {d: ref.blocks[0].shape[d] for d, _ in dims}
+    single = []
+
+    def body(ctx, pad):
+        out = fn(*pad.unbind(0))
+        single.append(not isinstance(out, tuple))
+        outs = (out,) if single[-1] else out
+        cropped = []
+        for o in outs:
+            for d, _ in dims:
+                o = o.narrow(d, width, extent[d])
+            cropped.append(o)
+        return cropped
+
+    res = smap(body, mesh, padded)
+    out = tuple(ref.like([r[k] for r in res]) for k in range(len(res[0])))
+    return out[0] if single[0] else out
+
+
+def halo_stencil(fn: Callable, width: int) -> Callable:
+    """``fn(x, *args)``, a roll-form stencil of radius ``width`` whose
+    ``x`` is a tensor or a tuple of tensors (``ops/stencils.py``'s
+    signature), as the same stencil on Blocks through :func:`halo_apply`
+    (the mesh is the leaves' own). A non-Blocks ``x`` raises."""
+    def apply(x, *args, **kwargs):
+        one = isinstance(x, Blocks)
+        first = x if one else x[0]
+        if not isinstance(first, Blocks):
+            raise TypeError(
+                f"{getattr(fn, '__name__', fn)} on the block-resident "
+                f"path takes Blocks, got {type(first).__name__}")
+        if one:
+            def body(b):
+                return fn(b, *args, **kwargs)
+        else:
+            def body(*bs):
+                return fn(bs, *args, **kwargs)
+        return halo_apply(first.mesh, x, body, width)
+
+    apply.__name__ = f"halo_{getattr(fn, '__name__', 'stencil')}"
+    return apply

@@ -61,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from ibamr_tpu_torch.parallel.spmd import Blocks
 from ibamr_tpu_torch.utils.tree import flatten_with_path, keystr, leaves
 from ibamr_tpu_torch.utils.tree import map_with_path
 
@@ -70,7 +71,8 @@ from ibamr_tpu_torch.utils.tree import map_with_path
 # ---------------------------------------------------------------------------
 
 def _is_float(leaf) -> bool:
-    return isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
+    return (isinstance(leaf, (torch.Tensor, Blocks))
+            and leaf.is_floating_point())
 
 
 def _match_paths(state, leaf_path: str):

@@ -225,9 +225,11 @@ def digest_state(post_state) -> dict:
 
 
 def _all_finite(state) -> bool:
+    from ibamr_tpu_torch.parallel.spmd import Blocks
     from ibamr_tpu_torch.utils.tree import leaves
     return all(bool(torch.isfinite(leaf).all()) for leaf in leaves(state)
-               if isinstance(leaf, torch.Tensor) and leaf.is_floating_point())
+               if isinstance(leaf, (torch.Tensor, Blocks))
+               and leaf.is_floating_point())
 
 
 def chunk_failed(manifest: dict, integ, post_state, dt: float) -> bool:

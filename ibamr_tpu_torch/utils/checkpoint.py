@@ -37,6 +37,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ibamr_tpu_torch.parallel.spmd import Blocks
 from ibamr_tpu_torch.utils.tree import flatten_with_path, map_with_path
 
 SCHEMA_VERSION = 1
@@ -61,7 +62,7 @@ def _path_str(path) -> str:
 
 
 def _dtype_name(leaf) -> str:
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, (torch.Tensor, Blocks)):
         return str(leaf.dtype).replace("torch.", "")
     return str(getattr(leaf, "dtype", np.asarray(leaf).dtype))
 
@@ -98,7 +99,9 @@ def _schema_diff(stored: Dict[str, Any], current: Dict[str, Any]) -> str:
 
 
 def _host(leaf) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
+    """A leaf's host copy (a block-resident leaf assembled on the host:
+    the whole-state files are a host-facing edge)."""
+    if isinstance(leaf, (torch.Tensor, Blocks)):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
@@ -460,6 +463,10 @@ def _load_step(directory: str, step: int, template: Any):
                 raise CheckpointCorruptError(
                     f"checkpoint {fname}: leaf {key!r} fails its recorded "
                     f"CRC32 - the array file and sidecar disagree")
+            if isinstance(leaf, Blocks):
+                # cut on the host: each block goes to its own device
+                return Blocks.cut(leaf.mesh, torch.tensor(arr).to(
+                    dtype=leaf.dtype), leaf.spec)
             if isinstance(leaf, torch.Tensor):
                 return torch.tensor(arr).to(device=leaf.device,
                                             dtype=leaf.dtype)

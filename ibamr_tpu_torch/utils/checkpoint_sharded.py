@@ -12,9 +12,11 @@ sharded checkpoint written by either package restores into the other::
 
 - :func:`save_sharded_checkpoint` writes one file per shard of the
   state's mesh, each holding only the slices that shard owns (the first
-  shard holding each distinct index range, from the layout a tensor
-  carries, ``parallel.spmd.sharding_of``; a leaf with no layout belongs
-  to shard 0), then the manifest atomically LAST: the mesh spec, every
+  shard holding each distinct index range, from the layout a leaf
+  carries: a block-resident leaf (``parallel.spmd.Blocks``) writes each
+  shard straight from its block; a pinned tensor
+  (``parallel.spmd.sharding_of``) by slices; a leaf with no layout
+  belongs to shard 0), then the manifest atomically LAST: the mesh spec, every
   leaf's chunks (shard, index range, CRC32), the state schema and every
   shard file's CRC32 and size. A kill at any instant leaves no manifest
   or a manifest whose digests expose a missing, torn or stale shard.
@@ -22,7 +24,9 @@ sharded checkpoint written by either package restores into the other::
   torn, missing-shard and CRC-mismatched steps.
 - :func:`restore_sharded` reassembles a checkpoint written on N shards
   and lays it out as the template dictates (M shards, one device, or
-  host arrays): chunk assembly is memcpy, so every restore is bitwise.
+  host arrays; a Blocks template leaf has each of its blocks filled
+  from the chunks that overlap it): chunk assembly is memcpy, so every
+  restore is bitwise.
 - :class:`AsyncShardedWriter` copies each shard's slices to the host at
   ``save`` (the copy is what the run may not overwrite; still never the
   global tensor) and writes the shard files concurrently on worker
@@ -46,7 +50,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ibamr_tpu_torch.parallel.spmd import pin, sharding_of
+from ibamr_tpu_torch.parallel.spmd import Blocks, pin, sharding_of
 from ibamr_tpu_torch.utils.checkpoint import (CheckpointCorruptError,
                                               _atomic_write_digest,
                                               _file_crc, _fsync_dir,
@@ -80,8 +84,13 @@ def _full_index(shape):
     return [[0, int(s)] for s in shape]
 
 
+def _layout(leaf):
+    """The layout a leaf carries: its Blocks' own, a pin, or None."""
+    return leaf.sharding if isinstance(leaf, Blocks) else sharding_of(leaf)
+
+
 def _dtype_name(leaf) -> str:
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, (torch.Tensor, Blocks)):
         return str(leaf.dtype).replace("torch.", "")
     return str(np.asarray(leaf).dtype)
 
@@ -94,7 +103,7 @@ def _plan_shards(state):
     flat = flatten_with_path(state)
     n_shards = 1
     for _, leaf in flat:
-        sh = sharding_of(leaf)
+        sh = _layout(leaf)
         if sh is not None:
             n_shards = max(n_shards, sh.mesh.size)
 
@@ -111,8 +120,8 @@ def _plan_shards(state):
         shape = [int(s) for s in np.shape(leaf)]
         leaves_meta[key] = {"shape": shape, "dtype": _dtype_name(leaf),
                             "chunks": []}
-        sh = sharding_of(leaf)
-        if sh is None or not isinstance(leaf, torch.Tensor):
+        sh = _layout(leaf)
+        if sh is None or not isinstance(leaf, (torch.Tensor, Blocks)):
             own(0, key, _fetch_shard(leaf), _full_index(shape))
             continue
         seen = set()
@@ -122,6 +131,9 @@ def _plan_shards(state):
             if ikey in seen:
                 continue              # a replica of a chunk already owned
             seen.add(ikey)
+            if isinstance(leaf, Blocks):
+                own(i, key, _fetch_shard(leaf.blocks[i]), index)
+                continue
             sl = tuple(slice(lo, hi) for lo, hi in index)
             own(i, key, _fetch_shard(leaf[sl]), index)
     return n_shards, leaves_meta, per_shard
@@ -256,16 +268,15 @@ def _prune_sharded(directory: str, keep: int) -> None:
             shutil.rmtree(_step_dir(directory, s), ignore_errors=True)
 
 
-def _assemble_leaf(sdir: str, key: str, meta: dict, shard_files: dict):
-    """One global host array from its manifest chunks, CRC-checking every
-    loaded slice."""
-    shape = tuple(meta["shape"])
+def _load_chunks(sdir: str, key: str, meta: dict, shard_files: dict):
+    """``[(index, host array), ...]`` of one leaf's manifest chunks,
+    CRC-checking every loaded slice."""
     chunks = meta["chunks"]
     if not chunks:
         raise CheckpointCorruptError(
             f"sharded checkpoint {sdir}: leaf {key!r} has no chunks "
             f"in the manifest")
-    out = None
+    out = []
     for ch in chunks:
         name = _shard_name(int(ch["shard"]))
         if name not in shard_files:
@@ -281,17 +292,58 @@ def _assemble_leaf(sdir: str, key: str, meta: dict, shard_files: dict):
                 f"sharded checkpoint {sdir}: leaf {key!r} chunk in "
                 f"{name} fails its recorded CRC32 - shard file and "
                 f"manifest disagree")
-        index = ch["index"]
-        if [list(map(int, ij)) for ij in index] == _full_index(shape):
-            return arr                 # whole-array chunk (replicated)
-        if out is None:
-            out = np.empty(shape, dtype=arr.dtype)
-        out[tuple(slice(lo, hi) for lo, hi in index)] = arr
-    if out is None:
+        out.append(([list(map(int, ij)) for ij in ch["index"]], arr))
+    return out
+
+
+def _fill(sdir: str, key: str, index, chunks) -> np.ndarray:
+    """The host array of the index range ``index`` (``[[lo, hi], ...]``)
+    copied from the chunks that overlap it."""
+    dtype = chunks[0][1].dtype
+    out = np.empty([hi - lo for lo, hi in index], dtype=dtype)
+    filled = 0
+    for cidx, arr in chunks:
+        box = [(max(a0, b0), min(a1, b1))
+               for (a0, a1), (b0, b1) in zip(index, cidx)]
+        if any(lo >= hi for lo, hi in box):
+            continue
+        dst = tuple(slice(lo - a0, hi - a0)
+                    for (lo, hi), (a0, _) in zip(box, index))
+        src = tuple(slice(lo - b0, hi - b0)
+                    for (lo, hi), (b0, _) in zip(box, cidx))
+        out[dst] = arr[src]
+        filled += int(np.prod([hi - lo for lo, hi in box]))
+    if filled != out.size:
         raise CheckpointCorruptError(
             f"sharded checkpoint {sdir}: leaf {key!r} chunks do not "
             f"cover the array")
     return out
+
+
+def _assemble_leaf(sdir: str, key: str, meta: dict, shard_files: dict):
+    """One global host array from its manifest chunks."""
+    shape = [int(s) for s in meta["shape"]]
+    chunks = _load_chunks(sdir, key, meta, shard_files)
+    for index, arr in chunks:
+        if index == _full_index(shape):
+            return arr                 # whole-array chunk (replicated)
+    return _fill(sdir, key, _full_index(shape), chunks)
+
+
+def _restore_blocks(sdir: str, key: str, meta: dict, shard_files: dict,
+                    leaf: Blocks) -> Blocks:
+    """A Blocks leaf restored block by block: each shard's index range
+    filled from the chunks that overlap it, straight to its device."""
+    chunks = _load_chunks(sdir, key, meta, shard_files)
+    if [int(s) for s in meta["shape"]] != list(leaf.shape):
+        raise CheckpointCorruptError(
+            f"sharded checkpoint {sdir}: leaf {key!r} has shape "
+            f"{meta['shape']}, the template {list(leaf.shape)}")
+    return leaf.like([
+        torch.as_tensor(_fill(sdir, key, leaf.sharding.index(i, leaf.shape),
+                              chunks)).to(device=leaf.mesh.device(i),
+                                          dtype=leaf.dtype)
+        for i in range(leaf.mesh.size)])
 
 
 def restore_sharded(directory: str, template: Any,
@@ -355,6 +407,9 @@ def _load_sharded_step(directory: str, step: int, template: Any,
         key = _path_str(path)
         if key not in leaves_meta:
             raise KeyError(f"sharded checkpoint {sdir} missing leaf {key!r}")
+        if isinstance(leaf, Blocks) and sharding_fn is None:
+            return _restore_blocks(sdir, key, leaves_meta[key], shard_files,
+                                   leaf)
         arr = _assemble_leaf(sdir, key, leaves_meta[key], shard_files)
         if sharding_fn is not None:
             return sharding_fn(key, arr)

@@ -39,6 +39,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from ibamr_tpu_torch.parallel.spmd import Blocks
 from ibamr_tpu_torch.utils.checkpoint import (_atomic_write_digest,
                                               _gather_arrays, _host,
                                               _leaf_crc, _path_str)
@@ -192,7 +193,7 @@ class FlightRecorder:
         paths = [_path_str(p) for p, _ in flatten_with_path(state)]
         copy = map_with_path(
             lambda _, leaf: leaf.detach().clone()
-            if isinstance(leaf, torch.Tensor) else leaf, state)
+            if isinstance(leaf, (torch.Tensor, Blocks)) else leaf, state)
         dt_val = float(dt) if np.ndim(dt) == 0 \
             else np.array(dt, dtype=np.float64)
         self.ring.append(ChunkSnapshot(
@@ -218,7 +219,8 @@ class FlightRecorder:
         """A fresh copy of a ring entry's state (the ring keeps its own)."""
         return map_with_path(
             lambda _, leaf: leaf.clone()
-            if isinstance(leaf, torch.Tensor) else leaf, entry.state)
+            if isinstance(leaf, (torch.Tensor, Blocks)) else leaf,
+            entry.state)
 
     # -- fingerprint ---------------------------------------------------------
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ibamr_tpu_torch import obs as _obs
+from ibamr_tpu_torch.parallel.spmd import Blocks
 from ibamr_tpu_torch.utils.tree import flatten_with_path, keystr, tree_map
 
 _CHUNKS_TOTAL = _obs.counter("driver_chunks_total")
@@ -106,12 +107,13 @@ class LaneFault(SimulationDiverged):
 
 def _float_leaves(state):
     return [(p, leaf) for p, leaf in flatten_with_path(state)
-            if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
+            if isinstance(leaf, (torch.Tensor, Blocks))
+            and leaf.is_floating_point()]
 
 
 def _state_device(state):
     for _, leaf in flatten_with_path(state):
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, (torch.Tensor, Blocks)):
             return leaf.device
     return torch.device("cpu")
 
@@ -341,7 +343,7 @@ class HierarchyDriver:
     def _leaf_sig(state) -> tuple:
         return tuple((tuple(leaf.shape), str(leaf.dtype))
                      for _, leaf in flatten_with_path(state)
-                     if isinstance(leaf, torch.Tensor))
+                     if isinstance(leaf, (torch.Tensor, Blocks)))
 
     def _chunk(self, n: int):
         """The chunk of ``n`` steps: ``chunk(state, dt) -> (state,

@@ -9,7 +9,11 @@ drill against the reference's on the CPU.
   bitwise, and the two packages' manifests carry the same leaves,
   chunks, CRCs and mesh spec.
 - The port's own save never copies the global tensor to the host; a
-  step restores bitwise on any shard count; every injected damage mode
+  block-resident state (``spmd.Blocks`` leaves) saves each shard
+  straight from its block, with no whole tensor built, and restores
+  bitwise block by block on any mesh, the reference's checkpoint too,
+  and through the whole-state files; a step restores bitwise on any
+  shard count; every injected damage mode
   fails verification and falls back; the async writer commits in order
   and sheds under ``overflow="drop"``.
 - ``ckpt_fsck`` audits and repairs a run directory of both formats (a
@@ -33,6 +37,7 @@ from jax.sharding import PartitionSpec as JP
 
 from ibamr_tpu.utils import checkpoint_sharded as jcs
 from ibamr_tpu_torch.parallel.mesh import make_mesh
+from ibamr_tpu_torch.parallel import spmd
 from ibamr_tpu_torch.parallel.spmd import NamedSharding, P, pin, sharding_of
 from ibamr_tpu_torch.tools import ckpt_fsck, fleet
 from ibamr_tpu_torch.tools.fault_injection import (corrupt_shard, drop_shard,
@@ -122,6 +127,72 @@ def test_save_never_copies_the_global_tensor(tmp_path, monkeypatch):
     cs.save_sharded_checkpoint(str(tmp_path), _place(host, 8), 1)
     assert fetched and max(fetched) < host["u"].nbytes
     assert cs.verify_sharded_checkpoint(str(tmp_path), 1)
+
+
+def _blocks(state, n_shards, axes=1):
+    """The host state with its 2-D leaf as Blocks on an ``n_shards``
+    mesh of the CPU, the rest replicated."""
+    mesh = make_mesh(n_shards, max_axes=axes, device="cpu")
+    spec = P(*mesh.axis_names, *([None] * (2 - len(mesh.axis_names))))
+    rep = NamedSharding(mesh, P())
+    return {k: spmd.Blocks.cut(mesh, torch.as_tensor(v), spec)
+            if np.ndim(v) == 2 else pin(torch.as_tensor(v), rep)
+            for k, v in state.items()}
+
+
+def test_block_resident_save_builds_no_whole_tensor(tmp_path, monkeypatch):
+    """Every shard file is written straight from its block: each host
+    copy is one block, and no whole tensor is assembled or sliced."""
+    fetched = []
+    orig = cs._fetch_shard
+
+    def counting(data):
+        fetched.append(tuple(data.shape))
+        return orig(data)
+
+    def refuse(*a, **k):
+        raise AssertionError("a shard write assembled the whole tensor")
+
+    host = _host_state(4)
+    state = _blocks(host, 8, axes=2)
+    monkeypatch.setattr(cs, "_fetch_shard", counting)
+    monkeypatch.setattr(spmd.Blocks, "assemble", refuse)
+    monkeypatch.setattr(spmd, "unshard", refuse)
+    cs.save_sharded_checkpoint(str(tmp_path), state, 3,
+                               mesh=state["u"].mesh)
+    assert fetched.count((16, 32)) == 8          # one per (4, 2) block
+    assert max(int(np.prod(f)) for f in fetched) < host["u"].size
+    assert cs.verify_sharded_checkpoint(str(tmp_path), 3)
+
+
+@pytest.mark.parametrize("n_src,n_dst", [(8, 8), (8, 2), (4, 8)])
+def test_block_resident_state_round_trips_bitwise(tmp_path, n_src, n_dst):
+    """A block-resident save restores into Blocks templates of any mesh,
+    block by block (and into pinned tensors), bitwise; the reference's
+    sharded checkpoint restores into Blocks too; the whole-state files
+    assemble at the save and cut at the restore."""
+    host = _host_state(n_src + n_dst)
+    d = str(tmp_path / "s")
+    cs.save_sharded_checkpoint(d, _blocks(host, n_src, axes=2), 4)
+    got, step, man = cs.restore_sharded(d, _blocks(_host_state(0), n_dst))
+    assert step == 4 and man["mesh"]["n_shards"] == n_src
+    assert isinstance(got["u"], spmd.Blocks)
+    assert got["u"].mesh.size == n_dst
+    _equal(got, host)
+    pinned, _, _ = cs.restore_sharded(d, _place(_host_state(0), 2))
+    _equal(pinned, host)
+
+    jstate, jmesh = _jplace(host, 8)
+    jd = str(tmp_path / "j")
+    jcs.save_sharded_checkpoint(jd, jstate, 6, mesh=jmesh)
+    got, _, _ = cs.restore_sharded(jd, _blocks(_host_state(0), n_dst))
+    _equal(got, host)
+
+    w = str(tmp_path / "w")
+    ckpt.save_checkpoint(w, _blocks(host, n_src, axes=2), 2)
+    got, _, _ = ckpt.restore_checkpoint(w, _blocks(_host_state(0), n_dst))
+    assert isinstance(got["u"], spmd.Blocks)
+    _equal(got, host)
 
 
 @pytest.mark.parametrize("n_src,n_dst", [(8, 8), (8, 1), (1, 8), (8, 4),

@@ -9,7 +9,12 @@ that raised before the parallel layer was ported.
   1D and 2D meshes of 4 and 8 shards, follows the reference's
   single-device step over 3 steps within 1e-10 of the largest value,
   with every per-shard body under ``spmd.audit_blocks``; the sharded
-  step is bitwise the same run to run and its state carries the layout.
+  step is bitwise the same run to run and block-resident: every grid
+  array of its state is ``spmd.Blocks`` carrying the layout, each block
+  on its shard's device, and no whole-grid ``shard`` / ``unshard`` runs
+  inside a step (patched to raise; the census counts 0).
+- The ex4 driver sharded over an 8-shard CPU mesh reproduces the
+  reference's ex4 main, which shards over the 8 host devices.
 - The dispatch table and its MRO walk, the generic wrapper, the
   multibox placement, and the other families (adv-diff, L-level
   adv-diff and INS, LES, CIB, open INS), each held against the
@@ -25,8 +30,13 @@ that raised before the parallel layer was ported.
   (``tests/test_torch_checkpoint_sharded.py``) and here by a replay of
   a sharded capsule."""
 
+import importlib.util
+import json
 import math
 import os
+import re
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -176,8 +186,25 @@ def test_sharded_ib_shell_matches_reference(shell_reference, n_shards, axes):
     for a, b in zip(s.ins.u, want.ins.u):
         _close(a, b)
     _close(s.ins.p, want.ins.p)
-    lay = spmd.sharding_of(s.ins.u[0])
-    assert lay.mesh is mesh and tuple(lay.spec)[:axes] == mesh.axis_names
+    _assert_block_resident(s.ins, mesh, axes)
+    assert s.X.device == mesh.first_device
+
+
+def _assert_block_resident(ins_state, mesh, axes):
+    """Every grid array of an INS state is Blocks under the spatial
+    layout, read from the container, each block on its shard's device;
+    the scalars stay plain tensors."""
+    for x in (*ins_state.u, ins_state.p, *ins_state.n_prev):
+        assert isinstance(x, spmd.Blocks)
+        assert x.mesh is mesh
+        assert tuple(x.spec)[:axes] == mesh.axis_names
+        assert all(b.device == mesh.device(i)
+                   for i, b in enumerate(x.blocks))
+        assert all(tuple(b.shape) == tuple(hi - lo for lo, hi in
+                                           x.sharding.index(i, x.shape))
+                   for i, b in enumerate(x.blocks))
+    assert isinstance(ins_state.t, torch.Tensor)
+    assert isinstance(ins_state.k, torch.Tensor)
 
 
 @pytest.mark.parametrize("shape,n_shards,axes", [((16, 16), 4, 2),
@@ -197,13 +224,129 @@ def test_sharded_ins_matches_reference(shape, n_shards, axes):
                                 device="cpu")
     mesh = make_mesh(n_shards, max_axes=axes, device="cpu")
     step = make_sharded_step(ti, mesh)
-    s = place_state(ti.initialize(u0_arrays=u0), tg, mesh)
-    with spmd.audit_blocks():
-        for _ in range(3):
-            s = step(s, 2e-3)
+    runs = []
+    for _ in range(2):
+        s = place_state(ti.initialize(u0_arrays=u0), tg, mesh)
+        with spmd.audit_blocks() as audit:
+            for _ in range(3):
+                s = step(s, 2e-3)
+        runs.append(s)
+    assert audit["bodies"] > 0
+    assert _bitwise(runs[0], runs[1])
+    s = runs[0]
     for a, b in zip(s.u, js.u):
         _close(a, b)
     _close(s.p, js.p)
+    _assert_block_resident(s, mesh, axes)
+
+
+def _grid_guard(monkeypatch, shape):
+    """Patch ``spmd.shard`` / ``spmd.unshard`` (and every module's
+    imported copy) to raise, once armed, on a whole tensor whose trailing
+    dimensions are the grid's; other calls (the marker pools) pass and
+    are counted. Returns ``(armed, passed)``."""
+    armed, passed = [False], []
+    real = {"shard": spmd.shard, "unshard": spmd.unshard}
+
+    def whole_shape(name, mesh, x, spec):
+        if name == "shard":
+            return tuple(x.shape)
+        parts = tuple(spec) + (None,) * x[0].dim()
+        return tuple(n * (mesh.axis_size(p) if p is not None else 1)
+                     for n, p in zip(x[0].shape, parts))
+
+    def guarded(name):
+        def fn(mesh, x, spec, *args, **kwargs):
+            dims = whole_shape(name, mesh, x, spec)
+            if armed[0]:
+                if dims[len(dims) - len(shape):] == shape:
+                    raise AssertionError(f"whole-grid {name} of {dims} "
+                                         f"inside a step")
+                passed.append((name, dims))
+            return real[name](mesh, x, spec, *args, **kwargs)
+        return fn
+
+    for mod in list(sys.modules.values()):
+        if not (getattr(mod, "__name__", "") or "").startswith(
+                "ibamr_tpu_torch"):
+            continue
+        for name in real:
+            if getattr(mod, name, None) is real[name]:
+                monkeypatch.setattr(mod, name, guarded(name))
+    return armed, passed
+
+
+@pytest.mark.parametrize("family", ["ib", "ins"])
+def test_sharded_step_never_cuts_or_assembles_the_grid(monkeypatch,
+                                                       family):
+    """Between ``place_state`` and the end of 3 steps no whole-grid
+    ``shard`` / ``unshard`` runs (both raise on a tensor of the grid's
+    shape); the marker pools still go through them. The census counts 0
+    whole-grid layouts a step. The guard itself catches an assembly."""
+    from ibamr_tpu_torch.analysis.graph_census import graph_census
+
+    mesh = make_mesh(8, max_axes=2, device="cpu")
+    if family == "ib":
+        integ, s0 = build_shell_example(dtype=torch.float64, device="cpu",
+                                        **_SHELL)
+        grid, dt = integ.ins.grid, 5e-3
+    else:
+        grid = StaggeredGrid(n=(16, 16, 16), x_lo=(0.0,) * 3,
+                             x_up=(1.0,) * 3)
+        integ = INSStaggeredIntegrator(grid, mu=0.02, dtype=torch.float64,
+                                       device="cpu")
+        rng = np.random.default_rng(5)
+        s0 = integ.initialize(u0_arrays=tuple(
+            0.1 * rng.standard_normal(grid.n) for _ in range(3)))
+        dt = 2e-3
+    step = make_sharded_step(integ, mesh)
+    armed, passed = _grid_guard(monkeypatch, tuple(grid.n))
+    s = place_state(s0, grid, mesh)
+    armed[0] = True
+    for _ in range(3):
+        s = step(s, dt)
+    cen = graph_census(lambda st: step(st, dt), (s,))
+    assert cen["whole_grid_layouts"] == 0
+    assert cen["ppermute_prims"] > 0 and cen["all_to_all_prims"] > 0
+    # the IB step's marker pools are cut and assembled every step
+    assert bool(passed) == (family == "ib")
+    ins = s.ins if family == "ib" else s
+    with pytest.raises(AssertionError, match="whole-grid unshard"):
+        ins.u[0].assemble()
+
+
+def test_block_resident_path_refuses_what_it_cannot_partition():
+    """A wall-bounded INS keeps the pinned form (walls are not
+    partitioned yet; the block-resident form raises on it); the
+    block-resident IB step refuses to run without the co-partitioned
+    transfers; an indivisible grid and a block thinner than the
+    convection's ghost width raise."""
+    from ibamr_tpu_torch.parallel.mesh import (_block_fluid,
+                                               make_sharded_ib_step)
+
+    mesh = make_mesh(8, max_axes=2, device="cpu")
+    integ, _ = build_shell_example(dtype=torch.float64, device="cpu",
+                                   **_SHELL)
+    with pytest.raises(ValueError, match="co-partitioned"):
+        make_sharded_ib_step(integ, mesh, sharded_markers=False)
+    g = StaggeredGrid(n=(12, 16), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    with pytest.raises(ValueError, match="n % "):
+        make_sharded_step(INSStaggeredIntegrator(
+            g, dtype=torch.float64, device="cpu"), make_mesh(8,
+                                                             device="cpu"))
+    g = StaggeredGrid(n=(16, 16), x_lo=(0.0, 0.0), x_up=(1.0, 1.0))
+    with pytest.raises(ValueError, match="ghost width 3"):
+        make_sharded_step(INSStaggeredIntegrator(
+            g, convective_op_type="ppm", dtype=torch.float64,
+            device="cpu"), make_mesh(8, max_axes=1, device="cpu"))
+    walled = INSStaggeredIntegrator(g, dtype=torch.float64, device="cpu",
+                                    wall_axes=(False, True))
+    with pytest.raises(NotImplementedError, match="wall-bounded"):
+        _block_fluid(walled, make_mesh(4, device="cpu"))
+    st = make_sharded_step(walled, make_mesh(4, device="cpu"))(
+        walled.initialize(), 1e-3)
+    assert isinstance(st.u[0], torch.Tensor)
+    assert spmd.sharding_of(st.u[0]).mesh.size == 4
 
 
 def test_dispatch_table_mro_and_generic_wrapper():
@@ -691,3 +834,108 @@ def test_parallel_entry_points_raise_without_a_gpu(tmp_path, capsys):
     assert fleet.main(["--lanes", "2", "--n", "8", "--mesh", "2"]) == 1
     out = capsys.readouterr().out.strip().splitlines()[-1]
     assert "no CUDA device" in out
+
+
+ROOT = Path(__file__).resolve().parent.parent
+EX4_INPUT = ROOT / "examples/IB/explicit/ex4/input3d"
+EX4_STEPS, EX4_VIZ, EX4_RESTART = 6, 2, 3
+# f32 runs of the two packages: FFT backends and sum orders differ (the
+# bounds of tests/test_torch_driver.py's ex4 test)
+EX4_RTOL = 1e-5
+EX4_KE_RTOL = 1e-4
+
+
+def _ex4_cut_input(out: Path) -> Path:
+    """``input3d`` cut to a 16^3 grid, an 8x10 shell, dt 1e-3 and 6
+    steps with viz every 2 and a restart every 3; the relative output
+    paths as committed."""
+    text = EX4_INPUT.read_text()
+    for pat, val in ((r"(n_cells\s*=\s*)[\d, ]+\n", r"\g<1>16, 16, 16\n"),
+                     (r"(dt\s*=\s*)[\d.e-]+", r"\g<1>1e-3"),
+                     (r"(num_steps\s*=\s*)\d+", rf"\g<1>{EX4_STEPS}"),
+                     (r"(viz_dump_interval\s*=\s*)\d+", rf"\g<1>{EX4_VIZ}"),
+                     (r"(restart_interval\s*=\s*)\d+",
+                      rf"\g<1>{EX4_RESTART}"),
+                     (r"(n_lat\s*=\s*)\d+", r"\g<1>8"),
+                     (r"(n_lon\s*=\s*)\d+", r"\g<1>10")):
+        text, k = re.subn(pat, val, text)
+        assert k == 1, pat
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "input3d"
+    path.write_text(text)
+    return path
+
+
+def _in_dir(directory: Path, fn):
+    cwd = os.getcwd()
+    os.chdir(directory)
+    try:
+        return fn()
+    finally:
+        os.chdir(cwd)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
+
+
+def test_ex4_driver_sharded_matches_reference_sharded(tmp_path, capsys):
+    """The port's ex4 driver over an 8-shard CPU mesh
+    (``run(db, device="cpu", mesh=make_mesh(8, device="cpu"))``) against
+    the reference's ex4 main, which shards over the 8 host devices: the
+    metrics records, the viz files, the checkpoints and the final state
+    within the ex4 bounds; the port's final state is block-resident."""
+    from ibamr_tpu.utils import checkpoint as jckpt
+    from ibamr_tpu_torch.examples import ib_explicit_ex4
+    from ibamr_tpu_torch.utils import checkpoint as tckpt
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    assert len(jax.devices()) == 8
+    spec = importlib.util.spec_from_file_location(
+        "example_ex4_main", ROOT / "examples/IB/explicit/ex4/main.py")
+    jmain = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jmain)
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    jpath, tpath = _ex4_cut_input(jdir), _ex4_cut_input(tdir)
+    js = _in_dir(jdir, lambda: jmain.main(["main.py", str(jpath)]))
+    mesh = make_mesh(8, device="cpu")
+    ts = _in_dir(tdir, lambda: ib_explicit_ex4.run(
+        parse_input_file(str(tpath)), device="cpu", mesh=mesh))
+    out = capsys.readouterr().out
+    assert out.count("sharding over mesh {'x': 4, 'y': 2}") == 2
+    assert int(ts.ins.k) == EX4_STEPS
+    _assert_block_resident(ts.ins, mesh, 2)
+    for a, b in ((ts.X, js.X), (ts.U, js.U), (ts.ins.p, js.ins.p),
+                 *zip(ts.ins.u, js.ins.u)):
+        assert _rel(a, b) < EX4_RTOL
+
+    def records(d):
+        lines = (d / "viz_ex4/metrics.jsonl").read_text().splitlines()
+        return [json.loads(ln) for ln in lines]
+
+    jrec, trec = records(jdir), records(tdir)
+    assert [r["step"] for r in trec] == [r["step"] for r in jrec] \
+        == [2, 3, 4, 6]
+    umax = max(float(np.max(np.abs(np.asarray(c)))) for c in js.ins.u)
+    for j, t in zip(jrec, trec):
+        assert t.keys() == j.keys()
+        for key in ("t", "volume", "cfl_dt"):
+            assert abs(t[key] - j[key]) <= EX4_RTOL * abs(j[key]), key
+        assert abs(t["ke"] - j["ke"]) <= EX4_KE_RTOL * j["ke"]
+        assert abs(t["max_div"] - j["max_div"]) <= EX4_RTOL * umax * 16
+    viz = sorted(os.listdir(jdir / "viz_ex4"))
+    assert sorted(os.listdir(tdir / "viz_ex4")) == viz
+    for name in viz:
+        if name.endswith(".csv"):
+            ref = np.loadtxt(jdir / "viz_ex4" / name, delimiter=",")
+            got = np.loadtxt(tdir / "viz_ex4" / name, delimiter=",")
+            assert _rel(got, ref) <= EX4_RTOL
+    assert sorted(os.listdir(tdir / "restart_ex4")) == sorted(
+        os.listdir(jdir / "restart_ex4"))
+    for k in (EX4_RESTART, EX4_STEPS):
+        jk, _, _ = jckpt.restore_checkpoint(str(jdir / "restart_ex4"), js, k)
+        tk, _, _ = tckpt.restore_checkpoint(str(tdir / "restart_ex4"), ts, k)
+        for a, b in zip(leaves(tk), jax.tree_util.tree_leaves(jk)):
+            assert _rel(a, b) < EX4_RTOL
+        assert isinstance(tk.ins.u[0], spmd.Blocks)
