@@ -291,6 +291,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the flagship over one shard per GPU (with one, a line says the leg
    did not run); ``PencilFFT.project_divergence_free`` at 256^3 against
    ``solvers/fft.py``'s (``SpectralPlan``) projection; the flagship
+   shell in a duct (``PAR_WALLS``: no-slip walls on x and y, the pencil
+   fast-diagonalization solves, wall-aware halo stencils) on the same
+   mesh against its unsharded walled ``scatter`` step with the same
+   checks; the committed cavity input (64^2, PPM, moving lid) for
+   ``PAR_CAVITY_STEPS`` steps on the (4, 2) mesh against its unsharded
+   steps, ms/step of both and the centreline's smallest u; the flagship
    state saved as an 8-shard checkpoint and restored onto 4 shards and
    onto 1, bitwise (write and restore seconds, bytes per shard file);
    the ex4 driver's sharded branch on ``input3d.northstar``
@@ -299,8 +305,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the sharded-checkpoint drill and the fleet drill with its lane-mesh
    leg (8 lanes on 8 shards, the healthy lanes bitwise the replicated
    fleet's) at the reference's drill sizes. ``gpus`` (run only when named,
-   on a host with several GPUs): the flagship over one shard per GPU
-   against the unsharded step, and the ex4 driver with no mesh given,
+   on a host with several GPUs): the flagship, and the walled flagship,
+   over one shard per GPU against the unsharded step, and the ex4 driver
+   with no mesh given,
    which then shards over every GPU by itself, against the unsharded
    steps of its build.
 26. analysis -- the analysis layer (``ibamr_tpu_torch/analysis``): the
@@ -5446,6 +5453,8 @@ TOL_PAR_PROJ = 1e-5       # pencil vs SpectralPlan projection, rel. max|ref|
 # every seam), from an earlier run of this phase on an NVIDIA H100 80GB
 # HBM3 at 700.00 W: quoted beside the block-resident figure, not compared
 PAR_PINNED_MS = 111.945
+PAR_WALLS = (True, True, False)  # parallel: the duct's walls about the shell
+PAR_CAVITY_STEPS = 50     # parallel: cavity steps a side (the input's 6000)
 
 
 def _par_compare(a, ref):
@@ -5461,11 +5470,33 @@ def _par_compare(a, ref):
     return dX, du
 
 
-def _par_flagship(mesh) -> dict:
-    """The flagship through the block-resident ``make_sharded_step`` on
-    ``mesh`` against the unsharded ``scatter`` step from the same state,
-    twice for the bits; every grid array in blocks on the card, and the
-    census of one step counts its whole-grid layouts (0)."""
+def _walled_flagship():
+    """The flagship shell (``FLAGSHIP``, IB_4, f32, ``scatter``) in a
+    duct: an ``INSStaggeredIntegrator`` on the shell's grid with
+    ``PAR_WALLS`` (no-slip walls on x and y, periodic along z) coupled to
+    the shell's ``IBMethod``. Returns (integ, initial state)."""
+    from ibamr_tpu_torch.integrators.ib import IBExplicitIntegrator
+    from ibamr_tpu_torch.integrators.ins import INSStaggeredIntegrator
+    from ibamr_tpu_torch.models.shell3d import build_shell_example
+
+    shell, st0 = build_shell_example(use_fast_interaction="scatter",
+                                     dtype=torch.float32, device=DEVICE,
+                                     **FLAGSHIP)
+    box = shell.ins
+    duct = INSStaggeredIntegrator(
+        box.grid, rho=box.rho, mu=box.mu,
+        convective_op_type=box.convective_op_type, dtype=torch.float32,
+        wall_axes=PAR_WALLS, device=DEVICE)
+    integ = IBExplicitIntegrator(duct, shell.ib)
+    return integ, integ.initialize(st0.X, mask=st0.mask)
+
+
+def _par_flagship(mesh, walled: bool = False) -> dict:
+    """The flagship (``walled``: in the duct of ``_walled_flagship``)
+    through the block-resident ``make_sharded_step`` on ``mesh`` against
+    the unsharded ``scatter`` step from the same state, twice for the
+    bits; every grid array in blocks on the card, and the census of one
+    step counts its whole-grid layouts (0)."""
     from ibamr_tpu_torch.analysis.graph_census import graph_census
     from ibamr_tpu_torch.models.shell3d import build_shell_example
     from ibamr_tpu_torch.parallel import workload
@@ -5473,9 +5504,14 @@ def _par_flagship(mesh) -> dict:
     from ibamr_tpu_torch.parallel.spmd import Blocks
     from ibamr_tpu_torch.utils.tree import leaves
 
-    integ, st0 = build_shell_example(use_fast_interaction="scatter",
-                                     dtype=torch.float32, device=DEVICE,
-                                     **FLAGSHIP)
+    if walled:
+        integ, st0 = _walled_flagship()
+        what = f"walled flagship (duct walls {PAR_WALLS})"
+    else:
+        integ, st0 = build_shell_example(use_fast_interaction="scatter",
+                                         dtype=torch.float32, device=DEVICE,
+                                         **FLAGSHIP)
+        what = "flagship"
     grid = integ.ins.grid
 
     def run(step, s):
@@ -5491,7 +5527,8 @@ def _par_flagship(mesh) -> dict:
     ref, ref_ms = run(integ.step, st0)
     sstep = make_sharded_step(integ, mesh)
     if (sstep.integ.ib.engine_name != "sharded"
-            or sstep.integ.ins.fused_stokes is not None):
+            or sstep.integ.ins.fused_stokes is not None
+            or (walled and sstep.integ.ins.wall_ops.mesh is not mesh)):
         raise AssertionError("the sharded step did not swap in the "
                              "co-partitioned transfers and pencil solves")
     a, sh_ms = run(sstep, place_state(st0, grid, mesh))
@@ -5510,37 +5547,90 @@ def _par_flagship(mesh) -> dict:
     bk = eng.buckets(a.X, a.mask)
     counts = workload.shard_marker_counts(a.X.cpu().numpy(), grid,
                                           eng.sizes)
-    log(f"[parallel] {SMI_LINE[0]}: flagship {FLAGSHIP} "
+    pinned = ("" if walled else f"; the pinned form (whole grid on cuda:0) "
+              f"took {PAR_PINNED_MS} ms/step in an earlier run (another "
+              f"call)")
+    log(f"[parallel] {SMI_LINE[0]}: {what} {FLAGSHIP} "
         f"({st0.X.shape[0]} markers), f32, dt={DT_FLAGSHIP:g}, {PAR_WARM} "
         f"warm + {PAR_STEPS} timed steps: block-resident on "
         f"{dict(mesh.shape)} shards of {mesh.first_device} {sh_ms:.3f} "
         f"ms/step, unsharded scatter {ref_ms:.3f} ms/step (x"
-        f"{sh_ms / ref_ms:.3f}); the pinned form (whole grid on cuda:0) "
-        f"took {PAR_PINNED_MS} ms/step in an earlier run (another call); "
-        f"markers per shard {counts.ravel().tolist()} (cap "
-        f"{eng.cap}, overflow {bk.overflow})")
-    log(f"[parallel] census of one block-resident step: whole-grid "
+        f"{sh_ms / ref_ms:.3f}){pinned}; markers per shard "
+        f"{counts.ravel().tolist()} (cap {eng.cap}, overflow "
+        f"{bk.overflow})")
+    log(f"[parallel] census of one block-resident {what} step: whole-grid "
         f"layouts {cen['whole_grid_layouts']}, ppermute "
         f"{cen['ppermute_prims']} ({cen['ppermute_bytes']} B), all_to_all "
         f"{cen['all_to_all_prims']} ({cen['all_to_all_bytes']} B), aten "
         f"ops {cen['aten_ops']}, host syncs {cen['host_syncs']}")
-    log(f"[parallel] sharded vs unsharded after {PAR_WARM + PAR_STEPS} "
-        f"steps: max|dX|/max|X|={dX:.3e} (tol {TOL_PARITY_X:g}), "
-        f"max_d |du|/max|u|={du:.3e} (tol {TOL_PARITY_U:g}); bitwise run "
-        f"to run {bitwise}; {len(blocks)} grid arrays in blocks of "
-        f"{mesh.size} shards {resident}, every block and leaf on the card "
-        f"{on_card}")
+    log(f"[parallel] {what} sharded vs unsharded after "
+        f"{PAR_WARM + PAR_STEPS} steps: max|dX|/max|X|={dX:.3e} (tol "
+        f"{TOL_PARITY_X:g}), max_d |du|/max|u|={du:.3e} (tol "
+        f"{TOL_PARITY_U:g}); bitwise run to run {bitwise}; {len(blocks)} "
+        f"grid arrays in blocks of {mesh.size} shards {resident}, every "
+        f"block and leaf on the card {on_card}")
     if not (dX <= TOL_PARITY_X and du <= TOL_PARITY_U and bitwise
             and resident and on_card and cen["whole_grid_layouts"] == 0):
-        raise AssertionError("the sharded flagship missed one of its "
+        raise AssertionError(f"the sharded {what} missed one of its "
                              "checks (see the [parallel] lines above)")
     return dict(integ=integ, state=a, sh_ms=sh_ms, ref_ms=ref_ms,
                 step=sstep, st0=st0, ref=ref)
 
 
-def _par_gpus(out) -> None:
-    """The flagship over one shard per visible GPU, when several are
-    visible, against the unsharded step; with one, a line says so."""
+def _par_cavity() -> None:
+    """The committed cavity input (64^2, PPM, moving lid) at full width:
+    ``PAR_CAVITY_STEPS`` steps through the block-resident
+    ``make_sharded_step`` on a (4, 2) mesh of ``PAR_SHARDS`` shards
+    against the same unsharded steps; ms/step of both and the smallest u
+    on the centreline of both."""
+    from ibamr_tpu_torch.examples import navier_stokes_cavity2d as cav
+    from ibamr_tpu_torch.parallel.mesh import (make_mesh, make_sharded_step,
+                                               place_state, unshard_state)
+    from ibamr_tpu_torch.parallel.spmd import Blocks
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    db = parse_input_file(os.path.join(ROOT, CAVITY_INPUT))
+    dt = db.get_database("INSStaggeredHierarchyIntegrator").get_float("dt")
+    integ, st0 = cav.build(db, DEVICE)
+    n = integ.grid.n
+    mesh = make_mesh(PAR_SHARDS, max_axes=2, device=DEVICE)
+    sstep = make_sharded_step(integ, mesh)
+
+    def run(step, s):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAR_CAVITY_STEPS):
+            s = step(s, dt)
+        torch.cuda.synchronize()
+        return s, (time.perf_counter() - t0) * 1e3 / PAR_CAVITY_STEPS
+
+    ref, ref_ms = run(integ.step, st0)
+    sh, sh_ms = run(sstep, place_state(st0, integ.grid, mesh))
+    resident = all(isinstance(x, Blocks) and x.mesh is mesh
+                   for x in (*sh.u, sh.p))
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    w = unshard_state(sh)
+    du = max(rel(a, b) for a, b in zip(w.u, ref.u))
+    dp = rel(w.p, ref.p)
+    umin, umin_ref = (float(cav.centerline(x, n).min()) for x in (w, ref))
+    log(f"[parallel] {SMI_LINE[0]}: cavity {CAVITY_INPUT} ({n}, PPM, lid "
+        f"U=1, f32) {PAR_CAVITY_STEPS} steps of dt={dt:g} (the input's "
+        f"{db.get_database('INSStaggeredHierarchyIntegrator').get_int('num_steps')}"
+        f" cut), eager: block-resident on {dict(mesh.shape)} shards "
+        f"{sh_ms:.3f} ms/step, unsharded {ref_ms:.3f} ms/step; centreline "
+        f"u_min {umin:.6f} sharded, {umin_ref:.6f} unsharded; max_d "
+        f"|du|/max|u|={du:.3e}, |dp|/max|p|={dp:.3e} (tol "
+        f"{TOL_PARITY_U:g}); in blocks {resident}")
+    if not (du <= TOL_PARITY_U and dp <= TOL_PARITY_U and resident):
+        raise AssertionError("the sharded cavity missed a check")
+
+
+def _par_gpus(out, what: str = "flagship") -> None:
+    """The flagship (or ``what`` ``out`` holds) over one shard per
+    visible GPU, when several are visible, against the unsharded step;
+    with one, a line says so."""
     from ibamr_tpu_torch.parallel.mesh import (make_mesh, make_sharded_step,
                                                place_state)
 
@@ -5566,18 +5656,19 @@ def _par_gpus(out) -> None:
     ms = (time.perf_counter() - t0) * 1e3 / PAR_STEPS
     dX, du = _par_compare(s, out["ref"])
     devs = sorted({str(b.device) for b in s.ins.u[0].blocks})
-    log(f"[parallel] flagship over {dict(mesh.shape)} shards on {devs}: "
+    log(f"[parallel] {what} over {dict(mesh.shape)} shards on {devs}: "
         f"{ms:.3f} ms/step; vs unsharded max|dX|/max|X|={dX:.3e}, "
         f"max_d |du|/max|u|={du:.3e}")
     if not (dX <= TOL_PARITY_X and du <= TOL_PARITY_U and len(devs) == n):
-        raise AssertionError("the flagship over several GPUs missed a "
+        raise AssertionError(f"the {what} over several GPUs missed a "
                              "check")
 
 
 def phase_gpus() -> None:
     """Run only when named, on a host with several GPUs: the
     block-resident flagship over one shard per visible GPU against the
-    unsharded ``scatter`` step (``_par_gpus``), then the ex4 driver on
+    unsharded ``scatter`` step (``_par_gpus``), the same for the walled
+    flagship (``_walled_flagship``), then the ex4 driver on
     the north-star input with no mesh given, which shards over every
     visible GPU by itself, against the unsharded steps of the same
     build."""
@@ -5603,6 +5694,14 @@ def phase_gpus() -> None:
         f"{(time.perf_counter() - t0) * 1e3 / PAR_STEPS:.3f} ms/step "
         f"({PAR_WARM} warm + {PAR_STEPS} timed steps)")
     _par_gpus(dict(integ=integ, st0=st0, ref=ref))
+    del integ, st0, ref
+    torch.cuda.empty_cache()
+    integ, st0 = _walled_flagship()
+    ref = st0
+    for _ in range(PAR_WARM + PAR_STEPS):
+        ref = integ.step(ref, DT_FLAGSHIP)
+    _par_gpus(dict(integ=integ, st0=st0, ref=ref),
+              f"walled flagship (duct walls {PAR_WALLS})")
     del integ, st0, ref
     torch.cuda.empty_cache()
     if n < 2:
@@ -5824,7 +5923,8 @@ def _par_checkpoint(integ, state, mesh, tmp: str) -> None:
 
 def phase_parallel(breakdown: bool = False) -> dict:
     """The parallel layer on the card: the sharded flagship, the pencil
-    projection, the sharded checkpoint of the flagship's state, the
+    projection, the sharded flagship in a walled duct and the sharded
+    cavity, the sharded checkpoint of the flagship's state, the
     sharded-checkpoint drill and the lane-mesh fleet. No hand kernel
     runs (the transfers are the sharded scatter's)."""
     from ibamr_tpu_torch.parallel.mesh import make_mesh
@@ -5836,6 +5936,12 @@ def phase_parallel(breakdown: bool = False) -> dict:
         _par_breakdown(out["step"], out["state"], out["sh_ms"])
     _par_gpus(out)
     _par_projection(mesh, out["integ"].ins.grid)
+    walled = _par_flagship(mesh, walled=True)
+    if breakdown:
+        _par_breakdown(walled["step"], walled["state"], walled["sh_ms"])
+    del walled
+    torch.cuda.empty_cache()
+    _par_cavity()
     with tempfile.TemporaryDirectory() as tmp:
         _par_checkpoint(out["integ"], out["state"], mesh, tmp)
         for key in ("state", "st0", "ref"):

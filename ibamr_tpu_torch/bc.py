@@ -138,6 +138,19 @@ def _ghost_layers_cc(Q: torch.Tensor, axis: int, side: SideBC, h: float,
     return torch.cat(layers, dim=axis) if width > 1 else layers[0]
 
 
+def ghost_rule_cc(axbc: AxisBC, h: float):
+    """The wall rule of the block-resident halo pass
+    (``parallel/spmd.py``'s ``halo_apply``) for a cell-centered field
+    along a wall axis: ``rule(Q, axis, width, side)`` is the slab
+    :func:`fill_ghosts_cc` puts beyond that side, from the block's own
+    first or last ``width`` cells (homogeneous data only)."""
+    def rule(Q, axis, width, side):
+        return _ghost_layers_cc(Q, axis, axbc.lo if side == 0 else axbc.hi,
+                                h, side == 0, width)
+
+    return rule
+
+
 def fill_ghosts_cc(Q: torch.Tensor, bc: DomainBC, dx: Sequence[float],
                    bdry_data: Optional[dict] = None,
                    width: int = 1) -> torch.Tensor:

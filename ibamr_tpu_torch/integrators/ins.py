@@ -103,12 +103,14 @@ class INSStaggeredIntegrator:
         # the halo stencils of parallel/mesh.py
         self.fused_stokes = None
         self.divergence = stencils.divergence
+        self.wall_ops = None
         if any(self.wall_axes):
             from ibamr_tpu_torch.integrators import ins_walls
 
             ops = ins_walls.WallOps(grid, self.wall_axes,
                                     tangential=self.wall_tangential,
                                     device=self.device)
+            self.wall_ops = ops
             self.helmholtz_vel_solve = ops.helmholtz_vel
             self.project = ops.project
             self.laplacian_vel = ops.laplacian_vel

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ibamr_tpu_torch.ops import stencils
+from ibamr_tpu_torch.parallel.spmd import Blocks, halo_apply, zero_first_slot
 
 Vel = Tuple[torch.Tensor, ...]
 
@@ -133,15 +134,37 @@ def _pad_wrap(a: torch.Tensor, axis: int, g: int) -> torch.Tensor:
                      dim=axis)
 
 
+def _cell_wall_ghost(a: torch.Tensor, axis: int, g: int, v: float,
+                     lo: bool) -> torch.Tensor:
+    """The ``g`` ghosts beyond one wall of data at cell centers along
+    the wall axis: odd reflection about the wall plane through the
+    Dirichlet value ``v``."""
+    n = a.shape[axis]
+    slab = _take(a, axis, 0, g) if lo else _take(a, axis, n - g, n)
+    return 2.0 * v - torch.flip(slab, (axis,))
+
+
 def _pad_cell_wall(a: torch.Tensor, axis: int, g: int, v_lo: float = 0.0,
                    v_hi: float = 0.0) -> torch.Tensor:
     """Ghosts of data at cell centers along a wall axis: odd reflection
     about the wall plane through the Dirichlet value
     (``ghost[-1-k] = 2 v_lo - a[k]``)."""
+    return torch.cat([_cell_wall_ghost(a, axis, g, v_lo, True), a,
+                      _cell_wall_ghost(a, axis, g, v_hi, False)], dim=axis)
+
+
+def _face_pinned_ghost(a: torch.Tensor, axis: int, g: int,
+                       lo: bool) -> torch.Tensor:
+    """The ``g`` ghosts beyond one wall of data at faces along its own
+    wall axis (pinned storage): ``a[-k] = -a[k]`` below, ``a[n] = 0``
+    and ``a[n+k] = -a[n-k]`` above."""
     n = a.shape[axis]
-    lo = 2.0 * v_lo - torch.flip(_take(a, axis, 0, g), (axis,))
-    hi = 2.0 * v_hi - torch.flip(_take(a, axis, n - g, n), (axis,))
-    return torch.cat([lo, a, hi], dim=axis)
+    if lo:
+        return -torch.flip(_take(a, axis, 1, g + 1), (axis,))
+    zero = torch.zeros_like(_take(a, axis, 0, 1))
+    return torch.cat(
+        [zero, -torch.flip(_take(a, axis, n - (g - 1), n), (axis,))],
+        dim=axis)
 
 
 def _pad_face_pinned_wall(a: torch.Tensor, axis: int,
@@ -149,13 +172,28 @@ def _pad_face_pinned_wall(a: torch.Tensor, axis: int,
     """Ghosts of data at faces along its own wall axis (pinned storage):
     odd reflection about the wall nodes, ``a[-k] = -a[k]``, ``a[n] = 0``,
     ``a[n+k] = -a[n-k]``."""
-    n = a.shape[axis]
-    lo = -torch.flip(_take(a, axis, 1, g + 1), (axis,))
-    zero = torch.zeros_like(_take(a, axis, 0, 1))
-    hi = torch.cat(
-        [zero, -torch.flip(_take(a, axis, n - (g - 1), n), (axis,))],
-        dim=axis)
-    return torch.cat([lo, a, hi], dim=axis)
+    return torch.cat([_face_pinned_ghost(a, axis, g, True), a,
+                      _face_pinned_ghost(a, axis, g, False)], dim=axis)
+
+
+def _cell_wall_rule(v_lo: float, v_hi: float):
+    """:func:`_cell_wall_ghost` as a wall rule of the halo pass."""
+    def rule(a, axis, g, side):
+        return _cell_wall_ghost(a, axis, g, v_hi if side else v_lo,
+                                side == 0)
+
+    return rule
+
+
+def _face_pinned_rule(a, axis, g, side):
+    """:func:`_face_pinned_ghost` as a wall rule of the halo pass (the
+    lo slab reads cells 1..g of the block)."""
+    if side == 0 and a.shape[axis] < g + 1:
+        raise ValueError(
+            f"the pinned wall ghosts of width {g} read {g + 1} cells; the "
+            f"edge block has {a.shape[axis]}: use fewer shards or a "
+            f"bigger grid")
+    return _face_pinned_ghost(a, axis, g, side == 0)
 
 
 def _sh(ap: torch.Tensor, axis: int, s: int, n: int,
@@ -227,14 +265,6 @@ def _face_value_padded(ap: torch.Tensor, adv: torch.Tensor, axis: int,
     raise ValueError(f"unknown convective scheme {scheme!r}")
 
 
-def _pin_wall_faces(a: torch.Tensor, axis: int) -> torch.Tensor:
-    a = a.clone()
-    idx = [slice(None)] * a.ndim
-    idx[axis] = slice(0, 1)
-    a[tuple(idx)] = 0.0
-    return a
-
-
 def convective_rate_bc(
         u: Vel, dx: Sequence[float], scheme: str = "ppm",
         wall_axes: Optional[Sequence[bool]] = None,
@@ -246,11 +276,40 @@ def convective_rate_bc(
     other axes are periodic. ``wall_tangential[(d, e, side)]`` is the
     tangential velocity of component d on the side (0 = lo, 1 = hi) wall
     of axis e (a moving lid); unset entries are 0. The wall-normal output
-    faces (pinned slots) are zeroed."""
+    faces (pinned slots) are zeroed.
+
+    On block-resident leaves (``parallel.spmd.Blocks``) the same body
+    runs on every block padded by the scheme's ``GHOST_WIDTH``: ring
+    ghosts at interior seams and periodic edges, and at a wall the pads
+    the whole-grid body applies there. The result is bitwise the
+    whole-grid one for states whose pinned slots hold 0, as the step
+    keeps them: the body reads a normal component one slot past the hi
+    wall through the wrap (its pinned slot 0) where the block reads the
+    wall ghost (0), and the corner ghosts it reads in another fill
+    order land only on pinned output faces."""
     dim = len(u)
     if wall_axes is None:
         wall_axes = (False,) * dim
     tang = wall_tangential or {}
+    if isinstance(u[0], Blocks):
+        walls = [{e: (_face_pinned_rule if e == d else _cell_wall_rule(
+            tang.get((d, e, 0), 0.0), tang.get((d, e, 1), 0.0)))
+            for e in range(dim) if wall_axes[e]} for d in range(dim)]
+        acc = halo_apply(
+            u[0].mesh, u,
+            lambda *cs: _convective_padded(cs, dx, scheme, wall_axes, tang),
+            GHOST_WIDTH[scheme], walls)
+    else:
+        acc = _convective_padded(u, dx, scheme, wall_axes, tang)
+    return tuple(zero_first_slot(a, d) if wall_axes[d] else a
+                 for d, a in enumerate(acc))
+
+
+def _convective_padded(u: Vel, dx, scheme: str, wall_axes,
+                       tang) -> Vel:
+    """The body of :func:`convective_rate_bc` before the pinned output
+    faces are zeroed."""
+    dim = len(u)
     g = _G
     out = []
     for d in range(dim):
@@ -291,7 +350,5 @@ def convective_rate_bc(
                                        shift=0)
                 flux = adv * q
                 acc = acc + (torch.roll(flux, -1, e) - flux) / dx[e]
-        if wall_axes[d]:
-            acc = _pin_wall_faces(acc, d)
         out.append(acc)
     return tuple(out)

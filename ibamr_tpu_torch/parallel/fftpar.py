@@ -35,6 +35,7 @@ from ibamr_tpu_torch.ops import stencils
 from ibamr_tpu_torch.parallel.mesh import grid_pspec
 from ibamr_tpu_torch.parallel.spmd import (Blocks, Mesh, P, all_to_all,
                                            halo_stencil, smap)
+from ibamr_tpu_torch.solvers.fastdiag import FastDiagSolver
 
 Vel = Tuple[torch.Tensor, ...]
 
@@ -121,14 +122,42 @@ class PencilFFT:
         return smap(lambda ctx, *ps: torch.cat(ps, dim=bystander),
                     self.mesh, *moved)
 
+    def _enter(self, r, cdt):
+        """A real block as the pencils' working dtype (complex: the
+        transforms are FFTs)."""
+        return r.to(cdt)
+
+    def _leave(self, c, rdt):
+        return c.real.to(rdt)
+
+    def _fwd(self, c, d: int, L: int):
+        """The forward transform of grid axis ``d`` (tensor dim d + L)."""
+        return torch.fft.fft(c, dim=d + L)
+
+    def _inv(self, c, d: int, L: int):
+        return torch.fft.ifft(c, dim=d + L)
+
+    def _extras(self, local, ctx, rdt):
+        """Per-shard spectral tensors handed to ``op`` after the
+        scalars (none for the FFT plans)."""
+        return ()
+
     def _pencils(self, blocks, op: Callable, scalars, rdt, lead: int = 0):
         """The forward transforms, the pointwise ``op`` and the inverse
         transforms on the per-shard blocks -> per-shard real blocks.
-        ``lead`` leading batch axes (stacked components) ride along."""
+        ``lead`` leading batch axes (stacked components) ride along.
+        Each grid axis is transformed (``_fwd`` / ``_inv``) while it is
+        local; ``op(sym, y, *scalars, *extras)`` sees the shard's slice
+        of the symbol."""
         mesh, dim, L = self.mesh, self.grid.dim, lead
         axes, sizes, n = self.axes, self.sizes, self.grid.n
         cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
-        fft, ifft = torch.fft.fft, torch.fft.ifft
+
+        def fwd(c, d):
+            return self._fwd(c, d, L)
+
+        def inv(c, d):
+            return self._inv(c, d, L)
 
         def tp(c, axis, split, concat, by=None, tiles=1):
             return self._transpose(c, axis, split + L, concat + L,
@@ -140,81 +169,82 @@ class PencilFFT:
             by = 2 if dim == 3 else None
 
             def forward(ctx, r):
-                c = r.to(cdt)
+                c = self._enter(r, cdt)
                 for d in range(1, dim):
-                    c = fft(c, dim=d + L)
+                    c = fwd(c, d)
                 return c
 
-            def solve(ctx, c):
+            def local(vecs, ctx):
                 i = ctx.axis_index(ax)
-                lam = self._lam(rdt, ctx.device)
-                parts = [lam[0].reshape((-1,) + (1,) * (dim - 1)),
-                         _slice_for_shard(lam[1], i, sizes[0]).reshape(
+                parts = [vecs[0].reshape((-1,) + (1,) * (dim - 1)),
+                         _slice_for_shard(vecs[1], i, sizes[0]).reshape(
                              (1, -1) + (1,) * (dim - 2))]
                 for d in range(2, dim):
-                    parts.append(lam[d].reshape(
+                    parts.append(vecs[d].reshape(
                         (1,) * d + (-1,) + (1,) * (dim - 1 - d)))
-                y = fft(c, dim=L)
-                y = op(sum(parts), y, *scalars)
-                return ifft(y, dim=L)
+                return sum(parts)
 
             def backward(ctx, c):
                 for d in range(dim - 1, 0, -1):
-                    c = ifft(c, dim=d + L)
-                return c.real.to(rdt)
+                    c = inv(c, d)
+                return self._leave(c, rdt)
 
+        elif dim == 3:
+            ax, ay = axes
+            ta = math.gcd(self.tiles, n[0] // sizes[0])
+            tb = math.gcd(self.tiles, n[2] // sizes[1])
+
+            def local(vecs, ctx):
+                ix, iy = ctx.axis_index(ax), ctx.axis_index(ay)
+                return (vecs[0][:, None, None]
+                        + _slice_for_shard(vecs[1], ix, sizes[0])[None, :,
+                                                                  None]
+                        + _slice_for_shard(vecs[2], iy, sizes[1])[None,
+                                                                  None, :])
+        else:
+            # dim == 2, 2D mesh: both mesh axes flattened into one group
+            ax, ay = axes
+            ptot = sizes[0] * sizes[1]
+
+            def local(vecs, ctx):
+                i = ctx.axis_index((ax, ay))
+                return (vecs[0][:, None]
+                        + _slice_for_shard(vecs[1], i, ptot)[None, :])
+
+        def solve(ctx, c):
+            sym = local(self._lam(rdt, ctx.device), ctx)
+            y = fwd(c, 0)
+            y = op(sym, y, *scalars, *self._extras(local, ctx, rdt))
+            return inv(y, 0)
+
+        if len(axes) == 1:
             c = smap(forward, mesh, blocks)
             c = tp(c, ax, 1, 0, by, tn)
             c = smap(solve, mesh, c)
             c = tp(c, ax, 0, 1, by, tn)
             return smap(backward, mesh, c)
 
-        ax, ay = axes
         if dim == 3:
-            ta = math.gcd(self.tiles, n[0] // sizes[0])
-            tb = math.gcd(self.tiles, n[2] // sizes[1])
-
-            def solve(ctx, c):
-                ix, iy = ctx.axis_index(ax), ctx.axis_index(ay)
-                lam = self._lam(rdt, ctx.device)
-                sym = (lam[0][:, None, None]
-                       + _slice_for_shard(lam[1], ix, sizes[0])[None, :, None]
-                       + _slice_for_shard(lam[2], iy, sizes[1])[None, None, :])
-                y = fft(c, dim=L)
-                y = op(sym, y, *scalars)
-                return ifft(y, dim=L)
-
-            c = smap(lambda ctx, r: fft(r.to(cdt), dim=2 + L), mesh, blocks)
+            c = smap(lambda ctx, r: fwd(self._enter(r, cdt), 2), mesh,
+                     blocks)
             c = tp(c, ay, 2, 1, 0, ta)                  # stage A
-            c = smap(lambda ctx, c: fft(c, dim=1 + L), mesh, c)
+            c = smap(lambda ctx, c: fwd(c, 1), mesh, c)
             c = tp(c, ax, 1, 0, 2, tb)                  # stage B
             c = smap(solve, mesh, c)
             c = tp(c, ax, 0, 1, 2, tb)
-            c = smap(lambda ctx, c: ifft(c, dim=1 + L), mesh, c)
+            c = smap(lambda ctx, c: inv(c, 1), mesh, c)
             c = tp(c, ay, 1, 2, 0, ta)                  # stage C
-            return smap(lambda ctx, c: ifft(c, dim=2 + L).real.to(rdt),
-                        mesh, c)
+            return smap(lambda ctx, c: self._leave(inv(c, 2), rdt), mesh, c)
 
-        # dim == 2, 2D mesh: both mesh axes flattened into one group
-        ptot = sizes[0] * sizes[1]
-
-        def solve(ctx, c):
-            i = ctx.axis_index((ax, ay))
-            lam = self._lam(rdt, ctx.device)
-            sym = lam[0][:, None] + _slice_for_shard(lam[1], i, ptot)[None, :]
-            y = fft(c, dim=L)
-            y = op(sym, y, *scalars)
-            return ifft(y, dim=L)
-
-        c = smap(lambda ctx, r: r.to(cdt), mesh, blocks)
+        c = smap(lambda ctx, r: self._enter(r, cdt), mesh, blocks)
         c = tp(c, ay, 0, 1)          # unshard axis 1 by splitting axis 0
-        c = smap(lambda ctx, c: fft(c, dim=1 + L), mesh, c)
+        c = smap(lambda ctx, c: fwd(c, 1), mesh, c)
         c = tp(c, (ax, ay), 1, 0)
         c = smap(solve, mesh, c)
         c = tp(c, (ax, ay), 0, 1)
-        c = smap(lambda ctx, c: ifft(c, dim=1 + L), mesh, c)
+        c = smap(lambda ctx, c: inv(c, 1), mesh, c)
         c = tp(c, ay, 1, 0)
-        return smap(lambda ctx, c: c.real.to(rdt), mesh, c)
+        return smap(lambda ctx, c: self._leave(c, rdt), mesh, c)
 
     def _solve_blocks(self, blocks, op: Callable, scalars, lead: int = 0):
         """The pencil solve of per-shard blocks -> per-shard blocks."""
@@ -297,3 +327,137 @@ class PencilFFT:
 
 def _helmholtz_op(sym, rhat, a, b):
     return rhat / (a + b * sym)
+
+
+def _dense(x: torch.Tensor, M: torch.Tensor, dim: int) -> torch.Tensor:
+    """``M`` (real) applied along ``dim`` of ``x`` at ``x``'s real dtype;
+    a complex ``x`` (a wall axis reached after an FFT axis) takes it on
+    its real and imaginary parts."""
+    if x.is_complex():
+        return torch.complex(_dense(x.real, M, dim), _dense(x.imag, M, dim))
+    return FastDiagSolver._axis_matmul(x, M, dim)
+
+
+class PencilFastDiag(PencilFFT):
+    """``FastDiagSolver.solve`` through the pencils: every grid axis is
+    transformed while it is local, by its own plan -- the dense
+    eigenvector product ``V^T`` / ``V`` on a wall axis, the FFT on a
+    periodic one -- and the symbol on each shard is the slice of every
+    axis's eigenvalues its spectral block holds.
+
+    A ``fc_pinned`` axis has n-1 unknowns (faces 1..n-1), which do not
+    divide over shards: its ``V`` is embedded in an n x n transform that
+    maps slot 0 to mode 0 alone (so the wall face's right-hand side
+    never reaches the interior), mode 0 is zeroed in the spectral
+    domain, and slot 0 comes back as the whole-grid solve's pinned 0.
+    The null-space tolerance of ``zero_nullspace`` is the whole
+    spectrum's (the sum of every axis's largest and smallest
+    eigenvalue, in the field's dtype, as the whole-grid solve reduces
+    its symbol), not a shard's. Where a wall axis is reached after an
+    FFT axis its ``V`` acts on complex data. The dense sums run over
+    blocks in another order than over the whole tensor, so the result
+    equals ``FastDiagSolver.solve``'s to roundoff."""
+
+    def __init__(self, solver: FastDiagSolver, mesh: Mesh, tiles: int = 2):
+        super().__init__(solver.grid, mesh, tiles)
+        self.solver = solver
+        pinned = set(solver._pinned())
+        self._mats, self._lam64, self._pin = [], [], []
+        for d, plan in enumerate(solver.plans):
+            n = int(solver.grid.n[d])
+            pin = torch.zeros(n, dtype=torch.float64)
+            if plan[0] == "fft":
+                self._mats.append(None)
+                lam = plan[1].detach().cpu().double()
+            else:
+                V = plan[1].detach().cpu().double()
+                lam = plan[2].detach().cpu().double()
+                if d in pinned:
+                    full = torch.zeros((n, n), dtype=torch.float64)
+                    full[0, 0] = 1.0
+                    full[1:, 1:] = V
+                    V, lam = full, torch.cat([lam[:1], lam])
+                    pin[0] = 1.0
+                self._mats.append(V)
+            self._lam64.append(lam)
+            self._pin.append(pin)
+        self._complex = any(m is None for m in self._mats)
+        self._any_pinned = bool(pinned)
+        self._cache = {}
+
+    def _on(self, rdt, device):
+        """Per (dtype, device): each axis's (V, V^T), eigenvalues and
+        pin vector, and the null-space tolerance."""
+        key = (rdt, str(device))
+        if key not in self._cache:
+            mats = [None if V is None else
+                    (V.to(device=device, dtype=rdt),
+                     V.T.contiguous().to(device=device, dtype=rdt))
+                    for V in self._mats]
+            lams = [lam.to(device=device, dtype=rdt) for lam in self._lam64]
+            pins = [p.to(device=device, dtype=rdt) for p in self._pin]
+            hi = torch.zeros((), dtype=rdt, device=device)
+            lo = torch.zeros((), dtype=rdt, device=device)
+            for lam in lams:
+                hi = hi + torch.max(lam)
+                lo = lo + torch.min(lam)
+            tol = float(1e-8 * torch.maximum(torch.abs(hi), torch.abs(lo)))
+            self._cache[key] = (mats, lams, pins, tol)
+        return self._cache[key]
+
+    def _lam(self, rdt, device):
+        return self._on(rdt, device)[1]
+
+    def _enter(self, r, cdt):
+        return r.to(cdt) if self._complex else r
+
+    def _leave(self, c, rdt):
+        return c.real.to(rdt) if c.is_complex() else c
+
+    def _fwd(self, c, d: int, L: int):
+        mats = self._on(_real_dtype(c), c.device)[0]
+        if mats[d] is None:
+            return torch.fft.fft(c, dim=d + L)
+        return _dense(c, mats[d][1], d + L)
+
+    def _inv(self, c, d: int, L: int):
+        mats = self._on(_real_dtype(c), c.device)[0]
+        if mats[d] is None:
+            return torch.fft.ifft(c, dim=d + L)
+        return _dense(c, mats[d][0], d + L)
+
+    def _extras(self, local, ctx, rdt):
+        if not self._any_pinned:
+            return ()
+        return (local(self._on(rdt, ctx.device)[2], ctx),)
+
+    def op(self, zero_nullspace: bool) -> Callable:
+        """The spectral division of ``FastDiagSolver.solve``, with the
+        pinned modes zeroed."""
+        def op(sym, y, a, b, *pin):
+            denom = a + b * sym
+            if zero_nullspace:
+                tol = self._on(sym.dtype, sym.device)[3]
+                null = torch.abs(denom) <= tol
+                safe = torch.where(null, torch.ones_like(denom), denom)
+                y = (y / safe).masked_fill(null, 0.0)
+            else:
+                y = y / denom
+            if pin:
+                y = y.masked_fill(pin[0] > 0, 0.0)
+            return y
+
+        return op
+
+    def solve(self, rhs, alpha, beta, zero_nullspace: bool = False,
+              lead: int = 0):
+        """``FastDiagSolver.solve`` of ``rhs`` (Blocks in, Blocks out; a
+        whole tensor is cut and the result assembled); ``lead`` leading
+        axes are a batch of independent solves."""
+        return self._spectral_apply(rhs, self.op(zero_nullspace), alpha,
+                                    beta, lead=lead)
+
+
+def _real_dtype(c: torch.Tensor) -> torch.dtype:
+    return {torch.complex64: torch.float32,
+            torch.complex128: torch.float64}.get(c.dtype, c.dtype)

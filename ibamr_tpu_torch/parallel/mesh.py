@@ -13,21 +13,24 @@ step is the single-device step with the explicit seams swapped in --
   (:class:`~ibamr_tpu_torch.parallel.lagrangian.ShardedInteraction`):
   owner-bucketed pools, per-shard local scatter/gather, halo exchange;
 
-The periodic INS and IB families are block-resident, as the
-reference's GSPMD step keeps every grid array split: :func:`place_state`
+The INS and IB families, periodic or wall-bounded, are block-resident,
+as the reference's GSPMD step keeps every grid array split: :func:`place_state`
 / :func:`shard_state` hold each grid array as
 :class:`~ibamr_tpu_torch.parallel.spmd.Blocks` (per-shard blocks on the
 shards' own devices, carrying their layout), and the step never builds
 a whole-grid tensor. Its stencils (convection, the Laplacians, the
 pressure gradient, the projection's divergence and gradient) run as
 halo stencils (``spmd.halo_apply``: ghost layers by ppermute, the roll
-form on every padded block, bitwise the whole-grid stencil), the RHS
-assembly cell by cell on the blocks, the solves through the pencils and
-the transfers from and into the blocks. Only the host-facing edges
+form on every padded block, bitwise the whole-grid stencil; at a wall
+the edge shards build the ghosts the whole-grid stencil pads there),
+the RHS assembly cell by cell on the blocks, the solves through the
+pencils (with walls, the pencil fast-diagonalization:
+:class:`~ibamr_tpu_torch.parallel.fftpar.PencilFastDiag`) and the
+transfers from and into the blocks. Only the host-facing edges
 (:func:`unshard_state`, checkpoints, viz) assemble a whole tensor.
 
-The other families (wall-bounded INS and IB, variable-coefficient,
-open-boundary, adv-diff, the AMR hierarchies, CIB) keep the pinned
+The other families (variable-coefficient, open-boundary, adv-diff, the
+AMR hierarchies, LES, CIB) keep the pinned
 form: the step runs on whole tensors on the mesh's first device, with
 the layout attached to every grid array (``spmd.pin``), their seams
 swapped as the reference swaps them.
@@ -172,58 +175,60 @@ def _pin_grid_state(state, grid: StaggeredGrid, mesh: Mesh):
 # and a name-dispatched entry point
 # ---------------------------------------------------------------------------
 
-def _walled(ins) -> bool:
-    return any(getattr(ins, "wall_axes", ()))
-
-
-def _walled_fluid(ins):
-    """A wall-bounded INS integrator in the pinned form: its
-    fast-diagonalization solves kept, the fused path off."""
-    ins = copy.copy(ins)
-    ins.fused_stokes = None
-    return ins
-
-
 def _block_fluid(ins, mesh: Mesh):
-    """Shallow copy of a periodic INS integrator that steps
-    block-resident state: pencil-FFT solves taking and returning Blocks
-    (the fused single-device spectral path off), and every stencil of
-    the step (convection at its scheme's ghost width, the Laplacians,
-    the pressure gradient, the divergence of the diagnostics) a halo
-    stencil. Walls, and a block thinner than a stencil's ghost width,
-    raise here."""
+    """Shallow copy of an INS integrator that steps block-resident
+    state, periodic or wall-bounded: the solves take and return Blocks
+    (pencil FFT; with walls the pencil fast-diagonalization of
+    ``WallOps.on_mesh``; the fused single-device spectral path off), and
+    every stencil of the step (convection at its scheme's ghost width,
+    the Laplacians, the pressure gradient, the divergence) a halo
+    stencil, wall-aware at the mesh's edge shards. A block thinner than
+    a stencil's ghost width along a split axis (on a wall axis, one more
+    cell: the pinned wall ghosts read it), or a grid the pencils cannot
+    split, raises."""
     from ibamr_tpu_torch.ops import stencils
     from ibamr_tpu_torch.ops.convection import GHOST_WIDTH
     from ibamr_tpu_torch.parallel.fftpar import PencilFFT
 
-    if _walled(ins):
-        raise NotImplementedError(
-            "block-resident stepping supports fully periodic INS; "
-            "wall-bounded fast-diagonalization solves are not yet "
-            "distributed")
-    pencil = PencilFFT(ins.grid, mesh)
-    integ = copy.copy(ins)
-    integ.helmholtz_vel_solve = pencil.helmholtz_vel
-    integ.project = pencil.project_divergence_free
-    integ.fused_stokes = None
-    integ._step_graphs = {}
+    walls = ins.wall_axes
     width = 1
     if ins._convective is not None:
         width = GHOST_WIDTH[ins.convective_op_type]
-        integ._convective = halo_stencil(ins._convective, width)
     spec = grid_pspec(mesh, ins.grid.dim)
     for d, axis in split_dims(NamedSharding(mesh, spec), ins.grid.dim):
         extent = ins.grid.n[d] // mesh.axis_size(axis)
-        if extent < width:
+        need = width + (1 if walls[d] and ins._convective is not None
+                        else 0)
+        if extent < need:
             raise ValueError(
                 f"grid axis {d} splits into blocks of {extent} cells, "
                 f"thinner than the {ins.convective_op_type!r} "
-                f"convection's ghost width {width}: use fewer shards or "
-                f"a bigger grid")
+                f"convection's ghost width {width}"
+                f"{' (+1 at a wall)' if walls[d] else ''}: use fewer "
+                f"shards or a bigger grid")
+    integ = copy.copy(ins)
+    integ.fused_stokes = None
+    integ._step_graphs = {}
+    integ.divergence = halo_stencil(stencils.divergence, 1)
+    if any(walls):
+        # the wall operators take Blocks themselves, and so does the
+        # ghost-padded convection
+        ops = ins.wall_ops.on_mesh(mesh, ins.dtype)
+        integ.wall_ops = ops
+        integ.helmholtz_vel_solve = ops.helmholtz_vel
+        integ.project = ops.project
+        integ.laplacian_vel = ops.laplacian_vel
+        integ.pressure_gradient = ops.pressure_gradient
+        integ.laplacian_cc = ops.laplacian_cc
+        return integ
+    pencil = PencilFFT(ins.grid, mesh)
+    integ.helmholtz_vel_solve = pencil.helmholtz_vel
+    integ.project = pencil.project_divergence_free
+    if ins._convective is not None:
+        integ._convective = halo_stencil(ins._convective, width)
     integ.laplacian_vel = halo_stencil(stencils.laplacian_vel, 1)
     integ.pressure_gradient = halo_stencil(stencils.gradient, 1)
     integ.laplacian_cc = halo_stencil(stencils.laplacian, 1)
-    integ.divergence = halo_stencil(stencils.divergence, 1)
     return integ
 
 
@@ -270,13 +275,10 @@ def _generic_pinned_step(integ, mesh: Mesh, prepare=None, pin_state=None):
 
 
 def make_sharded_ins_step(integ, mesh: Mesh):
-    """INS step over ``mesh``. Periodic: block-resident (pencil-FFT
-    solves, halo stencils; every grid array stays in blocks from entry
-    to exit). Wall-bounded: the pinned form with the
-    fast-diagonalization solves."""
-    if _walled(integ):
-        return _generic_pinned_step(integ, mesh,
-                                    prepare=lambda i, m: _walled_fluid(i))
+    """INS step over ``mesh``, block-resident, periodic or wall-bounded:
+    every grid array stays in blocks from entry to exit; the solves go
+    through the pencils (FFT, or the fast-diagonalization transforms on
+    the wall axes) and the stencils through the halo pass."""
     return _block_step(_block_fluid(integ, mesh), integ.grid, mesh)
 
 
@@ -435,51 +437,34 @@ def make_sharded_ib_step(integ, mesh: Mesh,
                          marker_cap: Optional[int] = None,
                          marker_slack: float = 2.0):
     """Coupled IB step (interp -> force -> spread -> fluid solve ->
-    correct) over ``mesh``. Periodic: block-resident, the fluid as in
-    :func:`make_sharded_ins_step` and the marker transfers through the
-    co-partitioned engine, which reads the velocity blocks and returns
-    force blocks; markers stay replicated on the mesh's first device.
-    The engine is required there: a strategy it cannot take, or
-    ``sharded_markers=False``, raises. Its pools hold every marker a
-    shard (``marker_cap`` overrides; a layout that overflows an explicit
-    cap takes the replicated oracle, which assembles the grid).
-    Wall-bounded: the pinned form, the co-partitioned transfers by
-    default (``sharded_markers=False`` keeps the strategy's own;
-    ``True`` warns when the facade cannot engage)."""
+    correct) over ``mesh``, block-resident over a periodic or a
+    wall-bounded fluid: the fluid as in :func:`make_sharded_ins_step`
+    and the marker transfers through the co-partitioned engine, which
+    reads the velocity blocks and returns force blocks (its transfers
+    wrap periodically, as the single-device ones do); markers stay
+    replicated on the mesh's first device. The engine is required: a
+    strategy it cannot take, or ``sharded_markers=False``, raises. Its
+    pools hold every marker a shard (``marker_cap`` overrides; a layout
+    that overflows an explicit cap takes the replicated oracle, which
+    assembles the grid)."""
     grid = integ.ins.grid
     integ = copy.copy(integ)
     integ._jitted_steps = {}
-    if not _walled(integ.ins):
-        if sharded_markers is False:
-            raise ValueError(
-                "the block-resident IB step needs the co-partitioned "
-                "marker transfers (sharded_markers=False)")
-        wrapped = _wrap_sharded_markers(integ.ib, grid, mesh, marker_cap,
-                                        marker_slack, warn_strategy=True,
-                                        blocks=True)
-        if wrapped is None:
-            raise ValueError(
-                "the block-resident IB step needs the co-partitioned "
-                "marker transfers, which cannot engage here (warned "
-                "above)")
-        integ.ins = _block_fluid(integ.ins, mesh)
-        integ.ib = wrapped
-        return _block_step(integ, grid, mesh)
-
-    integ.ins = _walled_fluid(integ.ins)
-    if sharded_markers is None or sharded_markers:
-        wrapped = _wrap_sharded_markers(
-            integ.ib, grid, mesh, marker_cap, marker_slack,
-            warn_strategy=sharded_markers is True)
-        if wrapped is not None:
-            integ.ib = wrapped
-
-    def pin_ib(st):
-        if hasattr(st, "ins"):
-            return st._replace(ins=_pin_grid_state(st.ins, grid, mesh))
-        return st
-
-    return _generic_pinned_step(integ, mesh, pin_state=pin_ib)
+    if sharded_markers is False:
+        raise ValueError(
+            "the block-resident IB step needs the co-partitioned "
+            "marker transfers (sharded_markers=False)")
+    wrapped = _wrap_sharded_markers(integ.ib, grid, mesh, marker_cap,
+                                    marker_slack, warn_strategy=True,
+                                    blocks=True)
+    if wrapped is None:
+        raise ValueError(
+            "the block-resident IB step needs the co-partitioned "
+            "marker transfers, which cannot engage here (warned "
+            "above)")
+    integ.ins = _block_fluid(integ.ins, mesh)
+    integ.ib = wrapped
+    return _block_step(integ, grid, mesh)
 
 
 def make_sharded_two_level_ib_step(integ, mesh: Mesh,

@@ -667,11 +667,16 @@ def split_dims(sharding: NamedSharding, ndim: int):
 
 
 def ghost_fill(mesh: Mesh, blocks: Sequence[torch.Tensor], axis: AxisName,
-               dim: int, width: int) -> List[torch.Tensor]:
+               dim: int, width: int, edge: Optional[Callable] = None
+               ) -> List[torch.Tensor]:
     """Every shard's block extended by ``width`` ghost layers on both
     sides of tensor dimension ``dim``, from its ring neighbours along the
-    mesh ``axis`` (periodic). Raises when ``width`` exceeds the block's
-    extent there (the ghosts would need a farther neighbour)."""
+    mesh ``axis`` (periodic). ``edge(side, ring, own)``, when given,
+    builds the ghost slab on a physical wall instead: on the shards at
+    coordinate 0 (``side`` 0, lo) and p-1 (``side`` 1, hi) it gets the
+    ring slab received there and the shard's own block, and returns the
+    slab to use. Raises when ``width`` exceeds the block's extent there
+    (the ghosts would need a farther neighbour)."""
     n = blocks[0].shape[dim]
     if width > n:
         raise ValueError(
@@ -682,8 +687,19 @@ def ghost_fill(mesh: Mesh, blocks: Sequence[torch.Tensor], axis: AxisName,
     bot = smap(lambda ctx, f: f.narrow(dim, 0, width), mesh, blocks)
     lo = ppermute(mesh, top, axis, [(i, (i + 1) % p) for i in range(p)])
     hi = ppermute(mesh, bot, axis, [(i, (i - 1) % p) for i in range(p)])
-    return smap(lambda ctx, g0, f, g1: torch.cat([g0, f, g1], dim=dim),
-                mesh, lo, blocks, hi)
+    if edge is None:
+        return smap(lambda ctx, g0, f, g1: torch.cat([g0, f, g1], dim=dim),
+                    mesh, lo, blocks, hi)
+
+    def walled(ctx, g0, f, g1):
+        k = ctx.axis_index(axis)
+        if k == 0:
+            g0 = edge(0, g0, f)
+        if k == p - 1:
+            g1 = edge(1, g1, f)
+        return torch.cat([g0, f, g1], dim=dim)
+
+    return smap(walled, mesh, lo, blocks, hi)
 
 
 def halo_add(mesh: Mesh, bufs: Sequence[torch.Tensor], axis: AxisName,
@@ -709,7 +725,8 @@ def halo_add(mesh: Mesh, bufs: Sequence[torch.Tensor], axis: AxisName,
     return smap(retire, mesh, bufs, from_next, from_prev)
 
 
-def halo_apply(mesh: Mesh, blocks, fn: Callable, width: int):
+def halo_apply(mesh: Mesh, blocks, fn: Callable, width: int,
+               walls=None):
     """A roll-form stencil of radius ``width`` on block-resident leaves.
 
     ``blocks`` is one :class:`Blocks` or a sequence of them (one layout);
@@ -722,16 +739,30 @@ def halo_apply(mesh: Mesh, blocks, fn: Callable, width: int):
     radius gives every interior cell the operands the roll on the whole
     tensor gives it, in the same order, so the result is bitwise the
     whole-tensor stencil's; only ghost cells wrap wrongly, and they go.
-    Returns Blocks (or a tuple of them) under the inputs' layout."""
+    Returns Blocks (or a tuple of them) under the inputs' layout.
+
+    Physical walls: ``walls[k]`` (one entry per leaf, or None) maps a
+    split tensor dimension to the rule that builds leaf k's ghosts at
+    the mesh's edge shards there, ``rule(block, dim, width, side) ->
+    slab`` (side 0 lo, 1 hi; the slab a function of the block's own
+    first or last cells, as the whole-grid stencil pads at the wall,
+    computed on the block already padded along the earlier split
+    axes, so the corners follow the whole-grid fill order); interior
+    seams, and dimensions without a rule, take the ring."""
     ins = (blocks,) if isinstance(blocks, Blocks) else tuple(blocks)
     ref = _same_layout(ins)
     if ref.mesh is not mesh:
         raise ValueError("halo_apply: the blocks are on another mesh")
     dims = split_dims(ref.sharding, ref.ndim)
+    rules = [dict(w or {}) for w in (walls or (None,) * len(ins))]
+    if len(rules) != len(ins):
+        raise ValueError(f"{len(rules)} wall entries for {len(ins)} leaves")
     padded = smap(lambda ctx, *bs: torch.stack(bs), mesh,
                   *[b.blocks for b in ins])
     for d, axis in dims:
-        padded = ghost_fill(mesh, padded, axis, d + 1, width)
+        padded = ghost_fill(mesh, padded, axis, d + 1, width,
+                            _stacked_edge([r.get(d) for r in rules], d,
+                                          width))
     extent = {d: ref.blocks[0].shape[d] for d, _ in dims}
     single = []
 
@@ -749,6 +780,21 @@ def halo_apply(mesh: Mesh, blocks, fn: Callable, width: int):
     res = smap(body, mesh, padded)
     out = tuple(ref.like([r[k] for r in res]) for k in range(len(res[0])))
     return out[0] if single[0] else out
+
+
+def _stacked_edge(rules, d: int, width: int) -> Optional[Callable]:
+    """``ghost_fill``'s ``edge`` for a stack of leaves: leaf j's wall
+    rule along tensor dimension ``d`` on its own block, or its ring
+    slab where it has none; None when no leaf has a rule."""
+    if all(r is None for r in rules):
+        return None
+
+    def edge(side, ring, own):
+        return torch.stack([
+            r(b, d, width, side) if r is not None else g
+            for r, b, g in zip(rules, own.unbind(0), ring.unbind(0))])
+
+    return edge
 
 
 def halo_stencil(fn: Callable, width: int) -> Callable:
@@ -773,3 +819,22 @@ def halo_stencil(fn: Callable, width: int) -> Callable:
 
     apply.__name__ = f"halo_{getattr(fn, '__name__', 'stencil')}"
     return apply
+
+
+def zero_first_slot(x, dim: int):
+    """``x`` with index 0 along ``dim`` set to 0 (a copy): on a whole
+    tensor directly, on Blocks only in the blocks that hold index 0
+    there (the others pass as copies)."""
+    def zero(c):
+        c = c.clone()
+        idx = [slice(None)] * c.ndim
+        idx[dim] = slice(0, 1)
+        c[tuple(idx)] = 0.0
+        return c
+
+    if not isinstance(x, Blocks):
+        return zero(x)
+    part = x.spec[dim] if dim < len(x.spec) else None
+    return x.like(smap(
+        lambda ctx, b: zero(b) if part is None or ctx.axis_index(part) == 0
+        else b.clone(), x.mesh, x.blocks))

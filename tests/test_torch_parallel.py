@@ -316,11 +316,15 @@ def test_sharded_step_never_cuts_or_assembles_the_grid(monkeypatch,
 
 
 def test_block_resident_path_refuses_what_it_cannot_partition():
-    """A wall-bounded INS keeps the pinned form (walls are not
-    partitioned yet; the block-resident form raises on it); the
-    block-resident IB step refuses to run without the co-partitioned
-    transfers; an indivisible grid and a block thinner than the
-    convection's ghost width raise."""
+    """Wall-bounded INS and IB are block-resident now (their steps keep
+    every grid array in Blocks); the block path still raises on what it
+    cannot partition: the IB step without the co-partitioned transfers
+    (periodic or walled), an indivisible grid, a block thinner than the
+    convection's ghost width, and on a wall axis one thinner than that
+    width plus the cell the pinned wall ghosts read. A family not yet
+    partitioned (variable-coefficient INS) keeps the pinned form."""
+    from ibamr_tpu_torch.integrators.ib import IBExplicitIntegrator
+    from ibamr_tpu_torch.integrators.ins_vc import INSVCStaggeredIntegrator
     from ibamr_tpu_torch.parallel.mesh import (_block_fluid,
                                                make_sharded_ib_step)
 
@@ -339,14 +343,31 @@ def test_block_resident_path_refuses_what_it_cannot_partition():
         make_sharded_step(INSStaggeredIntegrator(
             g, convective_op_type="ppm", dtype=torch.float64,
             device="cpu"), make_mesh(8, max_axes=1, device="cpu"))
+    # walls: block-resident, and a wall axis needs one cell more
     walled = INSStaggeredIntegrator(g, dtype=torch.float64, device="cpu",
                                     wall_axes=(False, True))
-    with pytest.raises(NotImplementedError, match="wall-bounded"):
-        _block_fluid(walled, make_mesh(4, device="cpu"))
+    blk = _block_fluid(walled, make_mesh(4, device="cpu"))
+    assert blk.wall_ops.mesh.size == 4
     st = make_sharded_step(walled, make_mesh(4, device="cpu"))(
         walled.initialize(), 1e-3)
-    assert isinstance(st.u[0], torch.Tensor)
-    assert spmd.sharding_of(st.u[0]).mesh.size == 4
+    assert isinstance(st.u[0], spmd.Blocks)
+    assert st.u[0].mesh.size == 4
+    cui = INSStaggeredIntegrator(g, convective_op_type="cui",
+                                 dtype=torch.float64, device="cpu",
+                                 wall_axes=(True, False))
+    with pytest.raises(ValueError, match=r"ghost width 2 \(\+1 at a wall\)"):
+        _block_fluid(cui, make_mesh(8, max_axes=1, device="cpu"))
+    ib = IBExplicitIntegrator(walled, integ.ib)
+    with pytest.raises(ValueError, match="co-partitioned"):
+        make_sharded_ib_step(ib, make_mesh(4, device="cpu"),
+                             sharded_markers=False)
+    vc = INSVCStaggeredIntegrator(g, rho0=1.0, rho1=1.0, mu0=0.01,
+                                  mu1=0.01, dtype=torch.float64,
+                                  precond="fft", device="cpu")
+    out = make_sharded_step(vc, make_mesh(4, device="cpu"))(
+        vc.initialize(torch.full((16, 16), 0.1, dtype=torch.float64)), 1e-3)
+    assert isinstance(out.u[0], torch.Tensor)
+    assert spmd.sharding_of(out.u[0]).mesh.size == 4
 
 
 def test_dispatch_table_mro_and_generic_wrapper():
