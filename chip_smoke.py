@@ -296,8 +296,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
    mesh against its unsharded walled ``scatter`` step with the same
    checks; the committed cavity input (64^2, PPM, moving lid) for
    ``PAR_CAVITY_STEPS`` steps on the (4, 2) mesh against its unsharded
-   steps, ms/step of both and the centreline's smallest u; the flagship
-   state saved as an 8-shard checkpoint and restored onto 4 shards and
+   steps, ms/step of both and the centreline's smallest u; the committed
+   dam break (128x96, walls, rho 1 / 1000, mg-CG) and falling drop (64^2,
+   sigma 0.5) for ``PAR_VC_STEPS`` steps (across the reinitialization
+   at step 10) on the (4, 2) mesh against their unsharded (graphed)
+   steps: within ``TOL_PARITY_U`` of max|u| and of max|phi|, CG
+   iterations a step equal or within one, the heavy-phase volume within
+   1e-5, every grid leaf in blocks, 0 whole-grid layouts in one step's
+   census (multigrid levels of blocks thinner than 64 cells gathered
+   to the first shard, counted apart), ms/step of both; the adv-diff scalar
+   of ``examples/adv_diff/ex0/input2d`` for ``PAR_ADV_STEPS`` steps, each
+   taking the velocity and marker source of the unsharded coupled run,
+   within 1e-5 of max|Q|; with ``breakdown`` one sharded dam-break
+   step's device ms, kernels and idle share; the
+   flagship state saved as an 8-shard checkpoint and restored onto 4 shards and
    onto 1, bitwise (write and restore seconds, bytes per shard file);
    the ex4 driver's sharded branch on ``input3d.northstar``
    (``run(..., mesh=make_mesh(8))``, ``PAR_DRIVER_STEPS`` steps) against
@@ -306,7 +318,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    leg (8 lanes on 8 shards, the healthy lanes bitwise the replicated
    fleet's) at the reference's drill sizes. ``gpus`` (run only when named,
    on a host with several GPUs): the flagship, and the walled flagship,
-   over one shard per GPU against the unsharded step, and the ex4 driver
+   over one shard per GPU against the unsharded step, the dam break on
+   (2, 2) cards with the ``parallel`` leg's checks, and the ex4 driver
    with no mesh given,
    which then shards over every GPU by itself, against the unsharded
    steps of its build.
@@ -5455,6 +5468,13 @@ TOL_PAR_PROJ = 1e-5       # pencil vs SpectralPlan projection, rel. max|ref|
 PAR_PINNED_MS = 111.945
 PAR_WALLS = (True, True, False)  # parallel: the duct's walls about the shell
 PAR_CAVITY_STEPS = 50     # parallel: cavity steps a side (the input's 6000)
+# parallel: two-phase steps a side on the committed dam break and falling
+# drop (their inputs' 600 and 300 cut; the 10th step reinitializes)
+PAR_VC_STEPS = 10
+PAR_ADV_STEPS = 20        # parallel: adv-diff scalar steps (ex0's 100 cut)
+DAMBREAK_INPUT = "examples/multiphase/dam_break/input2d"
+DROP_INPUT = "examples/multiphase/falling_drop/input2d"
+ADV_INPUT = "examples/adv_diff/ex0/input2d"
 
 
 def _par_compare(a, ref):
@@ -5627,6 +5647,171 @@ def _par_cavity() -> None:
         raise AssertionError("the sharded cavity missed a check")
 
 
+def _par_census(what: str, cen: dict) -> str:
+    """The census line of one block-resident step."""
+    return (f"[parallel] census of one block-resident {what} step: "
+            f"whole-grid layouts {cen['whole_grid_layouts']}, coarse "
+            f"gathers {cen['coarse_gathers']}, ppermute "
+            f"{cen['ppermute_prims']} ({cen['ppermute_bytes']} B), "
+            f"all_to_all {cen['all_to_all_prims']} "
+            f"({cen['all_to_all_bytes']} B), aten ops {cen['aten_ops']}, "
+            f"host syncs {cen['host_syncs']}")
+
+
+def _par_vc(what: str, driver: str, path: str, mesh,
+            breakdown: bool = False, steps: int = None) -> None:
+    """A committed two-phase input at full width (built by the port's
+    ``examples/<driver>.py``) through the
+    block-resident ``make_sharded_step`` on ``mesh`` against the same
+    unsharded (graphed) steps: ms/step and CG iterations a step of both,
+    max|du|/max|u| and max|dphi|/max|phi|, the heavy-phase volume of
+    both, every grid leaf in blocks, one step's census. No hand kernel
+    runs."""
+    import importlib
+
+    from ibamr_tpu_torch.analysis.graph_census import graph_census
+    from ibamr_tpu_torch.parallel.mesh import (make_sharded_step,
+                                               place_state, unshard_state)
+    from ibamr_tpu_torch.parallel.spmd import Blocks
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+    from ibamr_tpu_torch.utils.tree import leaves
+
+    steps = PAR_VC_STEPS if steps is None else steps
+    devs = sorted({str(d) for d in mesh.devices.flat})
+    mod = importlib.import_module(f"ibamr_tpu_torch.examples.{driver}")
+    db = parse_input_file(os.path.join(ROOT, path))
+    dt = db.get_database("INSVCStaggeredHierarchyIntegrator").get_float("dt")
+    integ, st0 = mod.build(db, DEVICE)
+    sstep = make_sharded_step(integ, mesh)
+
+    def run(step, solver, s, n=steps):
+        """``n`` steps: (state, ms/step over the steps after the first
+        (the first captures the unsharded projection's graphs), CG
+        iterations of each step)."""
+        its, ms = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = step(s, dt)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            its.append(solver.last_solve_stats["iters"])
+        return s, sum(ms[1:]) / max(1, n - 1), its
+
+    ref, ref_ms, ref_its = _assert_no_launches(
+        f"{what} unsharded", lambda: run(integ.step, integ, st0))
+    sh, sh_ms, sh_its = _assert_no_launches(
+        f"{what} sharded", lambda: run(sstep, sstep.integ,
+                                       place_state(st0, integ.grid, mesh)))
+    grid_leaves = [x for x in leaves(sh) if getattr(x, "dim", None)
+                   and x.dim() == integ.grid.dim]
+    resident = (len(grid_leaves) == 2 * integ.grid.dim + 2
+                and all(isinstance(x, Blocks) and x.mesh is mesh
+                        for x in grid_leaves))
+    w = unshard_state(sh)
+    umax = max(float(c.abs().max()) for c in ref.u)
+    du = max(float((a - b).abs().max()) for a, b in zip(w.u, ref.u)) / umax
+    dphi = float((w.phi - ref.phi).abs().max() / ref.phi.abs().max())
+    v_sh = float(sstep.integ.heavy_phase_volume(sh))
+    v_ref = float(integ.heavy_phase_volume(ref))
+    dv = abs(v_sh - v_ref) / abs(v_ref)
+    its_ok = all(abs(a - b) <= 1 for a, b in zip(sh_its, ref_its))
+    cen = _assert_no_launches(f"{what} census", lambda: graph_census(
+        lambda s: sstep(s, dt), (sh,)))
+    log(f"[parallel] {SMI_LINE[0].splitlines()[0]} x{len(devs)}: {what} "
+        f"{path} ({integ.grid.n}, rho "
+        f"{integ.rho[0]:g}/{integ.rho[1]:g}, sigma {integ.sigma:g}, walls "
+        f"{integ.wall_axes}, {integ.precond}-preconditioned CG at "
+        f"{integ.cg_tol:g}, f32) {steps} steps of dt={dt:g}: "
+        f"block-resident on {dict(mesh.shape)} shards on {devs} "
+        f"{sh_ms:.3f} ms/step (eager), unsharded {ref_ms:.3f} ms/step "
+        f"(the projection graphed on the card; both over the steps after "
+        f"the first); CG iterations a step "
+        f"sharded {sh_its}, unsharded {ref_its}")
+    log(f"[parallel] {what} sharded vs unsharded after {steps} steps: "
+        f"max_d |du|/max|u|={du:.3e}, max|dphi|/max|phi|={dphi:.3e} (tol "
+        f"{TOL_PARITY_U:g}); heavy-phase volume {v_sh:.9f} sharded, "
+        f"{v_ref:.9f} unsharded (rel {dv:.3e}, tol 1e-5); "
+        f"{len(grid_leaves)} grid leaves in blocks {resident}")
+    log(_par_census(what, cen))
+    if breakdown:
+        dev, kernels, _ = _device_ms(lambda: sstep(sh, dt), 1)
+        log(f"[parallel] breakdown one sharded {what} step: device busy "
+            f"{dev:.3f} ms in {kernels:.0f} kernels of {sh_ms:.3f} "
+            f"ms/step: idle share {1 - dev / sh_ms:.3f}")
+    if not (du <= TOL_PARITY_U and dphi <= TOL_PARITY_U and dv <= 1e-5
+            and its_ok and resident and cen["whole_grid_layouts"] == 0):
+        raise AssertionError(f"the sharded {what} missed one of its checks "
+                             "(see the [parallel] lines above)")
+
+
+def _par_adv(mesh) -> None:
+    """The scalar of the committed adv-diff ex0 input (64^2, upwind,
+    kappa 0.001, f32): each step the unsharded coupled run
+    (``IBAdvDiff.step``'s IB step, then its ``source``) makes its
+    velocity and marker source, and the
+    block-resident adv-diff step on ``mesh`` takes them (cut into blocks
+    at its edge) from the same initial scalar; ms/step of both adv-diff
+    steps, max|dQ|/max|Q| and the scalar total of both, one step's
+    census."""
+    from ibamr_tpu_torch.analysis.graph_census import graph_census
+    from ibamr_tpu_torch.examples import adv_diff_ex0
+    from ibamr_tpu_torch.parallel.mesh import (make_sharded_step,
+                                               place_state, shard_state,
+                                               unshard_state)
+    from ibamr_tpu_torch.parallel.spmd import Blocks
+    from ibamr_tpu_torch.utils.input_db import parse_input_file
+
+    db = parse_input_file(os.path.join(ROOT, ADV_INPUT))
+    dt = db.get_database("INSStaggeredHierarchyIntegrator").get_float("dt")
+    coupled, ib, ad = adv_diff_ex0.build(db, DEVICE)
+    adv = coupled.adv
+    grid = adv.grid
+    sstep = make_sharded_step(adv, mesh)
+    sh = place_state(ad, grid, mesh)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def run(ib, ad, sh):
+        ref_ms = sh_ms = 0.0
+        for _ in range(PAR_ADV_STEPS):
+            ib = coupled.integ.step(ib, dt)
+            u, src = ib.ins.u, coupled.source(ib)
+            ad, ms = timed(lambda: adv.step(ad, dt, u=u, sources=[src]))
+            ref_ms += ms
+            sh, ms = timed(lambda: sstep(sh, dt, u=u, sources=[src]))
+            sh_ms += ms
+        return ad, sh, u, src, ref_ms, sh_ms
+
+    ad, sh, u, src, ref_ms, sh_ms = _assert_no_launches(
+        "adv-diff scalar", lambda: run(ib, ad, sh))
+    resident = all(isinstance(x, Blocks) and x.mesh is mesh
+                   for x in (*sh.Q, *sh.n_prev))
+    w = unshard_state(sh)
+    dq = float((w.Q[0] - ad.Q[0]).abs().max() / ad.Q[0].abs().max())
+    tot_sh, tot_ref = float(adv.total(sh)), float(adv.total(ad))
+    cut = shard_state((u, [src]), grid, mesh)
+    cen = _assert_no_launches("adv-diff census", lambda: graph_census(
+        lambda s: sstep(s, dt, u=cut[0], sources=cut[1]), (sh,)))
+    log(f"[parallel] {SMI_LINE[0]}: adv-diff scalar of {ADV_INPUT} "
+        f"({grid.n}, kappa {adv.quantities[0].kappa:g}, "
+        f"{adv.quantities[0].convective_op_type}, f32) {PAR_ADV_STEPS} "
+        f"steps of dt={dt:g}, velocity and marker source from the "
+        f"unsharded coupled run: block-resident on {dict(mesh.shape)} "
+        f"shards {sh_ms / PAR_ADV_STEPS:.3f} ms/step, unsharded "
+        f"{ref_ms / PAR_ADV_STEPS:.3f} ms/step (the adv-diff step alone); "
+        f"max|dQ|/max|Q|={dq:.3e} (tol 1e-5); scalar total {tot_sh:.9f} "
+        f"sharded, {tot_ref:.9f} unsharded; in blocks {resident}")
+    log(_par_census("adv-diff", cen))
+    if not (dq <= 1e-5 and resident and cen["whole_grid_layouts"] == 0):
+        raise AssertionError("the sharded adv-diff scalar missed a check")
+
+
 def _par_gpus(out, what: str = "flagship") -> None:
     """The flagship (or ``what`` ``out`` holds) over one shard per
     visible GPU, when several are visible, against the unsharded step;
@@ -5668,7 +5853,9 @@ def phase_gpus() -> None:
     """Run only when named, on a host with several GPUs: the
     block-resident flagship over one shard per visible GPU against the
     unsharded ``scatter`` step (``_par_gpus``), the same for the walled
-    flagship (``_walled_flagship``), then the ex4 driver on
+    flagship (``_walled_flagship``), the dam break on a (2, 2) mesh of
+    one shard a card (four GPUs) with the checks of the ``parallel``
+    leg, then the ex4 driver on
     the north-star input with no mesh given, which shards over every
     visible GPU by itself, against the unsharded steps of the same
     build."""
@@ -5704,6 +5891,14 @@ def phase_gpus() -> None:
               f"walled flagship (duct walls {PAR_WALLS})")
     del integ, st0, ref
     torch.cuda.empty_cache()
+    if n >= 4:
+        from ibamr_tpu_torch.parallel.mesh import make_mesh
+        _par_vc("dam break", "multiphase_dam_break", DAMBREAK_INPUT,
+                make_mesh(4, max_axes=2, device=DEVICE))
+        torch.cuda.empty_cache()
+    else:
+        log(f"[gpus] {n} GPU visible: the dam break over (2, 2) cards did "
+            f"not run")
     if n < 2:
         return
     steps = PAR_DRIVER_STEPS
@@ -5924,9 +6119,10 @@ def _par_checkpoint(integ, state, mesh, tmp: str) -> None:
 def phase_parallel(breakdown: bool = False) -> dict:
     """The parallel layer on the card: the sharded flagship, the pencil
     projection, the sharded flagship in a walled duct and the sharded
-    cavity, the sharded checkpoint of the flagship's state, the
-    sharded-checkpoint drill and the lane-mesh fleet. No hand kernel
-    runs (the transfers are the sharded scatter's)."""
+    cavity, the sharded dam break, falling drop and adv-diff scalar, the
+    sharded checkpoint of the flagship's state, the sharded-checkpoint
+    drill and the lane-mesh fleet. No hand kernel runs (the transfers
+    are the sharded scatter's)."""
     from ibamr_tpu_torch.parallel.mesh import make_mesh
     from ibamr_tpu_torch.tools import fault_injection as fi
 
@@ -5942,6 +6138,12 @@ def phase_parallel(breakdown: bool = False) -> dict:
     del walled
     torch.cuda.empty_cache()
     _par_cavity()
+    _par_vc("dam break", "multiphase_dam_break", DAMBREAK_INPUT, mesh,
+            breakdown)
+    torch.cuda.empty_cache()
+    _par_vc("falling drop", "multiphase_falling_drop", DROP_INPUT, mesh)
+    _par_adv(mesh)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         _par_checkpoint(out["integ"], out["state"], mesh, tmp)
         for key in ("state", "st0", "ref"):

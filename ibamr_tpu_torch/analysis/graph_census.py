@@ -47,7 +47,11 @@ module. Eager PyTorch has neither, so the port counts what a call
   ``collective_*``;
 - **whole-grid layouts** (``whole_grid_layouts``): every cut of a whole
   tensor into ``spmd.Blocks`` and every assembly of one; the
-  block-resident sharded step pins it at 0;
+  block-resident sharded step pins it at 0. A multigrid level too coarse
+  to cut is gathered to the first shard and its correction scattered
+  back: those count as ``coarse_gathers`` / ``coarse_scatters``. They
+  never hold the finest grid: a finest level that must be gathered
+  (blocks of an odd extent) is assembled and cut, a whole-grid layout;
 - **hand-kernel launches** (``custom_calls``): read from
   ``ops/cuda_interaction.LAUNCHES``, because a ``ctypes`` launch
   bypasses the dispatcher. On the CPU the wrappers run their plain
@@ -329,13 +333,20 @@ class _CollectiveRecorder:
 def grid_layout_census():
     """Count the whole-grid layouts in the block: every cut of a whole
     tensor into ``parallel.spmd.Blocks`` and every assembly of one
-    (``whole_grid_layouts``; a block-resident step runs none)."""
+    (``whole_grid_layouts``; a block-resident step runs none), and the
+    coarse multigrid levels' gathers and scatters apart."""
     from ibamr_tpu_torch.parallel import spmd
 
-    counts = {"whole_grid_layouts": 0}
+    counts = {"whole_grid_layouts": 0, "coarse_gathers": 0,
+              "coarse_scatters": 0}
 
     def rec(kind, whole):
-        counts["whole_grid_layouts"] += 1
+        if kind == "coarse_gather":
+            counts["coarse_gathers"] += 1
+        elif kind == "coarse_scatter":
+            counts["coarse_scatters"] += 1
+        else:
+            counts["whole_grid_layouts"] += 1
 
     spmd.GRID_LISTENERS.append(rec)
     try:

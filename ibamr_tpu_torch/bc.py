@@ -5,7 +5,9 @@ Each domain side prescribes ``a Q + b dQ/dn = g`` (the Robin form):
 ``periodic`` wraps both sides of an axis, ``dirichlet`` is ``Q = g``
 (a=1, b=0), ``neumann`` is ``dQ/dn = g`` (a=0, b=1) and ``robin`` takes
 explicit (a, b). The conditions are hashable static metadata; a ghost
-fill is padding plus arithmetic on whole tensors.
+fill is padding plus arithmetic on whole tensors; :func:`laplacian_cc`
+also takes block-resident leaves (``parallel.spmd.Blocks``), whose wall
+ghosts the edge shards build by the same fill (:func:`wall_rules_cc`).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from ibamr_tpu_torch.parallel.spmd import Blocks, halo_apply
 
 PERIODIC = "periodic"
 DIRICHLET = "dirichlet"
@@ -138,17 +142,35 @@ def _ghost_layers_cc(Q: torch.Tensor, axis: int, side: SideBC, h: float,
     return torch.cat(layers, dim=axis) if width > 1 else layers[0]
 
 
-def ghost_rule_cc(axbc: AxisBC, h: float):
+def ghost_rule_cc(axbc: AxisBC, h: float, g_lo=None, g_hi=None):
     """The wall rule of the block-resident halo pass
     (``parallel/spmd.py``'s ``halo_apply``) for a cell-centered field
     along a wall axis: ``rule(Q, axis, width, side)`` is the slab
     :func:`fill_ghosts_cc` puts beyond that side, from the block's own
-    first or last ``width`` cells (homogeneous data only)."""
+    first or last ``width`` cells (the sides' constant data, or the
+    constants ``g_lo`` / ``g_hi`` where given)."""
     def rule(Q, axis, width, side):
         return _ghost_layers_cc(Q, axis, axbc.lo if side == 0 else axbc.hi,
-                                h, side == 0, width)
+                                h, side == 0, width,
+                                g=g_lo if side == 0 else g_hi)
 
     return rule
+
+
+def wall_rules_cc(bc: DomainBC, dx: Sequence[float],
+                  bdry_data: Optional[dict] = None) -> dict:
+    """:func:`ghost_rule_cc` of every wall axis of ``bc`` (the halo
+    pass's ``walls`` entry of one cell-centered leaf). Boundary data
+    must be constant on a side (a number or a 0-dim tensor): a block
+    does not hold the slab of a spatially varying one."""
+    data = dict(bdry_data or {})
+    for key, g in data.items():
+        if isinstance(g, torch.Tensor) and g.ndim:
+            raise ValueError(
+                f"spatially varying boundary data {key} is not "
+                f"partitioned: a block-resident fill takes constant data")
+    return {d: ghost_rule_cc(ax, dx[d], data.get((d, 0)), data.get((d, 1)))
+            for d, ax in enumerate(bc.axes) if not ax.periodic}
 
 
 def fill_ghosts_cc(Q: torch.Tensor, bc: DomainBC, dx: Sequence[float],
@@ -228,7 +250,11 @@ def pad_boundary_data(g, out, d, width: int = 1):
 def laplacian_cc(Q: torch.Tensor, bc: DomainBC, dx: Sequence[float],
                  bdry_data: Optional[dict] = None) -> torch.Tensor:
     """BC-aware 2d+1-point Laplacian of a cell-centered field (ghost fill,
-    then difference)."""
+    then difference); a halo stencil of radius 1 on Blocks."""
+    if isinstance(Q, Blocks):
+        return halo_apply(
+            Q.mesh, Q, lambda q: laplacian_cc(q, bc, dx, bdry_data), 1,
+            [wall_rules_cc(bc, dx, bdry_data)])
     G = fill_ghosts_cc(Q, bc, dx, bdry_data=bdry_data)
     dim = Q.ndim
     center = tuple(slice(1, -1) for _ in range(dim))

@@ -50,17 +50,20 @@ class IBAdvDiff:
         self.strength = float(strength)
 
     def step(self, ib_state, ad_state, dt):
-        grid = self.integ.ins.grid
         ib_new = self.integ.step(ib_state, dt)
-        src_markers = torch.full((ib_new.X.shape[0],), self.strength,
-                                 dtype=ib_new.X.dtype,
-                                 device=ib_new.X.device)
-        src = interaction.spread(src_markers, grid, ib_new.X,
-                                 centering="cell",
-                                 kernel=self.integ.ib.kernel,
-                                 weights=ib_new.mask)
-        ad_new = self.adv.step(ad_state, dt, u=ib_new.ins.u, sources=[src])
+        ad_new = self.adv.step(ad_state, dt, u=ib_new.ins.u,
+                               sources=[self.source(ib_new)])
         return ib_new, ad_new
+
+    def source(self, ib_state):
+        """The markers' scalar source spread to the cell centers."""
+        X = ib_state.X
+        src_markers = torch.full((X.shape[0],), self.strength,
+                                 dtype=X.dtype, device=X.device)
+        return interaction.spread(src_markers, self.integ.ins.grid, X,
+                                  centering="cell",
+                                  kernel=self.integ.ib.kernel,
+                                  weights=ib_state.mask)
 
 
 def build(db: InputDatabase, device="cuda"):

@@ -11,10 +11,18 @@ eager PyTorch and reads nothing back to the host (the AB2 switch is a
 The Crank-Nicolson solve is spectral on the periodic grid, through the
 overridable ``helmholtz_solve`` seam, and fast diagonalization for a
 quantity with walls.
+
+:meth:`AdvDiffSemiImplicitIntegrator.on_mesh` gives the copy that steps
+block-resident state (``parallel.spmd.Blocks``): the convective flux
+divergence a width-2 halo stencil (the wall ghosts the fill's), the
+Laplacians halo stencils, the solves through the pencils (FFT, or the
+pencil fast diagonalization of a walled quantity), and the source
+coordinates and the walls' affine lift cut into blocks once.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -24,6 +32,7 @@ from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.grid import StaggeredGrid
 from ibamr_tpu_torch.ops import stencils
 from ibamr_tpu_torch.ops.convection import advective_face_value
+from ibamr_tpu_torch.parallel.spmd import Blocks, halo_apply, zero_first_slot
 from ibamr_tpu_torch.solvers import fft
 from ibamr_tpu_torch.solvers.fastdiag import FastDiagSolver
 
@@ -63,7 +72,26 @@ def convective_flux_divergence(Q: torch.Tensor, u: Vel,
     face value of Q (centered, upwind or CUI). With a walled ``bc`` the
     face states come from a BC-honoring ghost fill; the flux divergence
     keeps the roll form because the normal velocity vanishes on wall
-    faces (pinned MAC layout)."""
+    faces (pinned MAC layout). On Blocks: the wall faces pinned on the
+    shards that hold them, then one halo stencil of radius 2 whose wall
+    ghosts are the fill's."""
+    if isinstance(Q, Blocks):
+        walled = bc is not None and not bc.all_periodic
+        if walled:
+            u = tuple(c if bc.axes[d].periodic else zero_first_slot(c, d)
+                      for d, c in enumerate(u))
+        walls = [bc_mod.wall_rules_cc(bc, dx, bdry_data) if walled
+                 else None] + [None] * len(u)
+        return halo_apply(
+            Q.mesh, (Q, *u),
+            lambda q, *v: _flux_divergence(q, v, dx, scheme, bc, bdry_data,
+                                           pin=False), 2, walls)
+    return _flux_divergence(Q, u, dx, scheme, bc, bdry_data, pin=True)
+
+
+def _flux_divergence(Q, u, dx, scheme, bc, bdry_data, pin: bool):
+    """The body of :func:`convective_flux_divergence`; ``pin`` zeroes
+    the wall faces of a copy of ``u`` (slot 0 of each wall axis)."""
     dim = Q.ndim
     need_ghosts = bc is not None and not bc.all_periodic
     if need_ghosts:
@@ -82,7 +110,7 @@ def convective_flux_divergence(Q: torch.Tensor, u: Vel,
     out = torch.zeros_like(Q)
     for d in range(dim):
         ud = u[d]
-        if need_ghosts and not bc.axes[d].periodic:
+        if pin and need_ghosts and not bc.axes[d].periodic:
             # pin the wall face (face 0 is both the boundary face and, by
             # the roll, the image of the opposite one) on a copy: the
             # caller's velocity is left as it is
@@ -118,6 +146,43 @@ class AdvDiffSemiImplicitIntegrator:
                            device=self.device)
             if q.bc is not None and not q.bc.all_periodic else None
             for q in self.quantities]
+        self.mesh = None
+        self._coords = None       # on a mesh: the cell centers in blocks
+        self._lifts = None        # on a mesh: the walls' affine lifts
+
+    def on_mesh(self, mesh) -> "AdvDiffSemiImplicitIntegrator":
+        """A shallow copy that steps block-resident state on ``mesh``:
+        the periodic solves through ``PencilFFT.helmholtz_cc``, a walled
+        quantity's through a ``PencilFastDiag`` of its solver; the cell
+        centers (for the sources) and each walled quantity's affine lift
+        ``laplacian_cc(0)`` (with its boundary data) cut into blocks here,
+        once. Spatially varying boundary data, or a grid the pencils
+        cannot split, raises."""
+        from ibamr_tpu_torch.parallel.fftpar import PencilFastDiag, PencilFFT
+        from ibamr_tpu_torch.parallel.mesh import grid_pspec
+
+        g = self.grid
+        spec = grid_pspec(mesh, g.dim)
+        integ = copy.copy(self)
+        integ.mesh = mesh
+        for q in self.quantities:
+            if q.bc is not None and not q.bc.all_periodic:
+                bc_mod.wall_rules_cc(q.bc, g.dx, q.bdry_data)
+        integ._coords = tuple(
+            Blocks.cut(mesh, c.expand(tuple(g.n)).contiguous(), spec)
+            for c in g.cell_centers(self.dtype, self.device))
+        integ._lifts = [
+            None if s is None or q.kappa == 0.0 else Blocks.cut(
+                mesh, bc_mod.laplacian_cc(
+                    torch.zeros(g.n, dtype=self.dtype, device=self.device),
+                    q.bc, g.dx, bdry_data=q.bdry_data), spec)
+            for q, s in zip(self.quantities, self._wall_solvers)]
+        if any(s is None and q.kappa != 0.0
+               for q, s in zip(self.quantities, self._wall_solvers)):
+            integ.helmholtz_solve = PencilFFT(g, mesh).helmholtz_cc
+        integ._wall_solvers = [None if s is None else PencilFastDiag(s, mesh)
+                               for s in self._wall_solvers]
+        return integ
 
     def initialize(self, Q0: Optional[Sequence] = None) -> AdvDiffState:
         g = self.grid
@@ -147,7 +212,8 @@ class AdvDiffSemiImplicitIntegrator:
         marker source)."""
         g = self.grid
         dx = g.dx
-        coords = g.cell_centers(self.dtype, self.device)
+        coords = (self._coords if self._coords is not None
+                  else g.cell_centers(self.dtype, self.device))
         t_half = state.t + 0.5 * dt
         first = state.k == 0
         one = torch.ones((), dtype=self.dtype, device=self.device)
@@ -172,9 +238,10 @@ class AdvDiffSemiImplicitIntegrator:
                 if wall_solver is not None:
                     # affine lifting: lap_bc(Q) = A Q + b, b = lap_bc(0);
                     # CN's RHS takes kappa/2 lap_bc(Q^n) + kappa/2 b
-                    b_vec = bc_mod.laplacian_cc(
-                        torch.zeros_like(Q), q.bc, dx,
-                        bdry_data=q.bdry_data)
+                    b_vec = (self._lifts[i] if self._lifts is not None
+                             else bc_mod.laplacian_cc(
+                                 torch.zeros_like(Q), q.bc, dx,
+                                 bdry_data=q.bdry_data))
                     rhs = rhs + 0.5 * q.kappa * (
                         bc_mod.laplacian_cc(Q, q.bc, dx,
                                             bdry_data=q.bdry_data)

@@ -21,10 +21,21 @@ multigrid preconditioner replay as CUDA graphs, with the coefficient
 set-up (face coefficients and the coarsened hierarchy from ``rho``) a
 third graph replayed once per projection, so every solve sees its own
 step's density (bitwise the eager solve).
+
+The step also runs on block-resident state (``parallel.spmd.Blocks``,
+from :meth:`INSVCStaggeredIntegrator.on_mesh` through
+``parallel.mesh.make_sharded_vc_step``): every stencil of the step runs
+its whole-grid body as a halo stencil on the padded blocks (the walled
+shear and the wall masks by global index), the reductions combine
+per-block partial sums, the CG takes Blocks, its preconditioner is the
+multigrid V-cycle on blocks (or the pencil FFT's Poisson solve), and
+the level set is advected and reinitialized on halos. The projection
+there is eager (its graphs capture whole-tensor buffers).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,8 +47,10 @@ from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.grid import StaggeredGrid
 from ibamr_tpu_torch.integrators.ins_walls import pin_normal
 from ibamr_tpu_torch.ops import stencils
-from ibamr_tpu_torch.ops.convection import convective_rate, convective_rate_bc
+from ibamr_tpu_torch.ops.convection import (GHOST_WIDTH, convective_rate,
+                                            convective_rate_bc)
 from ibamr_tpu_torch.ops.godunov import advect
+from ibamr_tpu_torch.parallel.spmd import Blocks, halo_stencil
 from ibamr_tpu_torch.physics import level_set as ls
 from ibamr_tpu_torch.solvers import fft, krylov
 from ibamr_tpu_torch.solvers.multigrid import PoissonMultigrid
@@ -58,6 +71,13 @@ class VCINSState(NamedTuple):
 
 def _cc_to_face(f: torch.Tensor, d: int) -> torch.Tensor:
     return 0.5 * (f + torch.roll(f, 1, d))
+
+
+def _cc_to_faces(f) -> Vel:
+    """``f`` averaged to every face centering (a halo stencil on
+    Blocks)."""
+    return halo_stencil(
+        lambda q: tuple(_cc_to_face(q, d) for d in range(q.ndim)), 1)(f)
 
 
 class _Projection(NamedTuple):
@@ -153,9 +173,34 @@ class INSVCStaggeredIntegrator:
                     grid.n, dtype=dtype, device=self.device)
                 self._rho_still = self.density(phi_still)
         self._graphs = {}
+        self._pencil = None          # the FFT preconditioner on a mesh
         self.last_solve_stats = {}
         self.cg_iterations = 0      # CG iterations over all projections
         self.projections = 0
+
+    def on_mesh(self, mesh) -> "INSVCStaggeredIntegrator":
+        """A shallow copy that steps block-resident state on ``mesh``
+        (no graphed projection; the FFT preconditioner through the
+        pencils). A grid the pencils cannot split raises."""
+        from ibamr_tpu_torch.parallel.fftpar import PencilFFT
+
+        integ = copy.copy(self)
+        integ._graphs = {}
+        if self.precond == "fft":
+            integ._pencil = PencilFFT(self.grid, mesh)
+        return integ
+
+    def halo_width(self) -> Tuple[int, ...]:
+        """Per grid axis, the widest ghost layer the block-resident step
+        reads: the Godunov advection's 2, the surface tension's 3
+        (curvature, then a face average), the convection scheme's
+        (one more on a wall axis, where its pinned ghosts read one cell
+        past the width)."""
+        conv = (0 if self.convective_op_type == "none"
+                else GHOST_WIDTH[self.convective_op_type])
+        base = max(2, 3 if self.sigma else 1)
+        return tuple(max(base, conv + (1 if w and conv else 0))
+                     for w in self.wall_axes)
 
     # -- wall helpers --------------------------------------------------------
     def _pin_normal(self, c: torch.Tensor, d: int) -> torch.Tensor:
@@ -182,9 +227,9 @@ class INSVCStaggeredIntegrator:
         "arithmetic": 1 over the mean of rho), pinned at wall faces."""
         g = self.grid
         if face_rule == "harmonic":
-            inv = tuple(_cc_to_face(1.0 / rho_cc, d) for d in range(g.dim))
+            inv = _cc_to_faces(1.0 / rho_cc)
         elif face_rule == "arithmetic":
-            inv = tuple(1.0 / _cc_to_face(rho_cc, d) for d in range(g.dim))
+            inv = tuple(1.0 / c for c in _cc_to_faces(rho_cc))
         else:
             raise ValueError(f"unknown face_rule {face_rule!r}")
         return tuple(self._pin_normal(c, d) for d, c in enumerate(inv))
@@ -254,10 +299,14 @@ class INSVCStaggeredIntegrator:
             else:
                 mg = None
                 rho_ref = min(self.rho)
+                if isinstance(rho_cc, Blocks):
+                    poisson = self._pencil.poisson
+                else:
+                    def poisson(x):
+                        return fft.solve_poisson_periodic(x, dx)
 
                 def M(r):
-                    return -fft.solve_poisson_periodic(r / (dt / rho_ref),
-                                                       dx)
+                    return -poisson(r / (dt / rho_ref))
         if mg_sink is not None:
             mg_sink["mg"] = mg
         return _Projection(inv_rho_face, A, M, inv_out)
@@ -298,9 +347,11 @@ class INSVCStaggeredIntegrator:
                    graphed: Optional[bool] = None) -> _Projection:
         """The projection pieces for ``rho_cc``: graphed on a CUDA
         device with the multigrid preconditioner, eager otherwise (or
-        when ``graphed`` is False)."""
+        when ``graphed`` is False, or on Blocks)."""
         if graphed is None:
-            graphed = rho_cc.device.type == "cuda" and self.precond == "mg"
+            graphed = (isinstance(rho_cc, torch.Tensor)
+                       and rho_cc.device.type == "cuda"
+                       and self.precond == "mg")
         if graphed:
             return self._graphed_projection(rho_cc, dt, face_rule)
         return self._build_projection(rho_cc, dt, face_rule)
@@ -373,10 +424,17 @@ class INSVCStaggeredIntegrator:
         """div(2 mu D(u)) on the MAC grid (explicit): diagonal terms with
         cell-centered mu, off-diagonal terms with mu averaged to the
         edges; across a wall axis the wall shear is the half-cell
-        one-sided gradient against the wall's tangential velocity."""
-        g = self.grid
-        dim = g.dim
-        dx = g.dx
+        one-sided gradient against the wall's tangential velocity (on
+        the wall faces, marked by global index: a halo stencil of radius
+        1 on Blocks)."""
+        dim = self.grid.dim
+        acc = halo_stencil(lambda f: self._viscous_body(f[:dim], f[dim]),
+                           1)((*u, mu_cc))
+        return tuple(self._pin_normal(a, d) for d, a in enumerate(acc))
+
+    def _viscous_body(self, u: Vel, mu_cc: torch.Tensor) -> Vel:
+        dim = self.grid.dim
+        dx = self.grid.dx
         out = []
         for d in range(dim):
             acc = None
@@ -394,24 +452,23 @@ class INSVCStaggeredIntegrator:
                                                 1, j))
                     tau = mu_e * (dudj + dujd)
                     if self.wall_axes[j]:
-                        nj = u[d].shape[j]
+                        # the lo wall face carries the lo shear; the hi
+                        # wall face (past the last cell) the hi shear
+                        is_lo, is_hi = stencils.wall_boundary_masks(
+                            u[d].shape, j, u[d].device)
                         mu_d = 0.5 * (mu_cc + torch.roll(mu_cc, 1, d))
                         v_lo = self.tangential.get((d, j, 0), 0.0)
                         v_hi = self.tangential.get((d, j, 1), 0.0)
-                        t_lo = (take(mu_d, j, 0, 1)
-                                * 2.0 * (take(u[d], j, 0, 1) - v_lo)
-                                / dx[j])
-                        t_hi = (take(mu_d, j, nj - 1, nj)
-                                * 2.0 * (v_hi - take(u[d], j, nj - 1, nj))
-                                / dx[j])
-                        tau_full = torch.cat(
-                            [t_lo, take(tau, j, 1, nj), t_hi], dim=j)
-                        term = (take(tau_full, j, 1, nj + 1)
-                                - take(tau_full, j, 0, nj)) / dx[j]
+                        t_lo = mu_d * 2.0 * (u[d] - v_lo) / dx[j]
+                        t_hi = mu_d * 2.0 * (v_hi - u[d]) / dx[j]
+                        tau = torch.where(is_lo, t_lo, tau)
+                        term = torch.where(
+                            is_hi, (t_hi - tau) / dx[j],
+                            (torch.roll(tau, -1, j) - tau) / dx[j])
                     else:
                         term = (torch.roll(tau, -1, j) - tau) / dx[j]
                 acc = term if acc is None else acc + term
-            out.append(self._pin_normal(acc, d))
+            out.append(acc)
         return tuple(out)
 
     # -- surface tension + gravity -------------------------------------------
@@ -419,23 +476,30 @@ class INSVCStaggeredIntegrator:
                           rho_cc: torch.Tensor) -> Vel:
         """CSF surface tension plus buoyancy as the density anomaly
         (rho - mean(rho)) g (net-force free); with an open outlet the
-        anomaly is taken against the still hydrostatic profile."""
+        anomaly is taken against the still hydrostatic profile. On
+        Blocks, one halo stencil (radius 3 with surface tension: the
+        curvature's 2 and a face average)."""
+        if self._rho_still is not None:
+            drho = rho_cc - self._rho_still
+        else:
+            drho = rho_cc - torch.mean(rho_cc)
+        out = halo_stencil(lambda f: self._interface_body(*f),
+                           3 if self.sigma else 1)((phi, drho))
+        return tuple(self._pin_normal(f, d) for d, f in enumerate(out))
+
+    def _interface_body(self, phi: torch.Tensor, drho: torch.Tensor) -> Vel:
         g = self.grid
         dx = g.dx
         kap = (ls.curvature(phi, dx, wall_axes=self.wall_axes)
                if self.sigma else None)
         dlt = ls.delta(phi, self.eps) if self.sigma else None
-        if self._rho_still is not None:
-            drho = rho_cc - self._rho_still
-        else:
-            drho = rho_cc - torch.mean(rho_cc)
         out = []
         for d in range(g.dim):
             f = _cc_to_face(drho, d) * self.gravity[d]
             if self.sigma:
                 gphi = (phi - torch.roll(phi, 1, d)) / dx[d]
                 f = f + self.sigma * _cc_to_face(kap * dlt, d) * gphi
-            out.append(self._pin_normal(f, d))
+            out.append(f)
         return tuple(out)
 
     # -- state / stepping ----------------------------------------------------
@@ -482,8 +546,7 @@ class INSVCStaggeredIntegrator:
         # harmonic-density face weights: the projection's own (1/rho)
         # operator, so the predictor's pressure gradient and the
         # increment correction stay consistent
-        inv_rho_face = tuple(_cc_to_face(1.0 / rho_cc, d)
-                             for d in range(g.dim))
+        inv_rho_face = _cc_to_faces(1.0 / rho_cc)
         n_curr, n_star = self._ab2(u, state.n_prev, k)
         visc = self._viscous_force(u, mu_cc)
         body = self._interface_forces(phi, rho_cc)
@@ -516,7 +579,9 @@ class INSVCStaggeredIntegrator:
             return convective_rate_bc(
                 u, self.grid.dx, scheme=self.convective_op_type,
                 wall_axes=self.wall_axes, wall_tangential=self.tangential)
-        return convective_rate(u, self.grid.dx, self.convective_op_type)
+        return halo_stencil(convective_rate,
+                            GHOST_WIDTH[self.convective_op_type])(
+            tuple(u), self.grid.dx, self.convective_op_type)
 
     def _reinit_due(self, k: int) -> bool:
         # the reference's jnp.mod(k + 1, 0) is 0: interval 0 reinitializes
@@ -583,13 +648,23 @@ class INSVCConservativeIntegrator(INSVCStaggeredIntegrator):
 
     def _mass_fluxes(self, u: Vel, rho_cc: torch.Tensor) -> Vel:
         """Upwind mass flux rho*u through every (lower) cell face."""
-        return tuple(u[d] * torch.where(u[d] > 0,
-                                        torch.roll(rho_cc, 1, d), rho_cc)
-                     for d in range(self.grid.dim))
+        def body(*f):
+            u, rho = f[:-1], f[-1]
+            return tuple(u[d] * torch.where(u[d] > 0,
+                                            torch.roll(rho, 1, d), rho)
+                         for d in range(len(u)))
+
+        return halo_stencil(lambda f: body(*f), 1)((*u, rho_cc))
 
     def _momentum_advection(self, u: Vel, F: Vel) -> Vel:
         """div(F u) on each momentum control volume, upwinding u_d by the
-        sign of the interpolated mass flux."""
+        sign of the interpolated mass flux (a halo stencil of radius 1
+        on Blocks)."""
+        dim = self.grid.dim
+        return halo_stencil(
+            lambda f: self._momentum_body(f[:dim], f[dim:]), 1)((*u, *F))
+
+    def _momentum_body(self, u: Vel, F: Vel) -> Vel:
         dim = self.grid.dim
         dx = self.grid.dx
         out = []
@@ -628,31 +703,26 @@ class INSVCConservativeIntegrator(INSVCStaggeredIntegrator):
 
         # 1. mass transport (conservative)
         F = self._mass_fluxes(u, rho)
-        div_F = None
-        for d in range(g.dim):
-            t_ = (torch.roll(F[d], -1, d) - F[d]) / dx[d]
-            div_F = t_ if div_F is None else div_F + t_
-        rho_new = rho - dt * div_F
+        rho_new = rho - dt * stencils.divergence(F, dx)
 
         # 2. momentum update with the same fluxes
         if self.convective_op_type == "none":
-            adv = tuple(torch.zeros(g.n, dtype=u[0].dtype,
-                                    device=u[0].device)
-                        for _ in range(g.dim))
+            adv = tuple(torch.zeros_like(u[0]) for _ in range(g.dim))
             rho_new = rho
         else:
             adv = self._momentum_advection(u, F)
         visc = self._viscous_force(u, mu_cc)
         body = self._interface_forces(phi, rho)
         gp = stencils.gradient(p, dx)
+        rho_f, rho_new_f = _cc_to_faces(rho), _cc_to_faces(rho_new)
         u_star = []
         for d in range(g.dim):
-            m = _cc_to_face(rho, d) * u[d]
+            m = rho_f[d] * u[d]
             rhs = -adv[d] + visc[d] + body[d] - gp[d]
             if f is not None:
                 rhs = rhs + f[d]
             u_star.append(self._pin_normal(
-                (m + dt * rhs) / _cc_to_face(rho_new, d), d))
+                (m + dt * rhs) / rho_new_f[d], d))
 
         # 3. projection with the matching arithmetic face coefficient
         u_new, dp = self.project_vc(tuple(u_star), rho_new, dt,
@@ -672,10 +742,8 @@ class INSVCConservativeIntegrator(INSVCStaggeredIntegrator):
     def total_momentum(self, state: VCConsState) -> Vel:
         """Arithmetic-face momentum: the conserved quantity of this
         discretization."""
-        return tuple(
-            torch.sum(_cc_to_face(state.rho, d) * state.u[d])
-            * self.grid.cell_volume
-            for d in range(self.grid.dim))
+        return tuple(torch.sum(r * c) * self.grid.cell_volume
+                     for r, c in zip(_cc_to_faces(state.rho), state.u))
 
 
 def advance_vc_conservative(integ, state, dt: float, num_steps: int):

@@ -32,8 +32,8 @@ from ibamr_tpu_torch.bc import AxisBC, DomainBC, dirichlet_axis, neumann_axis
 from ibamr_tpu_torch.device import resolve_device
 from ibamr_tpu_torch.grid import StaggeredGrid
 from ibamr_tpu_torch.ops import stencils
-from ibamr_tpu_torch.parallel.spmd import (Blocks, halo_apply, halo_stencil,
-                                           smap, zero_first_slot)
+from ibamr_tpu_torch.parallel.spmd import (Blocks, halo_apply, smap,
+                                           zero_first_slot)
 from ibamr_tpu_torch.solvers.fastdiag import FastDiagSolver
 
 Vel = Tuple[torch.Tensor, ...]
@@ -46,10 +46,6 @@ def pin_normal(c: torch.Tensor, d: int, wall_axes) -> torch.Tensor:
     if not wall_axes[d]:
         return c
     return zero_first_slot(c, d)
-
-
-_halo_gradient = halo_stencil(stencils.gradient, 1)
-_halo_divergence = halo_stencil(stencils.divergence, 1)
 
 
 class WallOps:
@@ -176,8 +172,7 @@ class WallOps:
 
     def pressure_gradient(self, p: torch.Tensor, dx: Sequence[float]) -> Vel:
         """grad p at the faces, zero at the pinned wall faces."""
-        g = (_halo_gradient(p, dx) if isinstance(p, Blocks)
-             else stencils.gradient(p, dx))
+        g = stencils.gradient(p, dx)
         return tuple(self._pin_normal(c, d) for d, c in enumerate(g))
 
     def laplacian_cc(self, f: torch.Tensor,
@@ -232,8 +227,7 @@ class WallOps:
         masked at the pinned faces. ``q`` is an optional cell-centered
         divergence source."""
         blocks = isinstance(u[0], Blocks)
-        div = (_halo_divergence(u, dx) if blocks
-               else stencils.divergence(u, dx))
+        div = stencils.divergence(u, dx)
         if q is not None:
             div = div - q
         if blocks:

@@ -14,6 +14,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ibamr_tpu_torch.ops import stencils
+from ibamr_tpu_torch.parallel.spmd import Blocks, halo_stencil
 from ibamr_tpu_torch.solvers import fft
 
 Vel = Tuple[torch.Tensor, ...]
@@ -94,7 +95,14 @@ def advect(Q: torch.Tensor, u: Vel, dx: Sequence[float], dt: float,
            ctu: bool = True,
            wall_axes: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """One conservative Godunov advection step Q - dt div(u q^{n+1/2})
-    (flux form: exact mass conservation, in the walled box too)."""
+    (flux form: exact mass conservation, in the walled box too). On
+    Blocks, one halo stencil of radius 2 (the limited slopes of the
+    neighbour cells and the CTU corrections), bitwise the whole grid's:
+    the wall masks read global indices."""
+    if isinstance(Q, Blocks):
+        return halo_stencil(
+            lambda qv: advect(qv[0], qv[1:], dx, dt, ctu=ctu,
+                              wall_axes=wall_axes), 2)((Q, *u))
     qf = godunov_face_values(Q, u, dx, dt, ctu=ctu, wall_axes=wall_axes)
     out = Q
     for d in range(Q.ndim):

@@ -1,6 +1,8 @@
 """Discrete norms over grid fields (port of ``ibamr_tpu/ops/norms.py``):
 volume-weighted L1/L2/max norms and inner products, the global
-reductions under every Krylov residual."""
+reductions under every Krylov residual. On block-resident leaves
+(``parallel.spmd.Blocks``) each inner product is per-block partial sums
+combined on the mesh's first device in coordinate order."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ from typing import Any, Sequence
 
 import torch
 
+from ibamr_tpu_torch.parallel.spmd import Blocks, dots
 from ibamr_tpu_torch.utils.tree import leaves, tree_map
 
 
@@ -29,11 +32,27 @@ def tree_dots(pairs: Sequence[Any]) -> torch.Tensor:
     pairs = list(pairs)
     if not pairs:
         return torch.zeros((0,))
+    first = leaves(pairs[0][0])
+    if first and isinstance(first[0], Blocks):
+        return _blocks_tree_dots(pairs)
     prods = [leaves(tree_map(torch.mul, a, b)) for a, b in pairs]
     per_leaf = [torch.stack(xs).reshape(len(pairs), -1).sum(dim=1)
                 for xs in zip(*prods)]
     if not per_leaf:
         return torch.zeros((len(pairs),))
+    s = per_leaf[0]
+    for x in per_leaf[1:]:
+        s = s + x
+    return s
+
+
+def _blocks_tree_dots(pairs) -> torch.Tensor:
+    """:func:`tree_dots` of block-resident leaves: per leaf, each shard's
+    K partial dots, combined over the shards in coordinate order
+    (``parallel.spmd.dots``), then summed over the leaves."""
+    lp = [(leaves(a), leaves(b)) for a, b in pairs]
+    per_leaf = [dots([(la[j], lb[j]) for la, lb in lp])
+                for j in range(len(lp[0][0]))]
     s = per_leaf[0]
     for x in per_leaf[1:]:
         s = s + x

@@ -2,7 +2,9 @@
 div, grad, Laplacian, curl, strain rate, cell/face interpolation and the
 wall and MAC-layout helpers.
 
-Periodic ``torch.roll`` forms on whole arrays. Index conventions:
+Periodic ``torch.roll`` forms on whole arrays (``divergence``,
+``gradient`` and ``laplacian`` also take block-resident leaves,
+``parallel.spmd.Blocks``, through the halo pass). Index conventions:
 cell-centered ``p[i]``; face-centered ``u_d[i]`` on the lower face of
 cell ``i``. ``divergence(gradient(p)) == laplacian(p)`` exactly, and
 gradient is the negative adjoint of divergence.
@@ -10,9 +12,12 @@ gradient is the negative adjoint of divergence.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from ibamr_tpu_torch.parallel.spmd import global_positions, halo_stencil
 
 Vel = Tuple[torch.Tensor, ...]
 
@@ -27,6 +32,7 @@ def _dxp(f: torch.Tensor, axis: int, h: float) -> torch.Tensor:
     return (torch.roll(f, -1, axis) - f) / h
 
 
+@functools.partial(halo_stencil, width=1)
 def divergence(u: Sequence[torch.Tensor], dx: Sequence[float]) -> torch.Tensor:
     """div u at cell centers from face-centered components."""
     out = _dxp(u[0], 0, dx[0])
@@ -35,11 +41,13 @@ def divergence(u: Sequence[torch.Tensor], dx: Sequence[float]) -> torch.Tensor:
     return out
 
 
+@functools.partial(halo_stencil, width=1)
 def gradient(p: torch.Tensor, dx: Sequence[float]) -> Vel:
     """grad p at faces from a cell-centered field."""
     return tuple(_dxm(p, d, dx[d]) for d in range(len(dx)))
 
 
+@functools.partial(halo_stencil, width=1)
 def laplacian(f: torch.Tensor, dx: Sequence[float]) -> torch.Tensor:
     """Standard 2d+1-point Laplacian on the field's own grid."""
     out = torch.zeros_like(f)
@@ -154,12 +162,14 @@ def strain_rate_magnitude_cc(u: Sequence[torch.Tensor], dx: Sequence[float],
 
 def wall_boundary_masks(shape, axis: int, device=None):
     """(is_lo, is_hi) boolean masks of the first and last cell layer along
-    ``axis``."""
+    ``axis``: of the grid, by global index (inside a halo body on a
+    block, ``parallel.spmd.global_positions``: true on the edge shards
+    only)."""
     bshape = [1] * len(shape)
     bshape[axis] = shape[axis]
-    i = torch.arange(shape[axis], device=device).reshape(bshape)
-    i = i.expand(tuple(shape))
-    return i == 0, i == shape[axis] - 1
+    i, n = global_positions(shape[axis], axis, device)
+    i = i.reshape(bshape).expand(tuple(shape))
+    return i == 0, i == n - 1
 
 
 def axis_slice(a: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:

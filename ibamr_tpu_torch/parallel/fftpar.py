@@ -33,15 +33,10 @@ import torch
 from ibamr_tpu_torch.grid import StaggeredGrid
 from ibamr_tpu_torch.ops import stencils
 from ibamr_tpu_torch.parallel.mesh import grid_pspec
-from ibamr_tpu_torch.parallel.spmd import (Blocks, Mesh, P, all_to_all,
-                                           halo_stencil, smap)
+from ibamr_tpu_torch.parallel.spmd import Blocks, Mesh, P, all_to_all, smap
 from ibamr_tpu_torch.solvers.fastdiag import FastDiagSolver
 
 Vel = Tuple[torch.Tensor, ...]
-
-# the projection's stencils on blocks (radius 1)
-_halo_divergence = halo_stencil(stencils.divergence, 1)
-_halo_gradient = halo_stencil(stencils.gradient, 1)
 
 
 def _axis_symbol(n: int, h: float, dtype, device) -> torch.Tensor:
@@ -317,11 +312,11 @@ class PencilFFT:
                 tuple(self._cut(c) for c in u), dx, self._cut(q))
             dev = u[0].device
             return tuple(c.assemble(dev) for c in out), phi.assemble(dev)
-        div = _halo_divergence(u, dx)
+        div = stencils.divergence(u, dx)
         if q is not None:
             div = div - q
         phi = self.poisson(div)
-        g = _halo_gradient(phi, dx)
+        g = stencils.gradient(phi, dx)
         return tuple(c - gc for c, gc in zip(u, g)), phi
 
 

@@ -13,8 +13,10 @@ step is the single-device step with the explicit seams swapped in --
   (:class:`~ibamr_tpu_torch.parallel.lagrangian.ShardedInteraction`):
   owner-bucketed pools, per-shard local scatter/gather, halo exchange;
 
-The INS and IB families, periodic or wall-bounded, are block-resident,
-as the reference's GSPMD step keeps every grid array split: :func:`place_state`
+The INS and IB families, periodic or wall-bounded, the adv-diff family
+and the two-phase (variable-coefficient) family, periodic or walled on
+any axes, are block-resident, as the reference's GSPMD step keeps every
+grid array split: :func:`place_state`
 / :func:`shard_state` hold each grid array as
 :class:`~ibamr_tpu_torch.parallel.spmd.Blocks` (per-shard blocks on the
 shards' own devices, carrying their layout), and the step never builds
@@ -26,11 +28,16 @@ the edge shards build the ghosts the whole-grid stencil pads there),
 the RHS assembly cell by cell on the blocks, the solves through the
 pencils (with walls, the pencil fast-diagonalization:
 :class:`~ibamr_tpu_torch.parallel.fftpar.PencilFastDiag`) and the
-transfers from and into the blocks. Only the host-facing edges
-(:func:`unshard_state`, checkpoints, viz) assemble a whole tensor.
+transfers from and into the blocks. The two-phase step adds the
+multigrid V-cycle and the CG on blocks (a multigrid level too coarse to
+cut runs whole on the first shard, gathered and scattered under its own
+census name) and the level set on halos; the adv-diff step its flux
+divergence on halos and the pencil solves of each quantity. Only the
+host-facing edges (:func:`unshard_state`, checkpoints, viz) assemble a
+whole tensor.
 
-The other families (variable-coefficient, open-boundary, adv-diff, the
-AMR hierarchies, LES, CIB) keep the pinned
+The other families (the two-phase step with an open outlet, the other
+open-boundary families, the AMR hierarchies, LES, CIB) keep the pinned
 form: the step runs on whole tensors on the mesh's first device, with
 the layout attached to every grid array (``spmd.pin``), their seams
 swapped as the reference swaps them.
@@ -209,7 +216,6 @@ def _block_fluid(ins, mesh: Mesh):
     integ = copy.copy(ins)
     integ.fused_stokes = None
     integ._step_graphs = {}
-    integ.divergence = halo_stencil(stencils.divergence, 1)
     if any(walls):
         # the wall operators take Blocks themselves, and so does the
         # ghost-padded convection
@@ -227,8 +233,6 @@ def _block_fluid(ins, mesh: Mesh):
     if ins._convective is not None:
         integ._convective = halo_stencil(ins._convective, width)
     integ.laplacian_vel = halo_stencil(stencils.laplacian_vel, 1)
-    integ.pressure_gradient = halo_stencil(stencils.gradient, 1)
-    integ.laplacian_cc = halo_stencil(stencils.laplacian, 1)
     return integ
 
 
@@ -282,21 +286,31 @@ def make_sharded_ins_step(integ, mesh: Mesh):
     return _block_step(_block_fluid(integ, mesh), integ.grid, mesh)
 
 
-def _prepare_adv_diff(integ, mesh: Mesh):
-    # quantities with wall BCs keep their fast-diagonalization solves;
-    # the pencil plan is built only when some quantity is periodic
-    from ibamr_tpu_torch.parallel.fftpar import PencilFFT
-
-    integ = copy.copy(integ)
-    if any(s is None for s in getattr(integ, "_wall_solvers", (None,))):
-        pencil = PencilFFT(integ.grid, mesh)
-        integ.helmholtz_solve = pencil.helmholtz_cc
-    return integ
+def _check_extents(grid: StaggeredGrid, mesh: Mesh, width, what: str):
+    """Raise when a block along a split axis is thinner than the ghost
+    width ``width[d]`` the step's stencils read there."""
+    for d, axis in split_dims(NamedSharding(mesh, grid_pspec(mesh, grid.dim)),
+                              grid.dim):
+        p = mesh.axis_size(axis)
+        if grid.n[d] % p:
+            raise ValueError(f"grid axis {d} ({grid.n[d]}) does not divide "
+                             f"over mesh axis {axis!r} ({p})")
+        extent = grid.n[d] // p
+        if extent < width[d]:
+            raise ValueError(
+                f"grid axis {d} splits into blocks of {extent} cells, "
+                f"thinner than the {what}'s ghost width {width[d]}: use "
+                f"fewer shards or a bigger grid")
 
 
 def make_sharded_adv_diff_step(integ, mesh: Mesh):
-    """Adv-diff step with grid arrays laid out over ``mesh``."""
-    return _generic_pinned_step(integ, mesh, prepare=_prepare_adv_diff)
+    """Adv-diff step over ``mesh``, block-resident, periodic or walled:
+    every grid array (and the velocity and sources it is given, cut at
+    the step's edge) in blocks; the flux divergence and the Laplacians
+    halo stencils, the Crank-Nicolson solves through the pencils."""
+    _check_extents(integ.grid, mesh, (2,) * integ.grid.dim,
+                   "flux divergence")
+    return _block_step(integ.on_mesh(mesh), integ.grid, mesh)
 
 
 def make_sharded_step(integ, mesh: Mesh, **opts):
@@ -666,9 +680,15 @@ def step_lane_blocks(mesh: Mesh, state, lane_step):
 
 
 def make_sharded_vc_step(integ, mesh: Mesh):
-    """Variable-coefficient (multiphase) INS step with every grid field
-    laid out over ``mesh``."""
-    return _generic_pinned_step(integ, mesh)
+    """Variable-coefficient (two-phase) INS step over ``mesh``, both
+    forms, periodic or walled on any axes: block-resident (the
+    stencils on halos, the CG and its multigrid or pencil-FFT
+    preconditioner on blocks, the level set on halos). The open outlet
+    (face-complete axis-0 assemblies) keeps the pinned form."""
+    if integ.open_outlet:
+        return _generic_pinned_step(integ, mesh)
+    _check_extents(integ.grid, mesh, integ.halo_width(), "two-phase step")
+    return _block_step(integ.on_mesh(mesh), integ.grid, mesh)
 
 
 def _pin_rank_dim(mesh: Mesh, dim: int):

@@ -37,6 +37,7 @@ That record is the layout the sharded checkpoints write and restore.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
@@ -90,6 +91,12 @@ class Mesh:
         self.axis_names = tuple(str(a) for a in axis_names)
         self.shape = dict(zip(self.axis_names,
                               (int(s) for s in devs.shape)))
+        # the mesh is immutable: coordinates, groups and axis indices are
+        # computed once (every halo pass and collective reads them)
+        self._coords = [tuple(int(c) for c in np.unravel_index(i,
+                                                               devs.shape))
+                        for i in range(devs.size)]
+        self._memo = {}
 
     @property
     def size(self) -> int:
@@ -103,7 +110,7 @@ class Mesh:
         return self.devices.flat[i]
 
     def coords(self, i: int) -> Tuple[int, ...]:
-        return tuple(int(c) for c in np.unravel_index(i, self.devices.shape))
+        return self._coords[i]
 
     def flat_index(self, coords: Sequence[int]) -> int:
         return int(np.ravel_multi_index(tuple(coords), self.devices.shape))
@@ -121,6 +128,12 @@ class Mesh:
     def axis_index(self, axis: AxisName, i: int) -> int:
         """Shard ``i``'s coordinate along ``axis`` (axes of a tuple
         flattened in the order given, the first the slowest)."""
+        key = ("index", axis, i)
+        if key not in self._memo:
+            self._memo[key] = self._axis_index(axis, i)
+        return self._memo[key]
+
+    def _axis_index(self, axis: AxisName, i: int) -> int:
         c = self.coords(i)
         idx = 0
         for a in self._axes(axis):
@@ -131,6 +144,12 @@ class Mesh:
     def group(self, axis: AxisName, i: int) -> List[int]:
         """The shards that differ from shard ``i`` only along ``axis``,
         in order of their coordinate there."""
+        key = ("group", axis, i)
+        if key not in self._memo:
+            self._memo[key] = self._group(axis, i)
+        return self._memo[key]
+
+    def _group(self, axis: AxisName, i: int) -> List[int]:
         axes = self._axes(axis)
         base = list(self.coords(i))
         ks = [self.axis_names.index(a) for a in axes]
@@ -183,6 +202,13 @@ class NamedSharding:
 
     def index(self, i: int, shape: Sequence[int]) -> List[List[int]]:
         """Shard ``i``'s ``[[lo, hi], ...]`` of a tensor of ``shape``."""
+        key = ("range", tuple(self.spec), i, tuple(int(n) for n in shape))
+        memo = self.mesh._memo
+        if key not in memo:
+            memo[key] = self._index(i, shape)
+        return [list(r) for r in memo[key]]
+
+    def _index(self, i: int, shape: Sequence[int]) -> List[List[int]]:
         out = []
         for d, n in enumerate(shape):
             part = self.spec[d] if d < len(self.spec) else None
@@ -215,6 +241,9 @@ def pin(t, sharding: Optional[NamedSharding]):
 
 
 def sharding_of(t) -> Optional[NamedSharding]:
+    """The layout of a pinned tensor or of a :class:`Blocks` leaf."""
+    if isinstance(t, Blocks):
+        return t.sharding
     return getattr(t, "_ibamr_sharding", None)
 
 
@@ -428,6 +457,8 @@ def psum(mesh: Mesh, blocks: Sequence[torch.Tensor], axis: AxisName
 # listeners of the whole-grid layouts (``analysis.graph_census``): every
 # cut of a whole tensor into :class:`Blocks` and every assembly of one
 # calls each listener with ``"cut"`` or ``"assemble"`` and the whole tensor
+# (a coarse multigrid level's gather and scatter with ``"coarse_gather"``
+# and ``"coarse_scatter"``)
 GRID_LISTENERS: List[Callable] = []
 
 
@@ -441,8 +472,9 @@ def _report_grid(kind: str, whole: torch.Tensor) -> None:
 # op on the whole tensor
 _ELEMENTWISE = frozenset((
     "add", "sub", "mul", "div", "true_divide", "rsub", "neg", "negative",
-    "abs", "square", "sqrt", "exp", "sign", "pow", "where", "maximum",
-    "minimum", "clamp", "clone", "detach", "contiguous", "float", "double",
+    "abs", "square", "sqrt", "exp", "sin", "cos", "sign",
+    "pow", "where", "maximum", "minimum", "clamp", "clone", "detach",
+    "contiguous", "float", "double", "to",
     "zeros_like", "ones_like", "empty_like", "full_like", "isfinite",
     "isnan", "eq", "ne", "lt", "le", "gt", "ge", "logical_and",
     "logical_or", "logical_not",
@@ -450,10 +482,12 @@ _ELEMENTWISE = frozenset((
     "__truediv__", "__rtruediv__", "__rdiv__", "__neg__", "__pow__",
     "__rpow__", "__abs__", "__and__", "__or__", "__invert__", "__lt__",
     "__le__", "__gt__", "__ge__"))
-# whole reductions: per block, then combined in coordinate order
+# whole reductions: per block, then combined in coordinate order (a
+# mean is the combined sum over the element count)
 _REDUCE = {"sum": torch.add, "max": torch.maximum, "amax": torch.maximum,
            "min": torch.minimum, "amin": torch.minimum,
-           "all": torch.logical_and, "any": torch.logical_or}
+           "all": torch.logical_and, "any": torch.logical_or,
+           "mean": torch.add}
 
 
 class Blocks:
@@ -465,8 +499,9 @@ class Blocks:
 
     Cell-by-cell torch ops (``+``, ``*``, ``torch.where``,
     ``torch.isfinite``, ``zeros_like``, ...) run on every block, with
-    0-dim tensors and numbers as the other operands; ``sum`` / ``max`` /
-    ``min`` / ``all`` / ``any`` of the whole leaf reduce each block, then
+    0-dim tensors and numbers as the other operands; ``sum`` / ``mean`` /
+    ``max`` / ``min`` / ``all`` / ``any`` of the whole leaf reduce each
+    block, then
     combine the partial results on the mesh's first device in coordinate
     order (bitwise run to run; another order than a whole-tensor
     reduction, so equal to it only to roundoff). A stencil goes through
@@ -498,6 +533,23 @@ class Blocks:
         out = unshard(self.mesh, self.blocks, self.spec, device)
         _report_grid("assemble", out)
         return out
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole tensor of a multigrid level coarser than the grid
+        and too coarse to cut, on ``device`` (default: the mesh's
+        first); reported as ``"coarse_gather"``, not as a layout of the
+        grid (the grid's own shape goes through :meth:`assemble`)."""
+        out = unshard(self.mesh, self.blocks, self.spec, device)
+        _report_grid("coarse_gather", out)
+        return out
+
+    @classmethod
+    def scatter(cls, mesh: Mesh, x: torch.Tensor,
+                spec: PartitionSpec) -> "Blocks":
+        """:meth:`cut` of a coarse level's whole result back into blocks,
+        reported as ``"coarse_scatter"``."""
+        _report_grid("coarse_scatter", x)
+        return cls(shard(mesh, x, spec), NamedSharding(mesh, spec), x.shape)
 
     def like(self, blocks: Sequence[torch.Tensor]) -> "Blocks":
         """New blocks under this leaf's layout."""
@@ -578,9 +630,9 @@ for _name in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
               "__rmul__", "__truediv__", "__rtruediv__", "__neg__",
               "__pow__", "__rpow__", "__abs__", "__and__", "__or__",
               "__invert__", "__lt__", "__le__", "__gt__", "__ge__",
-              "abs", "square", "sqrt", "clone", "detach", "contiguous",
-              "float", "double", "isfinite", "sum", "max", "min",
-              "amax", "amin", "all", "any"):
+              "abs", "square", "sqrt", "exp", "sin", "cos", "clone",
+              "detach", "contiguous", "float", "double", "to", "isfinite",
+              "sum", "mean", "max", "min", "amax", "amin", "all", "any"):
     setattr(Blocks, _name, _tensor_method(_name))
 
 
@@ -639,12 +691,36 @@ def _distinct_shards(x: Blocks) -> List[int]:
 
 
 def _blocks_reduce(name: str, x: Blocks) -> torch.Tensor:
-    parts = smap(lambda ctx, b: getattr(torch, name)(b), x.mesh, x.blocks)
+    part = "sum" if name == "mean" else name
+    parts = smap(lambda ctx, b: getattr(torch, part)(b), x.mesh, x.blocks)
     dev = x.mesh.first_device
     keep = _distinct_shards(x)
     acc = parts[keep[0]].to(dev)
     for i in keep[1:]:
         acc = _REDUCE[name](acc, parts[i].to(dev))
+    if name == "mean":
+        acc = acc / math.prod(x.shape)
+    return acc
+
+
+def dots(pairs: Sequence[Tuple[Blocks, Blocks]]) -> torch.Tensor:
+    """``(K,)`` inner products of K pairs of Blocks of one layout: each
+    shard stacks its K partial products and sums them (one reduction a
+    shard), then the partial dots combine on the mesh's first device in
+    coordinate order, as :func:`_blocks_reduce` combines a sum."""
+    ref = _same_layout([b for pair in pairs for b in pair])
+    k = len(pairs)
+
+    def body(ctx, *bs):
+        return torch.stack([a * b for a, b in zip(bs[0::2], bs[1::2])]
+                           ).reshape(k, -1).sum(dim=1)
+
+    parts = smap(body, ref.mesh, *[b.blocks for pair in pairs for b in pair])
+    dev = ref.mesh.first_device
+    keep = _distinct_shards(ref)
+    acc = parts[keep[0]].to(dev)
+    for i in keep[1:]:
+        acc = acc + parts[i].to(dev)
     return acc
 
 
@@ -676,30 +752,37 @@ def ghost_fill(mesh: Mesh, blocks: Sequence[torch.Tensor], axis: AxisName,
     coordinate 0 (``side`` 0, lo) and p-1 (``side`` 1, hi) it gets the
     ring slab received there and the shard's own block, and returns the
     slab to use. Raises when ``width`` exceeds the block's extent there
-    (the ghosts would need a farther neighbour)."""
+    (the ghosts would need a farther neighbour).
+
+    A collective: the two ring moves are reported as two ppermutes, and
+    each shard's padded block is one concatenation of its neighbours'
+    slabs (moved to its device; read in place where the neighbour shares
+    it) and its own block."""
     n = blocks[0].shape[dim]
     if width > n:
         raise ValueError(
             f"ghost width {width} exceeds the block's extent {n} along "
             f"dimension {dim}: use fewer shards or a bigger grid")
     p = mesh.axis_size(axis)
-    top = smap(lambda ctx, f: f.narrow(dim, n - width, width), mesh, blocks)
-    bot = smap(lambda ctx, f: f.narrow(dim, 0, width), mesh, blocks)
-    lo = ppermute(mesh, top, axis, [(i, (i + 1) % p) for i in range(p)])
-    hi = ppermute(mesh, bot, axis, [(i, (i - 1) % p) for i in range(p)])
-    if edge is None:
-        return smap(lambda ctx, g0, f, g1: torch.cat([g0, f, g1], dim=dim),
-                    mesh, lo, blocks, hi)
-
-    def walled(ctx, g0, f, g1):
-        k = ctx.axis_index(axis)
-        if k == 0:
+    lo, hi, out = [], [], []
+    for i in range(mesh.size):
+        grp, k, dev = mesh.group(axis, i), mesh.axis_index(axis, i), \
+            mesh.device(i)
+        # each slab moves on its own: the two neighbours may lie on
+        # different devices (shards cycling over the GPUs)
+        g0 = blocks[grp[(k - 1) % p]].narrow(dim, n - width, width).to(dev)
+        g1 = blocks[grp[(k + 1) % p]].narrow(dim, 0, width).to(dev)
+        lo.append(g0)
+        hi.append(g1)
+        f = blocks[i]
+        if edge is not None and k == 0:
             g0 = edge(0, g0, f)
-        if k == p - 1:
+        if edge is not None and k == p - 1:
             g1 = edge(1, g1, f)
-        return torch.cat([g0, f, g1], dim=dim)
-
-    return smap(walled, mesh, lo, blocks, hi)
+        out.append(torch.cat([g0, f, g1], dim=dim))
+    _report("ppermute", lo)
+    _report("ppermute", hi)
+    return out
 
 
 def halo_add(mesh: Mesh, bufs: Sequence[torch.Tensor], axis: AxisName,
@@ -725,8 +808,81 @@ def halo_add(mesh: Mesh, bufs: Sequence[torch.Tensor], axis: AxisName,
     return smap(retire, mesh, bufs, from_next, from_prev)
 
 
+# the block origin of the halo body running now (:func:`block_origin`)
+_ORIGIN: List[Tuple[Tuple[int, int], ...]] = []
+
+
+def block_origin() -> Optional[Tuple[Tuple[int, int], ...]]:
+    """Inside a :func:`halo_apply` body: ``((offset, extent), ...)`` per
+    grid dimension -- the global index of the body's tensor's index 0
+    (negative on a padded lo edge) and the global extent there; None
+    outside one (a whole tensor starts at 0)."""
+    return _ORIGIN[-1] if _ORIGIN else None
+
+
+def global_positions(n: int, dim: int, device=None):
+    """``(index, extent)``: the global index of each of the ``n`` cells
+    along grid dimension ``dim`` of the tensor a stencil sees (a whole
+    tensor, or a halo body's padded block), and the global extent. The
+    wall masks and the red-black colouring read cells by these, so a
+    block's masks are true only where the whole grid's are."""
+    idx = torch.arange(n, device=device)
+    org = block_origin()
+    if org is None or dim >= len(org):
+        return idx, n
+    off, extent = org[dim]
+    return idx + off, extent
+
+
+@contextlib.contextmanager
+def _at_origin(origin):
+    _ORIGIN.append(origin)
+    try:
+        yield
+    finally:
+        _ORIGIN.pop()
+
+
+def halo_pad(mesh: Mesh, blocks, width: int, walls=None
+             ) -> List[Tuple[torch.Tensor, ...]]:
+    """Every shard's blocks of the leaves ``blocks`` (one layout) padded
+    by ``width`` ghost layers along each split dimension (the ghost fill
+    of :func:`halo_apply`), as one tuple a shard. Several leaves move
+    stacked, one concatenation a shard and split axis."""
+    ins = (blocks,) if isinstance(blocks, Blocks) else tuple(blocks)
+    ref = _same_layout(ins)
+    rules = [dict(w or {}) for w in (walls or (None,) * len(ins))]
+    if len(rules) != len(ins):
+        raise ValueError(f"{len(rules)} wall entries for {len(ins)} leaves")
+    dims = split_dims(ref.sharding, ref.ndim) if width else []
+    if len(ins) == 1:
+        padded = ins[0].blocks
+        for d, axis in dims:
+            rule = rules[0].get(d)
+            edge = None if rule is None else (
+                lambda side, ring, own, rule=rule, d=d:
+                rule(own, d, width, side))
+            padded = ghost_fill(mesh, padded, axis, d, width, edge)
+        return [(p,) for p in padded]
+    padded = smap(lambda ctx, *bs: torch.stack(bs), mesh,
+                  *[b.blocks for b in ins])
+    for d, axis in dims:
+        padded = ghost_fill(mesh, padded, axis, d + 1, width,
+                            _stacked_edge([r.get(d) for r in rules], d,
+                                          width))
+    return [p.unbind(0) for p in padded]
+
+
+def _origin(ref: Blocks, i: int, width: int):
+    """Shard ``i``'s padded-block origin for :func:`block_origin`."""
+    split = dict(split_dims(ref.sharding, ref.ndim))
+    index = ref.sharding.index(i, ref.shape)
+    return tuple((lo - width if d in split else 0, int(ref.shape[d]))
+                 for d, (lo, _) in enumerate(index))
+
+
 def halo_apply(mesh: Mesh, blocks, fn: Callable, width: int,
-               walls=None):
+               walls=None, extra=None):
     """A roll-form stencil of radius ``width`` on block-resident leaves.
 
     ``blocks`` is one :class:`Blocks` or a sequence of them (one layout);
@@ -741,6 +897,17 @@ def halo_apply(mesh: Mesh, blocks, fn: Callable, width: int,
     whole-tensor stencil's; only ghost cells wrap wrongly, and they go.
     Returns Blocks (or a tuple of them) under the inputs' layout.
 
+    While ``fn`` runs, :func:`block_origin` gives the padded block's
+    global origin, so a stencil that masks the cells next to a wall
+    (``ops/stencils.wall_boundary_masks``) masks them by their global
+    index: true on the edge shards only, where the whole grid's are.
+    Such a roll-and-mask stencil needs no wall rule (the ring ghosts are
+    the whole tensor's wrap). ``width`` 0 runs ``fn`` on the blocks as
+    they are (per-block masks, no exchange). ``extra[i]``, when given,
+    is a tuple of shard i's tensors already padded to its padded
+    extent, passed to ``fn`` after the leaves (coefficients padded
+    once).
+
     Physical walls: ``walls[k]`` (one entry per leaf, or None) maps a
     split tensor dimension to the rule that builds leaf k's ghosts at
     the mesh's edge shards there, ``rule(block, dim, width, side) ->
@@ -753,31 +920,22 @@ def halo_apply(mesh: Mesh, blocks, fn: Callable, width: int,
     ref = _same_layout(ins)
     if ref.mesh is not mesh:
         raise ValueError("halo_apply: the blocks are on another mesh")
-    dims = split_dims(ref.sharding, ref.ndim)
-    rules = [dict(w or {}) for w in (walls or (None,) * len(ins))]
-    if len(rules) != len(ins):
-        raise ValueError(f"{len(rules)} wall entries for {len(ins)} leaves")
-    padded = smap(lambda ctx, *bs: torch.stack(bs), mesh,
-                  *[b.blocks for b in ins])
-    for d, axis in dims:
-        padded = ghost_fill(mesh, padded, axis, d + 1, width,
-                            _stacked_edge([r.get(d) for r in rules], d,
-                                          width))
-    extent = {d: ref.blocks[0].shape[d] for d, _ in dims}
+    dims = split_dims(ref.sharding, ref.ndim) if width else []
+    padded = halo_pad(mesh, ins, width, walls)
+    crop = tuple(slice(width, width + ref.blocks[0].shape[d])
+                 if d in dict(dims) else slice(None)
+                 for d in range(ref.ndim))
     single = []
 
-    def body(ctx, pad):
-        out = fn(*pad.unbind(0))
+    def body(ctx, pad, *more):
+        with _at_origin(_origin(ref, ctx.index, width)):
+            out = fn(*pad, *(more[0] if more else ()))
         single.append(not isinstance(out, tuple))
         outs = (out,) if single[-1] else out
-        cropped = []
-        for o in outs:
-            for d, _ in dims:
-                o = o.narrow(d, width, extent[d])
-            cropped.append(o)
-        return cropped
+        return [o[crop] if dims else o for o in outs]
 
-    res = smap(body, mesh, padded)
+    lists = (padded,) if extra is None else (padded, list(extra))
+    res = smap(body, mesh, *lists)
     out = tuple(ref.like([r[k] for r in res]) for k in range(len(res[0])))
     return out[0] if single[0] else out
 
@@ -800,15 +958,15 @@ def _stacked_edge(rules, d: int, width: int) -> Optional[Callable]:
 def halo_stencil(fn: Callable, width: int) -> Callable:
     """``fn(x, *args)``, a roll-form stencil of radius ``width`` whose
     ``x`` is a tensor or a tuple of tensors (``ops/stencils.py``'s
-    signature), as the same stencil on Blocks through :func:`halo_apply`
-    (the mesh is the leaves' own). A non-Blocks ``x`` raises."""
+    signature), on either form of ``x``: called directly on whole
+    tensors, and through :func:`halo_apply` (on the leaves' own mesh)
+    when ``x`` is Blocks or a tuple of them."""
+    @functools.wraps(fn)
     def apply(x, *args, **kwargs):
-        one = isinstance(x, Blocks)
+        one = not isinstance(x, (tuple, list))
         first = x if one else x[0]
         if not isinstance(first, Blocks):
-            raise TypeError(
-                f"{getattr(fn, '__name__', fn)} on the block-resident "
-                f"path takes Blocks, got {type(first).__name__}")
+            return fn(x, *args, **kwargs)
         if one:
             def body(b):
                 return fn(b, *args, **kwargs)
@@ -817,7 +975,6 @@ def halo_stencil(fn: Callable, width: int) -> Callable:
                 return fn(bs, *args, **kwargs)
         return halo_apply(first.mesh, x, body, width)
 
-    apply.__name__ = f"halo_{getattr(fn, '__name__', 'stencil')}"
     return apply
 
 

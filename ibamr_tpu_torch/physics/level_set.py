@@ -12,6 +12,15 @@ calculus (port of ``ibamr_tpu/physics/level_set.py``).
 
 Interface calculus: smoothed Heaviside/delta, phase volume, curvature,
 the ingredients of the two-phase integrator (``integrators/ins_vc.py``).
+
+On block-resident leaves (``parallel.spmd.Blocks``) the interface
+functions act cell by cell, :func:`gradient_norm` and :func:`curvature`
+run as halo stencils (radius 1 and 2), and :func:`reinitialize`
+computes its frozen fields in one width-1 halo pass, then takes one
+width-1 halo pass of the Godunov Hamiltonian per iteration, in the
+whole-grid loop's order: the wall masks read global indices, so the
+result is bitwise the whole grid's. :func:`fast_sweeping_distance`
+sweeps slice by slice across every block and is not partitioned.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 
 from ibamr_tpu_torch.grid import StaggeredGrid
 from ibamr_tpu_torch.ops.stencils import central_grad, wall_boundary_masks
+from ibamr_tpu_torch.parallel.spmd import Blocks, halo_stencil
 
 
 # -- smoothed interface functions -------------------------------------------
@@ -55,6 +65,8 @@ def gradient_norm(phi: torch.Tensor, dx: Sequence[float],
                   wall_axes=None) -> torch.Tensor:
     """|grad phi| with central differences; one-sided at walls when
     ``wall_axes`` marks an axis wall-bounded."""
+    if isinstance(phi, Blocks):
+        return halo_stencil(gradient_norm, 1)(phi, dx, wall_axes=wall_axes)
     wall_axes = _walls(wall_axes, phi.ndim)
     out = torch.zeros_like(phi)
     for d in range(phi.ndim):
@@ -67,6 +79,8 @@ def curvature(phi: torch.Tensor, dx: Sequence[float],
               wall_axes=None) -> torch.Tensor:
     """Interface curvature kappa = div(grad phi / |grad phi|); one-sided
     wall differences when ``wall_axes`` is given."""
+    if isinstance(phi, Blocks):
+        return halo_stencil(curvature, 2)(phi, dx, wall_axes=wall_axes)
     dim = phi.ndim
     wall_axes = _walls(wall_axes, dim)
     grads = [central_grad(phi, d, dx[d], wall_axes[d]) for d in range(dim)]
@@ -130,12 +144,16 @@ def reinitialize(phi: torch.Tensor, dx: Sequence[float], iters: int = 40,
     phi0 = phi
     sgn = phi0 / torch.sqrt(phi0 * phi0 + h * h)
     sgn_hard = torch.where(phi0 >= 0.0, 1.0, -1.0).to(phi0.dtype)
-    near = _interface_cells(phi0, wall_axes=wall_axes)
-    g0 = torch.clamp(gradient_norm(phi0, dx, wall_axes=wall_axes), min=1e-8)
+    near, g0 = halo_stencil(
+        lambda q: (_interface_cells(q, wall_axes=wall_axes),
+                   gradient_norm(q, dx, wall_axes=wall_axes)), 1)(phi0)
+    g0 = torch.clamp(g0, min=1e-8)
     D = phi0 / g0
     p = phi
     for _ in range(int(iters)):
-        gm = _godunov_grad_mag(p, dx, sgn, wall_axes=wall_axes)
+        gm = halo_stencil(
+            lambda qs: _godunov_grad_mag(qs[0], dx, qs[1],
+                                         wall_axes=wall_axes), 1)((p, sgn))
         upd_far = p + dtau * sgn * (1.0 - gm)
         upd_near = p - dtau / h * (sgn_hard * torch.abs(p) - D)
         p = torch.where(near, upd_near, upd_far)
@@ -179,6 +197,11 @@ def fast_sweeping_distance(phi: torch.Tensor, dx: Sequence[float],
             "directional-sweep solver's cost is set by `sweeps` "
             "(grid-size independent), not a Jacobi iteration count",
             DeprecationWarning, stacklevel=2)
+    if isinstance(phi, Blocks):
+        raise TypeError(
+            "fast_sweeping_distance sweeps slice by slice along each axis "
+            "across every block: it is not partitioned (assemble the "
+            "level set first, or reinitialize it)")
     dim = phi.ndim
     wall_axes = tuple(bool(w) for w in _walls(wall_axes, dim))
     h = float(dx[0])

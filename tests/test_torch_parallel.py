@@ -16,9 +16,10 @@ that raised before the parallel layer was ported.
 - The ex4 driver sharded over an 8-shard CPU mesh reproduces the
   reference's ex4 main, which shards over the 8 host devices.
 - The dispatch table and its MRO walk, the generic wrapper, the
-  multibox placement, and the other families (adv-diff, L-level
-  adv-diff and INS, LES, CIB, open INS), each held against the
-  reference's single-device step and against its own plain step.
+  multibox placement, and the other families (adv-diff, block-resident
+  since the two-phase slice, L-level adv-diff and INS, LES, CIB, open
+  INS), each held against the reference's single-device step and
+  against its own plain step.
 - The removed raises: ``build_dense_coarse_solver`` and
   ``build_dense_root_solver`` build the reference's dense-periodic
   inverses (held against the reference's within 1e-12), and the
@@ -321,8 +322,8 @@ def test_block_resident_path_refuses_what_it_cannot_partition():
     cannot partition: the IB step without the co-partitioned transfers
     (periodic or walled), an indivisible grid, a block thinner than the
     convection's ghost width, and on a wall axis one thinner than that
-    width plus the cell the pinned wall ghosts read. A family not yet
-    partitioned (variable-coefficient INS) keeps the pinned form."""
+    width plus the cell the pinned wall ghosts read. The two-phase step
+    is block-resident too; its open outlet keeps the pinned form."""
     from ibamr_tpu_torch.integrators.ib import IBExplicitIntegrator
     from ibamr_tpu_torch.integrators.ins_vc import INSVCStaggeredIntegrator
     from ibamr_tpu_torch.parallel.mesh import (_block_fluid,
@@ -361,11 +362,22 @@ def test_block_resident_path_refuses_what_it_cannot_partition():
     with pytest.raises(ValueError, match="co-partitioned"):
         make_sharded_ib_step(ib, make_mesh(4, device="cpu"),
                              sharded_markers=False)
+    # the two-phase step is block-resident; its open outlet (axis-0
+    # face-complete assemblies) is what keeps the pinned form
     vc = INSVCStaggeredIntegrator(g, rho0=1.0, rho1=1.0, mu0=0.01,
                                   mu1=0.01, dtype=torch.float64,
                                   precond="fft", device="cpu")
     out = make_sharded_step(vc, make_mesh(4, device="cpu"))(
         vc.initialize(torch.full((16, 16), 0.1, dtype=torch.float64)), 1e-3)
+    assert isinstance(out.u[0], spmd.Blocks)
+    assert out.u[0].mesh.size == 4
+    outlet = INSVCStaggeredIntegrator(g, rho0=1.0, rho1=1.0, mu0=0.01,
+                                      mu1=0.01, dtype=torch.float64,
+                                      open_outlet=True,
+                                      wall_axes=(False, True), device="cpu")
+    out = make_sharded_step(outlet, make_mesh(4, device="cpu"))(
+        outlet.initialize(torch.full((16, 16), 0.1, dtype=torch.float64)),
+        1e-3)
     assert isinstance(out.u[0], torch.Tensor)
     assert spmd.sharding_of(out.u[0]).mesh.size == 4
 
@@ -396,7 +408,7 @@ def test_dispatch_table_mro_and_generic_wrapper():
         vc.initialize(torch.tensor(0.1 - np.sqrt((X - 0.5) ** 2
                                                  + (Y - 0.5) ** 2))), 1e-3)
     assert bool(torch.isfinite(out.u[0]).all())
-    assert spmd.sharding_of(out.u[0]).mesh is mesh
+    assert isinstance(out.u[0], spmd.Blocks) and out.u[0].mesh is mesh
 
     class Minimal:
         grid = g
